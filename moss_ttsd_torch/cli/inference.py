@@ -1,0 +1,140 @@
+"""JSONL batch inference CLI for the PyTorch port.
+
+Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
+--output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
+--platform). Runs on the CUDA card unless ``--platform cpu``. ``--tiny``
+runs tiny random-weight models (no checkpoint needed).
+
+    python -m moss_ttsd_torch.cli.inference --jsonl examples/examples_only_text.jsonl \\
+        --tiny --platform cpu --output_dir outputs --max_new_tokens 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+MODEL_PATH = "fnlp/MOSS-TTSD-v0.5"
+SPT_CONFIG_PATH = "XY_Tokenizer/config/xy_tokenizer_config.yaml"
+SPT_CHECKPOINT_PATH = "XY_Tokenizer/weights/xy_tokenizer.ckpt"
+
+
+def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda"):
+    """Random tiny LM + codec + mock tokenizer wired into the real pipeline
+    (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
+    from ..core.config import (ChannelSamplingConfig, CodecConfig, LMConfig,
+                               SamplingConfig)
+    from ..core.device import resolve_device
+    from ..models.codec.model import XYTokenizer
+    from ..models.lm import AsteroidLM
+    from ..pipeline.batch import TTSPipeline
+    from ..utils.mock_tokenizer import MockTokenizer
+
+    dev = resolve_device(device)
+    tokenizer = MockTokenizer()
+    # speech range dominates the tiny vocab so a random model emits speech
+    lm_cfg = LMConfig(dtype="float32", param_dtype="float32").tiny(
+        vocab_size=300, speech_vocab_size=65, speech_pad_token=64,
+        speech_token_range=(0, 290), eos_token_id=290,
+        pad_token_id=tokenizer.pad_token_id)
+    model = AsteroidLM.init_random(lm_cfg, seed=seed, device=dev)
+    spt = XYTokenizer.init_random(CodecConfig().tiny(), seed=seed, device=dev)
+    sampling = SamplingConfig(
+        channels=[ChannelSamplingConfig(do_sample=True, temperature=1.0,
+                                        top_k=30, top_p=0.95)
+                  for _ in range(lm_cfg.channels)],
+        max_new_tokens=64)
+    return TTSPipeline(tokenizer, lm_cfg, model, spt, sampling, bucket=bucket,
+                       device=dev)
+
+
+def _not_yet(parser, flag: str):
+    parser.error(f"{flag} is not yet ported to moss_ttsd_torch")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="MOSS-TTSD inference (PyTorch / CUDA port)")
+    parser.add_argument("--jsonl", default="examples/examples.jsonl")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--output_dir", default="outputs")
+    parser.add_argument("--summary_file", default=None)
+    parser.add_argument("--use_normalize", action="store_true", default=False)
+    parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
+    parser.add_argument("--model_path", default=MODEL_PATH)
+    parser.add_argument("--spt_config", default=SPT_CONFIG_PATH)
+    parser.add_argument("--spt_ckpt", default=SPT_CHECKPOINT_PATH)
+    parser.add_argument("--max_new_tokens", type=int, default=None)
+    parser.add_argument("--tiny", action="store_true",
+                        help="run with tiny random models (smoke test)")
+    parser.add_argument("--platform", choices=["default", "cpu"],
+                        default="default",
+                        help="default = the CUDA card; cpu = run on the CPU")
+    # flags of the JAX CLI that this port does not implement yet: accepted
+    # so they fail loudly instead of being silently ignored
+    parser.add_argument("--quant", default=None)
+    parser.add_argument("--mesh", default=None)
+    parser.add_argument("--lora_adapter", action="append", default=[])
+    parser.add_argument("--attn_impl", default=None)
+    parser.add_argument("--restricted_text_head", action="store_true")
+    parser.add_argument("--profile_dir", default=None)
+    args = parser.parse_args(argv)
+
+    for flag, val in (("--quant", args.quant), ("--mesh", args.mesh),
+                      ("--lora_adapter", args.lora_adapter),
+                      ("--restricted_text_head", args.restricted_text_head),
+                      ("--profile_dir", args.profile_dir)):
+        if val:
+            _not_yet(parser, flag)
+    if args.attn_impl not in (None, "mixed", "pallas"):
+        _not_yet(parser, f"--attn_impl {args.attn_impl}")
+
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    if args.tiny:
+        pipe = build_tiny_pipeline(seed=args.seed or 0, device=device)
+    else:
+        raise SystemExit(
+            "loading a real checkpoint is not yet ported: it needs the HF LM "
+            f"directory ({args.model_path}), its Qwen tokenizer and the "
+            f"XY-Tokenizer checkpoint ({args.spt_ckpt}); use --tiny")
+
+    from ..utils.audio_io import write_wav
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(args.jsonl) as f:
+        items = [json.loads(line) for line in f if line.strip()]
+    print(f"Loaded {len(items)} items from {args.jsonl}")
+    texts_data, audio_results = pipe.process_batch(
+        items, use_normalize=args.use_normalize,
+        max_new_tokens=args.max_new_tokens, seed=args.seed or 0)
+
+    if args.summary_file:
+        with open(args.summary_file, "w", encoding="utf-8") as f:
+            for t in texts_data:
+                f.write(json.dumps({
+                    "text": t.get("original_text"),
+                    "normalized_text": t.get("normalized_text"),
+                    "final_text": t.get("final_text"),
+                    **({"error": t["error"]} if "error" in t else {}),
+                }, ensure_ascii=False) + "\n")
+        print(f"Saved summary to {args.summary_file}")
+
+    saved = 0
+    for idx, res in enumerate(audio_results):
+        if res is None:
+            print(f"Skipping sample {idx} (no valid speech tokens)")
+            continue
+        out = os.path.join(args.output_dir, f"output_{idx}.wav")
+        write_wav(out, res["audio_data"], res["sample_rate"])
+        print(f"Saved audio to {out}")
+        saved += 1
+
+    print(f"Phase timings: {pipe.timings.as_dict()}")
+    print(f"Inference completed. Saved {saved}/{len(items)} audio files to "
+          f"{args.output_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

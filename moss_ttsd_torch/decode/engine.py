@@ -1,0 +1,286 @@
+"""Autoregressive generation engine, PyTorch port of
+``moss_ttsd_tpu/decode/engine.py`` (the static-batch ``generate``).
+
+Prefill runs the left-padded, bucketed prompt through the LM once; a
+host-driven step loop (the JAX ``while_loop``) then runs the decode
+``_step`` until the step budget or until every row finished. All of the
+reference's delay-pattern control flow stays on the device as tensor ops:
+
+  * teacher-forcing window — channels > s of the first C-1 steps come from
+    the shifted prompt tail;
+  * per-channel hard masks — pad forbidden on channel i once its delay has
+    elapsed, end-of-speech forbidden on channel 0 inside the TF window;
+  * EOS flush — a non-speech channel-0 token starts a (C-1)-step staggered
+    pad flush tracked by an integer countdown; finished rows emit eos/pad.
+
+Shapes stay static: the prompt bucket, ``buf_steps`` (the token buffer and
+the full-capacity KV cache) and a per-step decode extent ``cur_len + 1``
+passed to the extent-clamped decode kernel. Each decode step makes exactly
+one host sync, the ``unfinished.any()`` loop test (counted on the card by
+``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core.config import LMConfig, SamplingConfig
+from ..core.device import DeviceLike, resolve_device, torch_dtype
+from ..models.lm import AsteroidLM, init_cache
+from ..ops.attention import NEG_INF
+from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
+                            presence_from_history, sample_from_channel,
+                            scatter_presence)
+
+class GenerateResult(NamedTuple):
+    tokens: np.ndarray       # (B, base + steps, C) — prompt-minus-tail + generated
+    steps: int               # decode steps actually run
+    base: int                # index of the first generated row (bucketed L - C + 1)
+
+
+@dataclasses.dataclass
+class DecodeState:
+    step: int
+    tokens: torch.Tensor         # (B, S, C) token buffer
+    cache: dict                  # {"k","v"} (L, B, Hkv, S, D)
+    key_valid: torch.Tensor      # (B, S) bool
+    hidden_last: torch.Tensor    # (B, 1, H)
+    last_pos: torch.Tensor       # (B,) last RoPE position used
+    needs: torch.Tensor          # (B,) EOS-flush countdown, -1 = inactive
+    unfinished: torch.Tensor     # (B,) bool
+    presence_text: torch.Tensor  # (B, V_text) bool
+    presence_speech: torch.Tensor  # (B, C-1, V_speech) bool
+
+
+def sample_channels(gen, text_logits, speech_logits, presence_text,
+                    presence_speech, srow: int, ch_params, prefilter,
+                    approx_topk, eos, pad_speech):
+    """One sampling round -> next_tokens (B, C)."""
+    lg = channel_logits(text_logits, speech_logits, presence_text,
+                        presence_speech, srow, ch_params, eos, pad_speech)
+    return torch.stack([sample_from_channel(gen, x, ch_params[i], prefilter,
+                                            approx_topk)
+                        for i, x in enumerate(lg)], dim=-1)
+
+
+def channel_logits(text_logits, speech_logits, presence_text,
+                   presence_speech, srow: int, ch_params, eos, pad_speech):
+    """The masked + penalized per-channel logits the draws see (the JAX
+    ``_sample_channels_body`` chain): channel 0 gets -1e30 on eos inside the
+    TF window, channel i >= 1 on the speech pad once its delay elapsed; then
+    the repetition penalty."""
+    C = len(ch_params)
+    t = text_logits.clone()
+    if srow < C - 1:
+        t[:, eos] += NEG_INF
+    out = [apply_repetition_penalty(t, presence_text,
+                                    ch_params[0].repetition_penalty)]
+    for i in range(1, C):
+        sl = speech_logits[:, i - 1]
+        if srow >= i:
+            sl = sl.clone()
+            sl[:, pad_speech] += NEG_INF
+        out.append(apply_repetition_penalty(sl, presence_speech[:, i - 1],
+                                            ch_params[i].repetition_penalty))
+    return out
+
+
+class GenerationEngine:
+    """Prefill + decode loop over a static-shape KV cache.
+
+    ``params``: an ``AsteroidLM`` (used as is) or a state dict for one. The
+    weights are cast once to ``cfg.dtype`` (the decode step is
+    weight-bandwidth-bound). The KV cache is stored in ``cfg.dtype`` too:
+    the kernels read it in the compute dtype."""
+
+    def __init__(self, cfg: LMConfig,
+                 params: Union[AsteroidLM, dict],
+                 sampling: Optional[SamplingConfig] = None,
+                 bucket: int = 128, step_bucket: int = 256,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        if isinstance(params, AsteroidLM):
+            model = params
+        else:
+            with torch.device(self.device):
+                model = AsteroidLM(cfg)
+            model.load_state_dict(params)
+        self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.model.requires_grad_(False)
+        self.cache_dtype = dtype
+        self.sampling = sampling or SamplingConfig.default(cfg.channels)
+        if step_bucket < cfg.channels - 1:
+            raise ValueError(
+                f"step_bucket={step_bucket} must be >= channels-1 "
+                f"({cfg.channels - 1}) to hold the teacher-forcing tail")
+        self.bucket = bucket
+        self.step_bucket = step_bucket
+        self.ch_params: List[ChannelParams] = [
+            ChannelParams.from_config(c, exact_top_p=self.sampling.exact_top_p)
+            for c in self.sampling.channels]
+        # host-clock split of the last generate() (prefill / decode loop)
+        self.last_stats: dict = {}
+
+    # -- budget / bucketing (host) -------------------------------------------
+
+    def _step_budget(self, max_new_tokens: Optional[int], prompt_len: int):
+        """(steps to run, buffer capacity): HF max_length counts from the
+        prompt minus its C-1 teacher-forcing rows; a prompt already at
+        max_length gets 0 steps. Capacity is bucketed upward."""
+        if max_new_tokens is not None and max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        steps = (self.sampling.max_new_tokens if max_new_tokens is None
+                 else max_new_tokens)
+        if self.sampling.max_length is not None and max_new_tokens is None:
+            counted = prompt_len - (self.cfg.channels - 1)
+            steps = min(steps, max(0, self.sampling.max_length - counted))
+        sb = self.step_bucket
+        buf = max(sb, -(-steps // sb) * sb)
+        return steps, buf
+
+    def _bucket_prompt(self, input_ids: np.ndarray, attention_mask: np.ndarray):
+        """Left-pad the prompt to a bucket multiple; returns (ids, mask, base)."""
+        C = self.cfg.channels
+        B, L, _ = input_ids.shape
+        L_b = max(self.bucket, -(-L // self.bucket) * self.bucket)
+        pad = L_b - L
+        if pad:
+            pad_ids = np.zeros((B, pad, C), input_ids.dtype)
+            pad_ids[..., 0] = self.cfg.pad_token_id
+            pad_ids[..., 1:] = self.cfg.speech_pad_token
+            input_ids = np.concatenate([pad_ids, input_ids], axis=1)
+            attention_mask = np.concatenate(
+                [np.zeros((B, pad), attention_mask.dtype), attention_mask],
+                axis=1)
+        return input_ids, attention_mask, L_b - C + 1
+
+    # -- device programs -----------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, tokens_full: torch.Tensor, attn_mask: torch.Tensor,
+                base: int, buf_steps: int) -> DecodeState:
+        """tokens_full (B, L, C) shifted prompt (bucketed, left-padded);
+        attn_mask (B, L) 1 = real. Runs the first ``base`` rows (the
+        reference drops the last C-1 before its loop) into a fresh cache."""
+        cfg, dev = self.cfg, self.device
+        C = cfg.channels
+        B, L, _ = tokens_full.shape
+        S = base + buf_steps
+        buf = torch.zeros((B, S, C), dtype=torch.int64, device=dev)
+        buf[:, :L] = tokens_full
+        m = attn_mask[:, :base].to(torch.int64)
+        positions = (torch.cumsum(m, dim=1) - 1).clamp_min(0)
+        key_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        key_valid[:, :base] = m.to(torch.bool)
+        cache = init_cache(cfg, B, S, self.cache_dtype, dev)
+        hidden, cache = self.model.backbone(buf[:, :base], positions,
+                                            key_valid, cache, 0)
+        return DecodeState(
+            step=0, tokens=buf, cache=cache, key_valid=key_valid,
+            hidden_last=hidden[:, -1:], last_pos=positions[:, -1].clone(),
+            needs=torch.full((B,), -1, dtype=torch.int64, device=dev),
+            unfinished=torch.ones((B,), dtype=torch.bool, device=dev),
+            presence_text=presence_from_history(buf[:, :base, 0],
+                                                cfg.vocab_size),
+            presence_speech=torch.stack(
+                [presence_from_history(buf[:, :base, i],
+                                       cfg.speech_vocab_size)
+                 for i in range(1, C)], dim=1))
+
+    @torch.no_grad()
+    def _step(self, st: DecodeState, base: int,
+              gen: Optional[torch.Generator]) -> None:
+        """One decode step, in place on ``st`` (JAX engine ``body``)."""
+        cfg = self.cfg
+        C = cfg.channels
+        s = st.step
+        cur_len = base + s
+        eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
+        speech_lo, speech_hi = cfg.speech_token_range
+        text_logits, speech_logits = self.model.logits_all(st.hidden_last)
+        next_tokens = sample_channels(
+            gen, text_logits[:, 0], speech_logits[:, 0], st.presence_text,
+            st.presence_speech, s, self.ch_params,
+            self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
+            pad_speech)                                          # (B, C)
+
+        # EOS detection on the sampled channel 0
+        tok0 = next_tokens[:, 0]
+        is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
+        needs = torch.where((~is_speech) & (st.needs < 0),
+                            torch.full_like(st.needs, C - 1), st.needs)
+
+        # teacher forcing: while s < C-1, channels > s come from the prompt
+        chan = torch.arange(C, device=self.device)
+        if s < C - 1:
+            tf_row = st.tokens[:, cur_len]
+            next_tokens = torch.where(chan[None, :] > s, tf_row, next_tokens)
+
+        # staggered EOS flush, then finished rows emit eos/pad
+        fill = torch.where(chan == 0, eos, pad_speech)[None, :]
+        flushing = (needs > 0) & (needs < C - 1)
+        flush_chan = (chan[None, :] == 0) | (needs[:, None] < C - chan[None, :])
+        next_tokens = torch.where(flushing[:, None] & flush_chan, fill,
+                                  next_tokens)
+        next_tokens = torch.where(st.unfinished[:, None], next_tokens, fill)
+
+        st.tokens[:, cur_len] = next_tokens
+        scatter_presence(st.presence_text, next_tokens[:, 0])
+        scatter_presence(st.presence_speech, next_tokens[:, 1:])
+        needs = torch.where(needs > 0, needs - 1, needs)
+        stopping = (next_tokens[:, 0] == eos) | (needs == 0)
+        st.unfinished = (st.unfinished & ~stopping) | (needs > 0)
+        st.needs = needs
+
+        # forward the new token: cache write at cur_len, extent cur_len + 1
+        st.key_valid[:, cur_len] = True
+        st.last_pos = st.last_pos + 1
+        hidden, _ = self.model.backbone(
+            next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
+            st.cache, cur_len)
+        st.hidden_last = hidden
+        st.step = s + 1
+
+    def run(self, st: DecodeState, base: int, upto: int,
+            gen: Optional[torch.Generator]) -> DecodeState:
+        """Decode until step == upto or every row finished. The
+        ``unfinished.any()`` test is the step's one host sync."""
+        while st.step < upto and bool(st.unfinished.any()):
+            self._step(st, base, gen)
+        return st
+
+    def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                 max_new_tokens: Optional[int] = None,
+                 seed: int = 0) -> GenerateResult:
+        """input_ids: (B, L, C) delay-shifted prompt, left-padded;
+        attention_mask: (B, L). Returns the prompt-minus-tail plus the
+        generated rows, sliced on the host."""
+        max_steps, buf_steps = self._step_budget(max_new_tokens,
+                                                 input_ids.shape[1])
+        input_ids, attention_mask, base = self._bucket_prompt(input_ids,
+                                                              attention_mask)
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        t0 = time.perf_counter()
+        st = self.prefill(torch.as_tensor(input_ids, device=dev),
+                          torch.as_tensor(attention_mask, device=dev),
+                          base, buf_steps)
+        if dev.type == "cuda":      # the loop's first any() test syncs anyway
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        st = self.run(st, base, max_steps, gen)
+        tokens = st.tokens.cpu().numpy()
+        self.last_stats = {
+            "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
+            "steps": st.step, "base": base, "buf_steps": buf_steps,
+            "batch": int(input_ids.shape[0]),
+            "left_pad": (attention_mask[:, :base] == 0).sum(axis=1).tolist()}
+        return GenerateResult(tokens=tokens[:, :base + st.step],
+                              steps=st.step, base=base)

@@ -1,0 +1,267 @@
+"""XYTokenizer, decode side: PyTorch port of
+``moss_ttsd_tpu/models/codec/model.py`` (codes -> 24 kHz wav).
+
+codes -> ResidualVQ.decode (fp32) -> post-RVQ adapter -> x4 upsample ->
+acoustic decoder (100 Hz) -> Vocos -> 24 kHz wav. Long outputs are
+vocoded in 30 s windows with an overlap (the reference's chunking
+contract), each window one batched call on static shapes; a partial final
+window runs through the smallest quarter-window bucket that holds it.
+
+The encode side (wav -> codes) belongs to the voice-cloning slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...core.config import CodecConfig
+from ...core.device import DeviceLike, resolve_device, torch_dtype
+from .rvq import ResidualVQ
+from .transformer import AdapterTransformer, AudioDecoder, Upsample
+from .vocos import Vocos
+
+
+class XYTokenizerModule(nn.Module):
+    """The decode half of the codec network."""
+
+    def __init__(self, cfg: CodecConfig):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        self.quantizer = ResidualVQ(c.quantizer)
+        self.post_rvq_adapter = AdapterTransformer(c.post_rvq_adapter)
+        self.upsample = Upsample(c.upsample_d_model, c.upsample_stride)
+        self.acoustic_decoder = AudioDecoder(c.acoustic_decoder)
+        self.vocos = Vocos(c.vocos)
+
+    def detokenize(self, codes: torch.Tensor, codes_lengths: torch.Tensor):
+        """codes (nq, B, T') -> dict(wav (B, T' * upsample), wav_lengths)."""
+        zq = self.quantizer.decode(codes)                  # fp32 RVQ island
+        zq = zq.to(torch_dtype(self.cfg.dtype))
+        h, h_len = self.post_rvq_adapter(zq, codes_lengths)
+        h, h_len = self.upsample(h, h_len)                 # 12.5 -> 50 Hz
+        h, h_len = self.acoustic_decoder(h, h_len)         # 50 -> 100 Hz
+        wav, wav_len = self.vocos(h, h_len)                # 100 Hz -> 24 kHz
+        return {"wav": wav, "wav_lengths": wav_len}
+
+    def detokenize16(self, codes: torch.Tensor, codes_lengths: torch.Tensor):
+        """int16-PCM variant: quantized on the device (half the readback
+        bytes; audio is written as 16-bit PCM anyway)."""
+        out = self.detokenize(codes, codes_lengths)
+        pcm = torch.clamp(out["wav"], -1.0, 1.0) * 32767.0
+        return {"wav": pcm.to(torch.int16), "wav_lengths": out["wav_lengths"]}
+
+
+def _cast_infer_params(module: XYTokenizerModule, dtype: torch.dtype) -> None:
+    """Cast every floating parameter except the quantizer subtree to the
+    compute dtype, in place; buffers (the fp32 position tables) stay fp32."""
+    for name, p in module.named_parameters():
+        if not name.startswith("quantizer.") and p.dtype == torch.float32:
+            p.data = p.data.to(dtype)
+
+
+def _init_random(module: XYTokenizerModule, seed: int, device) -> None:
+    """Seeded random weights made on ``device``: matrices N(0, 1/fan_in),
+    codebooks N(0, 1), LayerNorm 1/0, biases 0, layer-scale gammas kept."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name == "quantizer.codebook":
+                p.normal_(0.0, 1.0, generator=gen)
+            elif leaf == "gamma":
+                p.fill_(1.0 / module.cfg.vocos.num_layers)
+            elif leaf in ("bias", "q_b", "v_b", "o_b"):
+                p.zero_()
+            elif p.ndim == 1:                        # LayerNorm weights
+                p.fill_(1.0)
+            else:
+                if leaf in ("q_w", "k_w", "v_w", "o_w"):
+                    fan_in = p.shape[0]
+                elif isinstance(module.get_submodule(name.rsplit(".", 1)[0]),
+                                nn.ConvTranspose1d):
+                    fan_in = p.shape[0] * p.shape[2]
+                else:
+                    fan_in = int(np.prod(p.shape[1:]))
+                p.normal_(0.0, fan_in ** -0.5, generator=gen)
+
+
+class XYTokenizer:
+    """User-facing codec decode with the reference's chunked API.
+
+    ``params``: an ``XYTokenizerModule`` or a state dict for one (fp32
+    master weights). ``dtype="bfloat16"`` runs the forward in bf16 with the
+    reference's fp32 islands (RVQ, position adds, softmax, LayerNorm
+    statistics, the ISTFT). TF32: the serving configuration runs the codec
+    in bf16, where TF32 does not apply; an fp32 codec on the card follows
+    PyTorch's flags (by default cuDNN convolutions in TF32, matmuls in full
+    fp32), which a caller that needs full fp32 turns off, as
+    ``chip_smoke.py`` does."""
+
+    def __init__(self, cfg: CodecConfig,
+                 params: Union[XYTokenizerModule, dict],
+                 chunk_seconds: int = 30, dtype: Optional[str] = None,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        self.cfg = cfg
+        if isinstance(params, XYTokenizerModule):
+            module = params
+            module.cfg = cfg
+        else:
+            with torch.device(self.device):
+                module = XYTokenizerModule(cfg)
+            module.load_state_dict(params)
+        module = module.to(self.device).eval().requires_grad_(False)
+        cd = torch_dtype(cfg.dtype)
+        if cd != torch.float32:
+            _cast_infer_params(module, cd)
+        self.module = module
+        self.input_sample_rate = cfg.input_sample_rate
+        self.output_sample_rate = cfg.output_sample_rate
+        self.encoder_downsample_rate = cfg.encoder_downsample_rate
+        self.decoder_upsample_rate = cfg.decoder_upsample_rate
+        self.nq = cfg.quantizer.num_quantizers
+        self.chunk_seconds = chunk_seconds
+        self.chunk_samples = chunk_seconds * cfg.input_sample_rate
+        self.chunk_codes = self.chunk_samples // cfg.encoder_downsample_rate
+
+    @classmethod
+    def init_random(cls, cfg: CodecConfig, seed: int = 0,
+                    dtype: Optional[str] = None,
+                    device: DeviceLike = "cuda") -> "XYTokenizer":
+        dev = resolve_device(device)
+        with torch.device(dev):
+            module = XYTokenizerModule(cfg)
+        module = module.to(dev)              # the position tables too
+        _init_random(module, seed, dev)
+        return cls(cfg, module, dtype=dtype, device=dev)
+
+    @torch.no_grad()
+    def _detokenize(self, codes: np.ndarray, lens: np.ndarray, pcm16: bool):
+        fn = self.module.detokenize16 if pcm16 else self.module.detokenize
+        return fn(torch.as_tensor(codes, device=self.device),
+                  torch.as_tensor(lens, device=self.device))
+
+    def decode(self, codes_list: List[np.ndarray], overlap_seconds: int = 10,
+               pcm16: bool = False, rows_per_call: Optional[int] = None,
+               len_buckets: Optional[str] = "auto"):
+        """codes_list: B * (nq, T) -> {"syn_wav_list": B * (T*1920,) 24 kHz}.
+
+        One feed of everything through ``IncrementalDecoder``. pcm16=True
+        quantizes to int16 on the device; rows_per_call splits each window's
+        batch into calls of at most N rows; len_buckets="auto" runs a
+        partial final window through the smallest quarter-window bucket."""
+        inc = self.incremental_decoder(overlap_seconds, pcm16, rows_per_call,
+                                       len_buckets)
+        return inc.finish(codes_list)
+
+    def incremental_decoder(self, overlap_seconds: int = 10,
+                            pcm16: bool = False,
+                            rows_per_call: Optional[int] = None,
+                            len_buckets: Optional[str] = "auto"
+                            ) -> "IncrementalDecoder":
+        return IncrementalDecoder(self, overlap_seconds, pcm16, rows_per_call,
+                                  len_buckets)
+
+
+def quarter_window_buckets(chunk_codes: int):
+    """Quarter-window bucket ladder for partial windows."""
+    return sorted({-(-chunk_codes * q // 4) for q in (1, 2, 3, 4)})
+
+
+def chunk_stride_codes(spt: "XYTokenizer", overlap_seconds: int) -> int:
+    """Codes each decode window advances (window minus overlap), the
+    reference's formula ((30 - overlap) * sr) // dsr."""
+    return ((spt.chunk_seconds - overlap_seconds) * spt.input_sample_rate
+            ) // spt.encoder_downsample_rate
+
+
+class IncrementalDecoder:
+    """Chunked detokenization: ``feed`` dispatches every 30 s window that
+    has become immutable for every row; ``finish`` dispatches the rest and
+    assembles {"syn_wav_list": ...}. Device calls are queued before any
+    readback, so early windows' copies overlap later windows' compute."""
+
+    def __init__(self, spt: XYTokenizer, overlap_seconds: int = 10,
+                 pcm16: bool = False, rows_per_call: Optional[int] = None,
+                 len_buckets: Optional[str] = "auto"):
+        self.spt = spt
+        self.len_buckets = (quarter_window_buckets(spt.chunk_codes)
+                            if len_buckets == "auto" else [spt.chunk_codes])
+        self.duration_codes = chunk_stride_codes(spt, overlap_seconds)
+        if self.duration_codes <= 0:
+            raise ValueError(
+                f"overlap_seconds={overlap_seconds} leaves no stride on a "
+                f"{spt.chunk_seconds}s codec window")
+        self.duration_wav = self.duration_codes * spt.decoder_upsample_rate
+        self.pcm16 = pcm16
+        self.rows_per_call = rows_per_call
+        self.next_chunk = 0
+        self.pending: list = []     # (chunk_index, row_slice, device_out)
+
+    def _dispatch(self, codes_list, lengths: np.ndarray, ci: int) -> None:
+        spt = self.spt
+        B = len(codes_list)
+        start = ci * self.duration_codes
+        chunk_lens = np.clip(lengths - start, 0, spt.chunk_codes)
+        L = next(b for b in self.len_buckets if b >= int(chunk_lens.max()))
+        chunk = np.zeros((spt.nq, B, L), np.int64)
+        for b, c in enumerate(codes_list):
+            seg = np.asarray(c, np.int64)[:, start:start + L]
+            chunk[:, b, :seg.shape[-1]] = seg
+        step = self.rows_per_call or B
+        for g0 in range(0, B, step):
+            g1 = min(g0 + step, B)
+            out = spt._detokenize(chunk[:, g0:g1], chunk_lens[g0:g1],
+                                  self.pcm16)
+            self.pending.append((ci, slice(g0, g1), out))
+
+    def feed(self, codes_list: List[np.ndarray],
+             finished: Optional[List[bool]] = None) -> int:
+        """Dispatch every window that has become immutable (rows only grow
+        between calls). Returns the number of windows dispatched so far."""
+        B = len(codes_list)
+        lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
+        fin = finished if finished is not None else [True] * B
+        while True:
+            start = self.next_chunk * self.duration_codes
+            window_done = all(
+                fin[b] or lengths[b] >= start + self.spt.chunk_codes
+                for b in range(B))
+            if not window_done or not bool((lengths > start).any()):
+                break
+            self._dispatch(codes_list, lengths, self.next_chunk)
+            self.next_chunk += 1
+        return self.next_chunk
+
+    def finish(self, codes_list: List[np.ndarray]) -> dict:
+        B = len(codes_list)
+        code_lengths = np.array([c.shape[-1] for c in codes_list], np.int64)
+        self.feed(codes_list, [True] * B)
+        wav_chunks = [np.zeros((B, self.duration_wav), np.float32)
+                      for _ in range(self.next_chunk)]
+        for ci, rows, out in self.pending:
+            wav = out["wav"].cpu().numpy()
+            if self.pcm16:
+                wav = wav.astype(np.float32) / 32768.0
+            wav_lens = np.clip(out["wav_lengths"].cpu().numpy(), 0,
+                               self.duration_wav)
+            valid = wav_chunks[ci]
+            for gi, b in enumerate(range(rows.start, rows.stop)):
+                n = int(wav_lens[gi])
+                if n > 0:
+                    valid[b, :n] = wav[gi, :n].astype(np.float32)
+        if wav_chunks:
+            full = np.concatenate(wav_chunks, axis=-1)
+            up = self.spt.decoder_upsample_rate
+            syn = [full[b, :int(code_lengths[b] * up)] for b in range(B)]
+        else:
+            syn = [np.zeros((0,), np.float32) for _ in range(B)]
+        return {"syn_wav_list": syn}

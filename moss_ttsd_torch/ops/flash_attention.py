@@ -1,0 +1,323 @@
+"""Flash attention for the LM: Hopper kernels plus their plain versions.
+
+Ports the two TPU kernels of the main path
+(``moss_ttsd_tpu/ops/pallas_attention.py``):
+
+  * ``flash_prefill``   — causal GQA prefill attention
+                          (CUDA: ``csrc/flash_prefill.cu``);
+  * ``flash_decode_hs`` — single-query GQA decode over the head-major cache,
+                          extent-clamped (CUDA: ``csrc/flash_decode.cu``).
+
+A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
+tensor goes to the plain PyTorch version beside it, which is also the
+kernel's oracle on the card. Both compute the softmax in fp32 and give 0 for
+a query row with no valid key (the TPU kernels' finite ``NEG_INF`` /
+``max(l, 1e-30)`` contract keeps such rows finite; the port pins their value
+to 0 so kernel and plain version agree on every row).
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
+shared libraries with a plain C interface (loaded with ``ctypes``), cached
+under ``build/moss_ttsd_torch/<hash of the sources>/`` in the checkout.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Union
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "moss_ttsd_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = {"flash_prefill": "flash_prefill.cu",
+           "flash_decode": "flash_decode.cu"}
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NEG_INF = -1e30
+_L_FLOOR = 1e-30
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+build_info: Dict[str, object] = {}
+
+
+# ---------------------------------------------------------------------------
+# Build + bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_kernels() -> Dict[str, ctypes.CDLL]:
+    """Compile (once per source hash) and load every kernel library.
+
+    One ``nvcc`` per source, all started together. Returns the loaded
+    libraries; ``build_info`` records the build seconds and ptxas report."""
+    with _build_lock:
+        if len(_libs) == len(SOURCES):
+            return _libs
+        t0 = time.perf_counter()
+        out_dir = BUILD_ROOT / _source_hash()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        todo = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+        procs = {}
+        for name, so in todo.items():
+            if so.exists():
+                continue
+            tmp = so.with_suffix(f".so.tmp{os.getpid()}")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, so)
+        for name, (proc, tmp, so) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            os.replace(tmp, so)          # atomic: concurrent processes agree
+            (out_dir / f"{name}.ptxas.log").write_text(log)
+        for name, so in todo.items():
+            lib = ctypes.CDLL(str(so))
+            _bind(name, lib)
+            _libs[name] = lib
+        build_info.update(seconds=time.perf_counter() - t0,
+                          compiled=sorted(procs), dir=str(out_dir),
+                          ptxas={n: (out_dir / f"{n}.ptxas.log").read_text()
+                                 for n in SOURCES
+                                 if (out_dir / f"{n}.ptxas.log").exists()})
+        return _libs
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    if name == "flash_prefill":
+        fn = lib.moss_flash_prefill
+        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F] + [LL] * 13 + [P]
+    else:
+        fn = lib.moss_flash_decode
+        fn.argtypes = [I, P, P, P, P, P, I, P, I, I, I, I, I, F] + [LL] * 11 + [P]
+    fn.restype = I
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _check_common(q, tensors, key_valid, what):
+    dev = q.device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, q on {dev}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be contiguous in head_dim")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: dtype {q.dtype} not supported "
+                         "(float32, bfloat16)")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if key_valid.device != dev or key_valid.dtype != torch.bool:
+        raise ValueError(f"{what}: key_valid must be a bool tensor on {dev}")
+    if key_valid.stride(-1) != 1:
+        raise ValueError(f"{what}: key_valid must be contiguous in its last dim")
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_valid: torch.Tensor, scale: float,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """Plain version of ``flash_prefill``: dense causal masked softmax in
+    fp32 from the same inputs. ``out_dtype`` defaults to q.dtype (fp32 keeps
+    the unrounded oracle)."""
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qf = q.float().reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
+    pos = torch.arange(T, device=q.device)
+    mask = (pos[None, :] <= pos[:, None])[None] & key_valid[:, None, :]
+    mask = mask[:, None, None]                              # (B,1,1,T,T)
+    out = _masked_softmax_pv(s, mask, v.float(), "bhgts,bshd->bthgd")
+    return out.reshape(B, T, H, D).to(out_dtype or q.dtype)
+
+
+def _masked_softmax_pv(s, mask, v, pv_eq):
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)   # finite when empty
+    p = torch.exp(s - m)                                    # masked -> 0
+    l = p.sum(dim=-1, keepdim=True).clamp_min(_L_FLOOR)
+    return torch.einsum(pv_eq, p / l, v)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal GQA prefill attention.
+
+    q (B, T, H, D); k/v (B, T, Hkv, D) (prefill writes cache slots [0, T));
+    key_valid (B, T) bool. Returns (B, T, H, D) in q.dtype."""
+    if q.device.type != "cuda":
+        return flash_prefill_plain(q, k, v, key_valid, scale)
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape != (B, T, Hkv, D) or v.shape != k.shape or H % Hkv:
+        raise ValueError(f"flash_prefill: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if key_valid.shape != (B, T):
+        raise ValueError(f"flash_prefill: key_valid {tuple(key_valid.shape)}"
+                         f" != {(B, T)}")
+    _check_common(q, {"k": k, "v": v}, key_valid, "flash_prefill")
+    lib = build_kernels()["flash_prefill"]
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.moss_flash_prefill(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_valid.data_ptr(), out.data_ptr(), B, T, H, H // Hkv, D,
+        float(scale), q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), key_valid.stride(0),
+        out.stride(0), out.stride(1), out.stride(2), stream)
+    _check_rc(rc, "flash_prefill")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def _extent_mask(extent, B: int, S: int, device) -> Optional[torch.Tensor]:
+    if extent is None:
+        return None
+    pos = torch.arange(S, device=device)
+    if isinstance(extent, torch.Tensor):
+        ext = extent.to(device=device, dtype=torch.int64).reshape(-1)
+        return pos[None, :] < ext.expand(B)[:, None]
+    return (pos < int(extent))[None, :].expand(B, S)
+
+
+def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
+                          vt: torch.Tensor, key_valid: torch.Tensor,
+                          scale: float, extent=None, layer=None,
+                          out_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Plain version of ``flash_decode_hs``: dense masked softmax in fp32
+    over the slots below the extent."""
+    if layer is not None:
+        kt, vt = kt[int(layer)], vt[int(layer)]
+    B, _, H, D = q.shape
+    Hkv, S = kt.shape[1], kt.shape[2]
+    G = H // Hkv
+    qg = q[:, 0].float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kt.float()) * scale
+    mask = key_valid
+    ext = _extent_mask(extent, B, S, q.device)
+    if ext is not None:
+        mask = mask & ext
+    out = _masked_softmax_pv(s, mask[:, None, None, :], vt.float(),
+                             "bhgs,bhsd->bhgd")
+    return out.reshape(B, 1, H, D).to(out_dtype or q.dtype)
+
+
+def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                    key_valid: torch.Tensor, scale: float,
+                    extent: Union[None, int, torch.Tensor] = None,
+                    layer: Optional[int] = None) -> torch.Tensor:
+    """Single-query GQA decode attention over the head-major cache.
+
+    q (B, 1, H, D); kt/vt (B, Hkv, S, D), or the full (L, B, Hkv, S, D)
+    stack with ``layer`` (``kt[layer]`` is a free view in torch: the port
+    never copies a layer's cache to call the kernel); key_valid (B, S) bool.
+    ``extent``: None (all S slots), an int, or a (B,) int32 tensor — slots at
+    or past a row's extent are never read, and must be key_valid=False.
+    Returns (B, 1, H, D) in q.dtype."""
+    if layer is not None:
+        kt, vt = kt[int(layer)], vt[int(layer)]
+    if q.device.type != "cuda":
+        return flash_decode_hs_plain(q, kt, vt, key_valid, scale, extent)
+    B, one, H, D = q.shape
+    Hkv, S = kt.shape[1], kt.shape[2]
+    if (one != 1 or kt.shape != (B, Hkv, S, D) or vt.shape != kt.shape
+            or H % Hkv):
+        raise ValueError(f"flash_decode_hs: shapes q {tuple(q.shape)}, "
+                         f"kt {tuple(kt.shape)}, vt {tuple(vt.shape)}")
+    if key_valid.shape != (B, S):
+        raise ValueError(f"flash_decode_hs: key_valid "
+                         f"{tuple(key_valid.shape)} != {(B, S)}")
+    _check_common(q, {"kt": kt, "vt": vt}, key_valid, "flash_decode_hs")
+    esz = q.element_size()
+    for name, t in (("kt", kt), ("vt", vt)):
+        # 16-byte vector loads of K/V rows
+        if t.data_ptr() % 16 or any((t.stride(i) * esz) % 16
+                                    for i in range(3)):
+            raise ValueError(f"flash_decode_hs: {name} rows must be 16-byte "
+                             "aligned")
+    ext_ptr, ext_scalar = None, S
+    if isinstance(extent, torch.Tensor):
+        if (extent.device != q.device or extent.dtype != torch.int32
+                or extent.shape != (B,) or extent.stride(0) != 1):
+            raise ValueError("flash_decode_hs: a tensor extent must be a "
+                             f"contiguous ({B},) int32 tensor on {q.device}")
+        ext_ptr = extent.data_ptr()
+    elif extent is not None:
+        ext_scalar = int(extent)
+    lib = build_kernels()["flash_decode"]
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.moss_flash_decode(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
+        key_valid.data_ptr(), ext_ptr, ext_scalar, out.data_ptr(),
+        B, Hkv, H // Hkv, S, D, float(scale), q.stride(0), q.stride(2),
+        kt.stride(0), kt.stride(1), kt.stride(2),
+        vt.stride(0), vt.stride(1), vt.stride(2), key_valid.stride(0),
+        out.stride(0), out.stride(2), stream)
+    _check_rc(rc, "flash_decode_hs")
+    flash_decode_hs.launches += 1
+    return out
+
+
+flash_decode_hs.launches = 0
+
+
+def reset_launch_counts() -> None:
+    flash_prefill.launches = 0
+    flash_decode_hs.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {"flash_prefill": flash_prefill.launches,
+            "flash_decode_hs": flash_decode_hs.launches}

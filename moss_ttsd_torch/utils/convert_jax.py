@@ -1,0 +1,169 @@
+"""Weight carry-over into the port's ``state_dict`` layouts.
+
+  * ``lm_state_from_jax``: the JAX ``AsteroidLM`` param tree (as numpy:
+    stacked scan layers, flax ``(in, out)`` Dense kernels) -> ``AsteroidLM``.
+  * ``load_reference_lm_state_dict``: the reference checkpoint's names
+    (``model.embedding_list.{i}``, ``model.language_model.layers.{l}.*``;
+    the layout of ``moss_ttsd_tpu/utils/convert_lm.py``) -> ``AsteroidLM``.
+  * ``codec_state_from_jax``: the decode side of the JAX ``XYTokenizerModule``
+    tree -> ``XYTokenizerModule``. Flax ``Conv`` kernels are (k, in, out)
+    -> torch (out, in, k); flax ``ConvTranspose`` kernels (k, in, out) are a
+    correlation without the kernel flip torch's transposed conv applies, so
+    they are flipped along k -> torch (in, out, k).
+
+Arrays are accepted as numpy (or anything ``np.asarray`` takes); the
+results are fp32 CPU tensors, ready for ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..core.config import CodecConfig, LMConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+_LM_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj",
+            "gate_proj", "up_proj", "down_proj")
+_LM_NORM = ("input_ln", "q_norm", "k_norm", "post_ln")
+_REF_NORM = {"input_ln": "input_layernorm", "post_ln": "post_attention_layernorm",
+             "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm"}
+_REF_PROJ = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+             "down_proj": "mlp.down_proj"}
+
+
+def _t(x) -> torch.Tensor:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().float().numpy()
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def lm_state_from_jax(params_np: Mapping, cfg: LMConfig) -> StateDict:
+    p = params_np["params"] if "params" in params_np else params_np
+    block = p["layers"]["block"]
+    sd: StateDict = {"embed_text": _t(p["embed_text"]),
+                     "embed_speech": _t(p["embed_speech"]),
+                     "final_norm.weight": _t(p["final_norm"]["weight"])}
+    for l in range(cfg.num_hidden_layers):
+        pre = f"layers.{l}."
+        for n in _LM_NORM:
+            sd[pre + n + ".weight"] = _t(np.asarray(block[n]["weight"])[l])
+        for n in _LM_PROJ:
+            sd[pre + n + ".weight"] = _t(np.asarray(block[n]["kernel"])[l].T)
+            if "bias" in block[n]:
+                sd[pre + n + ".bias"] = _t(np.asarray(block[n]["bias"])[l])
+    return sd
+
+
+def load_reference_lm_state_dict(sd: Mapping, cfg: LMConfig) -> StateDict:
+    """Reference-format names (torch (out, in) weights) -> ``AsteroidLM``
+    state dict. The tied ``lm_heads.*`` and the unused inner
+    ``embed_tokens`` are ignored."""
+    out: StateDict = {
+        "embed_text": _t(sd["model.embedding_list.0.weight"]),
+        "embed_speech": torch.stack(
+            [_t(sd[f"model.embedding_list.{i}.weight"])
+             for i in range(1, cfg.channels)]),
+        "final_norm.weight": _t(sd["model.language_model.norm.weight"])}
+    for l in range(cfg.num_hidden_layers):
+        src, dst = f"model.language_model.layers.{l}.", f"layers.{l}."
+        for n, ref in _REF_NORM.items():
+            out[dst + n + ".weight"] = _t(sd[src + ref + ".weight"])
+        for n, ref in _REF_PROJ.items():
+            out[dst + n + ".weight"] = _t(sd[src + ref + ".weight"])
+            if cfg.attention_bias and n in ("q_proj", "k_proj", "v_proj",
+                                            "o_proj"):
+                out[dst + n + ".bias"] = _t(sd[src + ref + ".bias"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Codec
+# ---------------------------------------------------------------------------
+
+def _dense(sd: StateDict, pre: str, tree: Mapping, idx=None) -> None:
+    k = np.asarray(tree["kernel"])
+    sd[pre + ".weight"] = _t((k if idx is None else k[idx]).T)
+    if "bias" in tree:
+        b = np.asarray(tree["bias"])
+        sd[pre + ".bias"] = _t(b if idx is None else b[idx])
+
+
+def _ln(sd: StateDict, pre: str, tree: Mapping, idx=None) -> None:
+    for src, dst in (("scale", "weight"), ("bias", "bias")):
+        a = np.asarray(tree[src])
+        sd[f"{pre}.{dst}"] = _t(a if idx is None else a[idx])
+
+
+def _conv(sd: StateDict, pre: str, tree: Mapping, idx=None) -> None:
+    """flax Conv (k, in/groups, out) -> torch Conv1d (out, in/groups, k)."""
+    k = np.asarray(tree["kernel"])
+    k = k if idx is None else k[idx]
+    sd[pre + ".weight"] = _t(np.transpose(k, (2, 1, 0)))
+    if "bias" in tree:
+        b = np.asarray(tree["bias"])
+        sd[pre + ".bias"] = _t(b if idx is None else b[idx])
+
+
+def _deconv(sd: StateDict, pre: str, tree: Mapping) -> None:
+    """flax ConvTranspose (k, in, out), unflipped -> torch ConvTranspose1d
+    (in, out, k), flipped along k."""
+    k = np.asarray(tree["kernel"])[::-1]
+    sd[pre + ".weight"] = _t(np.transpose(k, (1, 2, 0)))
+    if "bias" in tree:
+        sd[pre + ".bias"] = _t(tree["bias"])
+
+
+def _stack(sd: StateDict, pre: str, tree: Mapping, num_layers: int) -> None:
+    """Scanned ``layers/layer`` stack + ``final_ln`` of a codec transformer."""
+    lay = tree["layers"]["layer"]
+    for i in range(num_layers):
+        p = f"{pre}.layers.{i}"
+        _ln(sd, p + ".attn_ln", lay["attn_ln"], i)
+        _ln(sd, p + ".ffn_ln", lay["ffn_ln"], i)
+        for n in ("q_w", "q_b", "k_w", "v_w", "v_b", "o_w", "o_b"):
+            sd[f"{p}.attn.{n}"] = _t(np.asarray(lay["attn"][n])[i])
+        _dense(sd, p + ".fc1", lay["fc1"], i)
+        _dense(sd, p + ".fc2", lay["fc2"], i)
+    _ln(sd, pre + ".final_ln", tree["final_ln"])
+
+
+def codec_state_from_jax(params_np: Mapping, cfg: CodecConfig) -> StateDict:
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: StateDict = {}
+    q = p["quantizer"]
+    sd["quantizer.codebook"] = _t(q["codebook"])
+    if cfg.quantizer.rvq_dim != cfg.quantizer.output_dim:
+        _dense(sd, "quantizer.output_proj", q["output_proj"])
+
+    a = p["post_rvq_adapter"]
+    _stack(sd, "post_rvq_adapter", a, cfg.post_rvq_adapter.encoder_layers)
+    for n in ("in_proj", "out_proj"):
+        if n in a:
+            _dense(sd, f"post_rvq_adapter.{n}", a[n])
+    _deconv(sd, "upsample.up_conv", p["upsample"]["up_conv"])
+
+    d = p["acoustic_decoder"]
+    _stack(sd, "acoustic_decoder", d, cfg.acoustic_decoder.decoder_layers)
+    _deconv(sd, "acoustic_decoder.deconv1", d["deconv1"])
+    _deconv(sd, "acoustic_decoder.deconv2", d["deconv2"])
+
+    bb = p["vocos"]["backbone"]
+    _conv(sd, "vocos.backbone.embed", bb["embed"])
+    _ln(sd, "vocos.backbone.norm", bb["norm"])
+    _ln(sd, "vocos.backbone.final_ln", bb["final_ln"])
+    blk = bb["blocks"]["block"]
+    for i in range(cfg.vocos.num_layers):
+        pre = f"vocos.backbone.blocks.{i}"
+        _conv(sd, pre + ".dwconv", blk["dwconv"], i)
+        _ln(sd, pre + ".norm", blk["norm"], i)
+        _dense(sd, pre + ".pwconv1", blk["pwconv1"], i)
+        _dense(sd, pre + ".pwconv2", blk["pwconv2"], i)
+        sd[pre + ".gamma"] = _t(np.asarray(blk["gamma"])[i])
+    _dense(sd, "vocos.head.out", p["vocos"]["head"]["out"])
+    return sd

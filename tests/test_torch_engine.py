@@ -1,0 +1,161 @@
+"""The port's GenerationEngine against the JAX engine on the same weights
+(tiny config, fp32, CPU): greedy tokens equal exactly; for a sampled
+config the pre-draw contract (processed_logits + the TF/pad/EOS masks)
+matches, since torch and JAX draw different random bits."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from moss_ttsd_tpu.core.config import (ChannelSamplingConfig as JCh,  # noqa: E402
+                                       SamplingConfig as JSampling)
+from moss_ttsd_tpu.decode import engine as jeng  # noqa: E402
+from moss_ttsd_tpu.ops import sampling as jsam  # noqa: E402
+from moss_ttsd_tpu.pipeline.prompt import left_pad_batch  # noqa: E402
+from moss_ttsd_torch.core.config import (ChannelSamplingConfig,  # noqa: E402
+                                         SamplingConfig)
+from moss_ttsd_torch.decode.engine import GenerationEngine, channel_logits  # noqa: E402
+from moss_ttsd_torch.ops import sampling as psam  # noqa: E402
+from tests.test_decode import make_prompt  # noqa: E402
+from tests.test_torch_lm import jax_tiny, port_model  # noqa: E402
+
+
+def greedy(mod, n=24, max_length=None):
+    return mod[1](channels=[mod[0](do_sample=False, temperature=None,
+                                   top_k=None, top_p=None)
+                            for _ in range(8)],
+                  max_new_tokens=n, max_length=max_length)
+
+
+JAX_S, TORCH_S = (JCh, JSampling), (ChannelSamplingConfig, SamplingConfig)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, params = jax_tiny(7)
+    cfg, model = port_model(jcfg, params)
+    return jcfg, params, cfg, model
+
+
+def _batch(jcfg, seed, lens):
+    rng = np.random.default_rng(seed)
+    prompts = [make_prompt(jcfg, rng, t, a) for t, a in lens]
+    return left_pad_batch(prompts, jcfg.pad_token_id, jcfg.speech_pad_token)
+
+
+@pytest.mark.parametrize("max_new,max_length", [(20, None), (None, 30),
+                                                (None, 5)])
+def test_greedy_tokens_equal_jax(models, max_new, max_length):
+    """Left-padded batch of 2; a max_new_tokens budget, a max_length budget
+    and a prompt already past max_length (0 steps)."""
+    jcfg, params, cfg, model = models
+    batch, mask = _batch(jcfg, 0, [(6, 4), (9, 2)])
+    r_j = jeng.GenerationEngine(jcfg, params, greedy(JAX_S, 20, max_length),
+                                bucket=32, cache_dtype=jnp.float32
+                                ).generate(batch, mask, max_new)
+    r_t = GenerationEngine(cfg, model, greedy(TORCH_S, 20, max_length),
+                           bucket=32, device="cpu").generate(batch, mask,
+                                                             max_new)
+    assert (r_t.steps, r_t.base) == (r_j.steps, r_j.base)
+    if max_length == 5:
+        assert r_t.steps == 0
+    np.testing.assert_array_equal(r_t.tokens, r_j.tokens)
+
+
+def test_greedy_eos_flush_matches_jax(models):
+    """A speech range that excludes most of the vocab makes greedy rows hit
+    the EOS flush: the staggered pad flush and finished-row fill match."""
+    import dataclasses
+    jcfg, params, cfg, model = models
+    jcfg2 = dataclasses.replace(jcfg, speech_token_range=(100, 104))
+    cfg2 = dataclasses.replace(cfg, speech_token_range=(100, 104))
+    model.cfg = cfg2
+    try:
+        batch, mask = _batch(jcfg, 1, [(5, 3), (7, 2)])
+        r_j = jeng.GenerationEngine(jcfg2, params, greedy(JAX_S), bucket=32,
+                                    cache_dtype=jnp.float32
+                                    ).generate(batch, mask, 24)
+        r_t = GenerationEngine(cfg2, model, greedy(TORCH_S), bucket=32,
+                               device="cpu").generate(batch, mask, 24)
+    finally:
+        model.cfg = cfg
+    assert r_t.steps == r_j.steps < 24
+    np.testing.assert_array_equal(r_t.tokens, r_j.tokens)
+
+
+SAMPLED = [dict(do_sample=True, temperature=0.9, top_k=20, top_p=0.8,
+                repetition_penalty=1.3),
+           dict(do_sample=True, temperature=0.7, top_k=None, top_p=0.9,
+                repetition_penalty=None)]
+
+
+@pytest.mark.parametrize("ch", SAMPLED)
+@pytest.mark.parametrize("exact", [False, True])
+def test_processed_logits_match_jax(ch, exact):
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((3, 257)).astype(np.float32) * 3
+    presence = rng.random((3, 257)) < 0.1
+    jp = jsam.ChannelParams.from_config(JCh(**ch), exact_top_p=exact)
+    pp_ = psam.ChannelParams.from_config(ChannelSamplingConfig(**ch),
+                                         exact_top_p=exact)
+    ref = np.asarray(jsam.processed_logits(jnp.asarray(logits),
+                                           jnp.asarray(presence), jp, 64))
+    got = psam.processed_logits(torch.from_numpy(logits),
+                                torch.from_numpy(presence), pp_, 64).numpy()
+    np.testing.assert_array_equal(got <= -1e29, ref <= -1e29)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("srow", [0, 3, 6, 7, 12])
+def test_tf_pad_eos_masks_match_jax(models, srow):
+    """The per-channel logits the draws see (TF-window eos mask, pad mask
+    once a channel's delay elapsed, repetition penalty) equal the JAX
+    sampler body's, step by step through and past the TF window."""
+    jcfg = models[0]
+    rng = np.random.default_rng(srow)
+    B, C = 2, jcfg.channels
+    tl = rng.standard_normal((B, jcfg.vocab_size)).astype(np.float32)
+    sl = rng.standard_normal((B, C - 1, jcfg.speech_vocab_size)
+                             ).astype(np.float32)
+    pt = rng.random((B, jcfg.vocab_size)) < 0.2
+    ps = rng.random((B, C - 1, jcfg.speech_vocab_size)) < 0.2
+    ch = ChannelSamplingConfig(**SAMPLED[0])
+    jps = [jsam.ChannelParams.from_config(JCh(**SAMPLED[0]))] * C
+    pps = [psam.ChannelParams.from_config(ch)] * C
+    seen = {}
+
+    def draw(i, lg):
+        seen[i] = np.asarray(lg)
+        return jnp.zeros((B,), jnp.int32)
+
+    jeng._sample_channels_body(draw, jnp.asarray(tl), jnp.asarray(sl),
+                               jnp.asarray(pt), jnp.asarray(ps),
+                               jnp.int32(srow), jps, jcfg.eos_token_id,
+                               jcfg.speech_pad_token, 0)
+    got = channel_logits(torch.from_numpy(tl), torch.from_numpy(sl),
+                         torch.from_numpy(pt), torch.from_numpy(ps), srow,
+                         pps, jcfg.eos_token_id, jcfg.speech_pad_token)
+    for i in range(C):
+        np.testing.assert_allclose(got[i].numpy(), seen[i], rtol=1e-6)
+
+
+def test_sampled_generate_holds_tf_window(models):
+    """A sampled run re-feeds the shifted prompt tail on channels > s for
+    the first C-1 steps and never emits pad on channel i once s >= i."""
+    jcfg, params, cfg, model = models
+    batch, mask = _batch(jcfg, 3, [(6, 4), (9, 2)])
+    sampling = SamplingConfig(channels=[ChannelSamplingConfig(**SAMPLED[0])
+                                        for _ in range(8)],
+                              max_new_tokens=16)
+    eng = GenerationEngine(cfg, model, sampling, bucket=32, device="cpu")
+    r = eng.generate(batch, mask, 16, seed=1)
+    C = cfg.channels
+    ids, _, base = eng._bucket_prompt(batch, mask)
+    for s in range(min(C - 1, r.steps)):
+        np.testing.assert_array_equal(r.tokens[:, base + s, s + 1:],
+                                      ids[:, base + s, s + 1:])
+    r2 = eng.generate(batch, mask, 16, seed=1)
+    np.testing.assert_array_equal(r.tokens, r2.tokens)   # seeded generator

@@ -1,0 +1,169 @@
+"""The port's flash attention: the plain versions (what the wrappers run on
+CPU tensors) against the JAX Pallas kernels in interpret mode, on the case
+list of tests/test_pallas_attention.py, at the same tolerances. The CUDA
+kernels themselves are tested in tests/test_torch_cuda.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from moss_ttsd_tpu.ops import pallas_attention as jpa  # noqa: E402
+from moss_ttsd_torch.ops import flash_attention as fa  # noqa: E402
+
+ATOL = 3e-5      # fp32 interpret-mode kernels vs dense math (reassociation)
+
+
+def make_qkv(rng, B, Tq, S, H, Hkv, D):
+    q = rng.standard_normal((B, Tq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    return q, k, v
+
+
+T_ = torch.from_numpy
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,D,bq,bk,pad", [
+    (2, 96, 8, 4, 16, 32, 32, 20),     # left padding, causal blocks
+    (1, 50, 4, 2, 8, 32, 32, 0),       # ragged T
+    (1, 50, 4, 2, 8, 24, 32, 0),       # ragged T, unequal blocks
+    (2, 121, 8, 2, 32, 64, 64, 7),
+    (2, 7, 4, 2, 16, 256, 256, 3),
+    (1, 1, 4, 2, 16, 256, 256, 0),
+])
+def test_prefill_plain_matches_jax_kernel(B, T, H, Hkv, D, bq, bk, pad):
+    rng = np.random.default_rng(B * 1000 + T)
+    q, k, v = make_qkv(rng, B, T, T, H, Hkv, D)
+    valid = np.ones((B, T), bool)
+    valid[-1, :pad] = False
+    scale = D ** -0.5
+    ref = np.asarray(jpa.flash_prefill(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(valid),
+                                       scale, block_q=bq, block_k=bk,
+                                       interpret=True))
+    out = fa.flash_prefill(T_(q), T_(k), T_(v), T_(valid), scale).numpy()
+    # left-padded query rows have no valid key: their values are
+    # unspecified in the TPU kernel (block-dependent), 0 in the port
+    np.testing.assert_allclose(out[:-1], ref[:-1], atol=ATOL)
+    np.testing.assert_allclose(out[-1, pad:], ref[-1, pad:], atol=ATOL)
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[-1, :pad], 0.0)
+
+
+def test_prefill_fully_masked_rows_finite():
+    """Rows with no valid key (left padding) come out finite (0), so a
+    masked slot never carries NaN into the next layer's p @ v."""
+    rng = np.random.default_rng(4)
+    q, k, v = make_qkv(rng, 2, 40, 40, 4, 2, 16)
+    valid = np.ones((2, 40), bool)
+    valid[0, :40] = False          # a row with no valid key at all
+    valid[1, :13] = False
+    out = fa.flash_prefill(T_(q), T_(k), T_(v), T_(valid), 0.25).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[0], 0.0)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,bk,spans", [
+    (2, 64, 8, 4, 16, 32, [(0, 40), (5, 50)]),   # left padding + partial fill
+    (1, 16, 4, 2, 8, 64, [(0, 16)]),             # single block
+    (2, 96, 16, 8, 32, 32, [(0, 1), (3, 95)]),   # one-slot row, 3 blocks
+])
+def test_decode_plain_matches_jax_kernel(B, S, H, Hkv, D, bk, spans):
+    rng = np.random.default_rng(S)
+    q, k, v = make_qkv(rng, B, 1, S, H, Hkv, D)
+    kt, vt = np.moveaxis(k, 2, 1).copy(), np.moveaxis(v, 2, 1).copy()
+    valid = np.zeros((B, S), bool)
+    for b, (lo, hi) in enumerate(spans):
+        valid[b, lo:hi] = True
+    scale = D ** -0.5
+    ref = np.asarray(jpa.flash_decode_hs(
+        jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt), jnp.asarray(valid),
+        scale, block_k=bk, interpret=True))
+    out = fa.flash_decode_hs(T_(q), T_(kt), T_(vt), T_(valid), scale).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+def test_decode_extent_and_layer_match_jax_kernel():
+    """Scalar, per-row and tiny extents, and the layered (L, ...) stack —
+    the cases of test_pallas_attention.py extent / layered tests."""
+    rng = np.random.default_rng(7)
+    L, B, S, H, Hkv, D = 3, 2, 128, 8, 4, 16
+    q, _, _ = make_qkv(rng, B, 1, S, H, Hkv, D)
+    kt = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    vt = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    valid = np.zeros((B, S), bool)
+    valid[0, :40] = True
+    valid[1, 5:70] = True
+    scale = D ** -0.5
+    jq, jv = jnp.asarray(q), jnp.asarray(valid)
+    for extent in (70, 96, 128, [40, 70]):
+        for lay in (0, 2):
+            ref = np.asarray(jpa.flash_decode_hs(
+                jq, jnp.asarray(kt), jnp.asarray(vt), jv, scale, block_k=32,
+                interpret=True, extent=jnp.asarray(extent, jnp.int32),
+                layer=jnp.int32(lay)))
+            ext = (torch.tensor(extent, dtype=torch.int32)
+                   if isinstance(extent, list) else extent)
+            out = fa.flash_decode_hs(T_(q), T_(kt), T_(vt), T_(valid), scale,
+                                     extent=ext, layer=lay).numpy()
+            np.testing.assert_allclose(out, ref, atol=2e-5)
+    valid2 = np.zeros((B, S), bool)
+    valid2[:, :7] = True
+    ref = np.asarray(jpa.flash_decode_hs(
+        jq, jnp.asarray(kt[1]), jnp.asarray(vt[1]), jnp.asarray(valid2),
+        scale, block_k=32, interpret=True, extent=jnp.int32(7)))
+    out = fa.flash_decode_hs(T_(q), T_(kt[1]), T_(vt[1]), T_(valid2), scale,
+                             extent=7).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+def test_decode_row_without_valid_key_is_zero():
+    rng = np.random.default_rng(11)
+    q, k, v = make_qkv(rng, 2, 1, 30, 4, 2, 16)
+    kt, vt = np.moveaxis(k, 2, 1).copy(), np.moveaxis(v, 2, 1).copy()
+    valid = np.zeros((2, 30), bool)
+    valid[1, 3:20] = True
+    out = fa.flash_decode_hs(T_(q), T_(kt), T_(vt), T_(valid), 0.25,
+                             extent=20).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[0], 0.0)
+
+
+def test_plain_gqa_attention_matches_jax():
+    """ops/attention.py: causal_mask (scalar and per-row cache_pos),
+    gqa_attention and the head-major gqa_attention_hs, fp32."""
+    from moss_ttsd_tpu.ops import attention as jatt
+    from moss_ttsd_torch.ops import attention as patt
+    rng = np.random.default_rng(13)
+    B, T, S, H, Hkv, D = 2, 5, 12, 8, 2, 16
+    q, k, v = make_qkv(rng, B, T, S, H, Hkv, D)
+    valid = rng.random((B, S)) < 0.8
+    valid[:, 0] = True
+    for pos in (3, np.array([2, 7])):
+        jm = np.asarray(jatt.causal_mask(jnp.asarray(pos), T, S,
+                                         jnp.asarray(valid)))
+        pm = patt.causal_mask(torch.as_tensor(pos), T, S, T_(valid))
+        np.testing.assert_array_equal(pm.numpy(), jm)
+    m = patt.causal_mask(7, T, S, T_(valid))
+    ref = np.asarray(jatt.gqa_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(m.numpy()),
+                                        D ** -0.5))
+    out = patt.gqa_attention(T_(q), T_(k), T_(v), m, D ** -0.5).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-6)
+    kt, vt = np.moveaxis(k, 2, 1).copy(), np.moveaxis(v, 2, 1).copy()
+    ref = np.asarray(jatt.gqa_attention_hs(
+        jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt),
+        jnp.asarray(m.numpy()), D ** -0.5))
+    out = patt.gqa_attention_hs(T_(q), T_(kt), T_(vt), m, D ** -0.5).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-6)
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    fa.reset_launch_counts()
+    q = torch.zeros(1, 3, 4, 16)
+    k = torch.zeros(1, 3, 2, 16)
+    fa.flash_prefill(q, k, k, torch.ones(1, 3, dtype=torch.bool), 0.25)
+    assert fa.launch_counts() == {"flash_prefill": 0, "flash_decode_hs": 0}

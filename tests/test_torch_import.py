@@ -1,0 +1,125 @@
+"""The PyTorch port imports nothing of JAX or the JAX package, and its entry
+points refuse to run on the CPU unless asked to."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "moss_ttsd_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moss_ttsd_tpu")
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names = [node.module]
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_lm():
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny()
+    return cfg, AsteroidLM.init_random(cfg, seed=0, device="cpu")
+
+
+def test_engine_without_cuda_raises(no_cuda):
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    cfg, model = _tiny_lm()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GenerationEngine(cfg, model)
+    GenerationEngine(cfg, model, device="cpu")          # asked for: runs
+
+
+def test_codec_without_cuda_raises(no_cuda):
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        XYTokenizer.init_random(CodecConfig().tiny())
+    XYTokenizer.init_random(CodecConfig().tiny(), device="cpu")
+
+
+def test_pipeline_without_cuda_raises(no_cuda):
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    cfg, model = _tiny_lm()
+    spt = XYTokenizer.init_random(CodecConfig().tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TTSPipeline(MockTokenizer(), cfg, model, spt)
+
+
+def test_cli_without_cuda_raises(no_cuda, tmp_path):
+    from moss_ttsd_torch.cli.inference import main
+    args = ["--jsonl", str(ROOT / "examples" / "examples_only_text.jsonl"),
+            "--tiny", "--max_new_tokens", "4", "--output_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)
+
+
+def test_cli_unported_flags_fail_loudly(tmp_path):
+    from moss_ttsd_torch.cli.inference import main
+    for extra in (["--quant", "int8"], ["--mesh", "2x1"],
+                  ["--attn_impl", "xla"], ["--restricted_text_head"],
+                  ["--profile_dir", str(tmp_path)],
+                  ["--lora_adapter", "a=b"]):
+        with pytest.raises(SystemExit):
+            main(["--tiny", "--platform", "cpu", *extra])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(["--platform", "cpu", "--output_dir", str(tmp_path)])
+
+
+def test_cli_tiny_cpu_writes_wavs(tmp_path):
+    from moss_ttsd_torch.cli.inference import main
+    rc = main(["--jsonl", str(ROOT / "examples" / "examples_only_text.jsonl"),
+               "--tiny", "--platform", "cpu", "--max_new_tokens", "16",
+               "--output_dir", str(tmp_path),
+               "--summary_file", str(tmp_path / "summary.jsonl")])
+    assert rc == 0
+    assert sorted(p.name for p in tmp_path.glob("*.wav")) == [
+        "output_0.wav", "output_1.wav"]
+    assert len((tmp_path / "summary.jsonl").read_text().splitlines()) == 2
