@@ -6,18 +6,24 @@
 Phases, each printing one JSON line:
   1. device   — the card (nvidia-smi name + power limit), torch / CUDA versions;
   2. build    — nvcc builds of the kernels from csrc/ (seconds, ptxas report);
-  3. kernels vs plain — every kernel of the main path against its plain
-     PyTorch version on the same inputs: the main path's shapes, the edge
-     cases (left padding, fully masked rows, ragged T and S, per-row extents,
-     extent 1, layer views) and the --tiny shapes (fp32, head_dim 16);
+  3. kernels vs plain — every kernel against its plain PyTorch version on
+     the same inputs: the main path's and the long-form run's shapes, the
+     edge cases (left padding, fully masked rows, ragged T and S, per-row
+     extents, extent 1, layer views, G 2 and 4) and the --tiny shapes (fp32,
+     head_dim 16); quantize_kv on the card vs the CPU (same int8 bytes);
      reference — small fp32 models on the card vs the same on the CPU (LM
-     hidden states, greedy tokens, codec wav);
+     hidden states, greedy tokens of the bf16 and int8 engines, codec wav);
   4. main path — TTSPipeline.process_batch at the full MOSS-TTSD-v0.5 width
      (LMConfig(), CodecConfig(), random weights from a seeded generator,
      bf16 LM and codec) over examples/examples_only_text.jsonl with
      max_new_tokens=256; launch counts must be 28 x prefills and 28 x steps;
   5. logits   — fp32-output vs bf16-rounded tied-head logits (time, error);
-  6. cli      — the --tiny CLI on the card writes wavs;
+  6. int8     — int8 serving at the same width, the weights quantized inside
+     the engine: TTSPipeline(quant="int8"); the same with the restricted text
+     head and its audit; the long-form engine (quant and kv_quant "int8",
+     batch 1, 1500 steps) whose every decode step runs flash_decode_int8_hs;
+  7. cli      — the --tiny CLI on the card writes wavs (as it is, and with
+     --quant int8 --restricted_text_head);
 then the ``kernels`` line (times, bounds, launches) and, last, the result
 line {"ok": true, "device": {...}}. Any failing phase exits non-zero with no
 result line. Without a CUDA device it exits 1 at once.
@@ -147,6 +153,55 @@ def decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
             **compare(out, ref)}
 
 
+def _int8_kv(gen, shape):
+    import torch
+    from moss_ttsd_torch.ops.quantize import quantize_kv
+    return quantize_kv(_rand(gen, shape, torch.float32))
+
+
+def int8_decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
+                     layers=None, layer=None):
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    q = _rand(gen, (B, 1, H, D), dtype)
+    shape = (B, Hkv, S, D) if layers is None else (layers, B, Hkv, S, D)
+    kq, ks = _int8_kv(gen, shape)
+    vq, vs = _int8_kv(gen, shape)
+    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    for b, (lo, hi) in enumerate(valid_spans):
+        valid[b, lo:hi] = True
+    ext = extent
+    if isinstance(extent, list):
+        ext = torch.tensor(extent, dtype=torch.int32, device="cuda")
+    out = fa.flash_decode_int8_hs(q, kq, ks, vq, vs, valid, D ** -0.5,
+                                  extent=ext, layer=layer)
+    torch.cuda.synchronize()
+    ref = fa.flash_decode_int8_hs_plain(q, kq, ks, vq, vs, valid, D ** -0.5,
+                                        extent=ext, layer=layer,
+                                        out_dtype=torch.float32)
+    return {"kernel": "flash_decode_int8_hs", "case": name,
+            "shape": [B, S, H, Hkv, D], "extent": extent, "layer": layer,
+            **compare(out, ref)}
+
+
+def quantize_kv_check(gen):
+    """quantize_kv (plain torch ops, the cache write of kv_quant="int8") on
+    the card gives the CPU's int8 bytes and scales."""
+    import torch
+    from moss_ttsd_torch.ops.quantize import quantize_kv
+    x = _rand(gen, (2, 8, 57, 128), torch.float32) * 3
+    x[1, 2, 5] = 0.0                                  # an all-zero row
+    ok = True
+    for xx in (x, x.to(torch.bfloat16)):
+        qg, sg = quantize_kv(xx)
+        qc, sc = quantize_kv(xx.cpu())
+        ok &= torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    return {"kernel": "quantize_kv", "case": "card_vs_cpu_bytes",
+            "shape": list(x.shape), "dtype": "float32,bfloat16",
+            "max_abs_err": 0.0 if ok else None, "tolerance": "bytes equal",
+            "finite": True, "ok": bool(ok)}
+
+
 def kernel_checks():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -182,6 +237,24 @@ def kernel_checks():
                     [(0, 70), (9, 70)], 70),
         decode_case(gen, "D64_G4", 2, 130, 16, 4, 64, f32,
                     [(0, 129), (1, 129)], [129, 129]),
+        # int8 cache: the long-form run's shapes (B 1, S 1557 = base 57 +
+        # 1500 steps, mid-run extent 807, a layer view of the 28-layer
+        # stack), then the edge cases and the --tiny shapes
+        int8_decode_case(gen, "longform", 1, 1557, 16, 8, 128, bf,
+                         [(0, 807)], 807, layers=28, layer=27),
+        int8_decode_case(gen, "per_row_extent_B2", 2, 633, 16, 8, 128, bf,
+                         [(92, 505), (177, 300)], [505, 300]),
+        int8_decode_case(gen, "extent1", 2, 100, 16, 8, 128, bf,
+                         [(0, 1), (0, 1)], 1),
+        int8_decode_case(gen, "fully_masked_row", 2, 90, 16, 8, 128, bf,
+                         [(0, 0), (3, 50)], 50),
+        int8_decode_case(gen, "G2_fp32", 2, 333, 16, 8, 128, f32,
+                         [(0, 200), (30, 150)], 200),
+        int8_decode_case(gen, "G4", 2, 130, 16, 4, 128, bf,
+                         [(0, 129), (1, 129)], [129, 129]),
+        int8_decode_case(gen, "tiny", 2, 89, 4, 2, 16, f32,
+                         [(0, 70), (9, 70)], 70),
+        quantize_kv_check(gen),
     ]
     for c in cases:
         emit({"phase": "kernel_check", **c})
@@ -195,19 +268,19 @@ def kernel_checks():
 # phase 4: the full-width main path
 # ---------------------------------------------------------------------------
 
-def build_full_pipeline():
+def full_width_parts(max_new_tokens: int = 256):
+    """The main path's parts at the full width: LMConfig() with the whole
+    vocab counted as speech (random weights never trigger the EOS flush, so
+    the decode runs its whole budget, as bench.py does), random bf16 LM and
+    codec from seed 0, the sampled config."""
     import torch
     from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
                                              CodecConfig, LMConfig,
                                              SamplingConfig)
     from moss_ttsd_torch.models.codec.model import XYTokenizer
     from moss_ttsd_torch.models.lm import AsteroidLM
-    from moss_ttsd_torch.pipeline.batch import TTSPipeline
-    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
 
     cfg = LMConfig()
-    # the whole vocab counts as speech, so random weights never trigger the
-    # EOS flush and the decode runs its whole budget (as bench.py does)
     cfg = LMConfig.from_dict({**cfg.to_dict(),
                               "speech_token_range": [0, cfg.vocab_size],
                               "param_dtype": "bfloat16"})
@@ -219,37 +292,96 @@ def build_full_pipeline():
         channels=[ChannelSamplingConfig(do_sample=True, temperature=0.9,
                                         top_k=50, top_p=0.95)
                   for _ in range(cfg.channels)],
-        max_new_tokens=256)
+        max_new_tokens=max_new_tokens)
+    return cfg, model, spt, sampling
+
+
+def build_full_pipeline():
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    cfg, model, spt, sampling = full_width_parts()
     return TTSPipeline(MockTokenizer(), cfg, model, spt, sampling,
                        bucket=128, device="cuda"), cfg
 
 
-def decode_state(pipe, items):
-    """A prefilled decode state of the main path's batch (for the
+def load_items():
+    with open(JSONL) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def timed_batch(pipe, items, max_new_tokens: int = 256):
+    """Warm-up (handles, autotuning, allocator), then one counted run of
+    process_batch: launch counts and peak memory cover that run only.
+    Returns (texts, audio, e2e seconds, launch counts, peak bytes, the
+    engine's stats of the run)."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    pipe.process_batch(items, max_new_tokens=16, seed=1)
+    torch.cuda.synchronize()
+    pipe.timings.__init__()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    texts, audio = pipe.process_batch(items, max_new_tokens=max_new_tokens,
+                                      seed=0)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    return (texts, audio, e2e_s, fa.launch_counts(),
+            torch.cuda.max_memory_allocated(), dict(pipe.engine.last_stats))
+
+
+def audio_problems(texts, audio, steps: int, channels: int):
+    """Every item gave finite audio whose length fits the steps run.
+    Returns (problems, wav lengths, seconds of audio)."""
+    import numpy as np
+    problems, wav_lens, audio_s = [], [], 0.0
+    if any("error" in t for t in texts):
+        problems.append(f"item errors: {texts}")
+    for res in audio:
+        if res is None:
+            problems.append("an item produced no audio")
+            continue
+        w = res["audio_data"]
+        n = w.shape[-1]
+        wav_lens.append(n)
+        audio_s += n / res["sample_rate"]
+        if not np.isfinite(w).all():
+            problems.append("non-finite audio")
+        if n == 0 or n % 1920 or n > (steps - (channels - 1)) * 1920:
+            problems.append(f"wav length {n} for {steps} steps")
+    return problems, wav_lens, audio_s
+
+
+def engine_state(eng, ids, mask, buf_steps: int):
+    """A prefilled decode state of ``eng`` on a (B, L, C) prompt (for the
     measurements that drive the engine's step loop directly)."""
     import torch
-    from moss_ttsd_torch.pipeline import prompt as pp
-    from moss_ttsd_torch.pipeline.batch import SYSTEM_PROMPT
-    eng = pipe.engine
-    shifted = [pipe._assemble(pipe._prepare_text(it, False)[0], None,
-                              SYSTEM_PROMPT) for it in items]
-    batch, mask = pp.left_pad_batch(shifted, pipe.tokenizer.pad_token_id,
-                                    pipe.lm_cfg.speech_pad_token)
-    ids, m, base = eng._bucket_prompt(batch, mask)
+    ids, m, base = eng._bucket_prompt(ids, mask)
     st = eng.prefill(torch.as_tensor(ids, device="cuda"),
-                     torch.as_tensor(m, device="cuda"), base, 256)
+                     torch.as_tensor(m, device="cuda"), base, buf_steps)
     gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     return eng, st, base, gen
 
 
-def count_syncs_per_step(pipe, items, steps: int = 16) -> float:
-    """Host syncs of the decode step, counted by torch's sync debug mode
-    over ``steps`` steps past the teacher-forcing window (C - 1 steps),
-    i.e. the step that runs for all but the first C - 1 of the budget."""
+def decode_state(pipe, items):
+    """engine_state of the pipeline's batch of ``items``."""
+    from moss_ttsd_torch.pipeline import prompt as pp
+    from moss_ttsd_torch.pipeline.batch import SYSTEM_PROMPT
+    shifted = [pipe._assemble(pipe._prepare_text(it, False)[0], None,
+                              SYSTEM_PROMPT) for it in items]
+    batch, mask = pp.left_pad_batch(shifted, pipe.tokenizer.pad_token_id,
+                                    pipe.lm_cfg.speech_pad_token)
+    return engine_state(pipe.engine, batch, mask, 256)
+
+
+def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
+    """Host syncs of the decode step of a prefilled state, counted by
+    torch's sync debug mode over ``steps`` steps past the teacher-forcing
+    window (C - 1 steps), i.e. the step that runs for all but the first
+    C - 1 of the budget."""
     import torch
-    eng, st, base, gen = decode_state(pipe, items)
-    eng.run(st, base, pipe.lm_cfg.channels - 1, gen)
+    eng.run(st, base, eng.cfg.channels - 1, gen)
     start = st.step
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -262,18 +394,16 @@ def count_syncs_per_step(pipe, items, steps: int = 16) -> float:
     return n / max(st.step - start, 1)
 
 
-def profile_decode(pipe, steps: int = 16):
-    """torch.profiler over ``steps`` decode steps of the main path: device
-    busy time per step (sum of kernel times; one stream, so kernels do not
-    overlap), the idle share of the window, launches per step and the
-    kernels that take the most device time. Profiler overhead inflates the
-    window's host time, so the idle share is an upper bound."""
+def profile_decode(run, eng, st, base, gen, steps: int = 16):
+    """torch.profiler over ``steps`` decode steps of a prefilled state (run
+    = the name of the run it belongs to): device busy time per step (sum of
+    kernel times; one stream, so kernels do not overlap), the idle share of
+    the window, launches per step and the kernels that take the most device
+    time. Profiler overhead inflates the window's host time, so the idle
+    share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with open(JSONL) as f:
-        items = [json.loads(line) for line in f if line.strip()]
-    eng, st, base, gen = decode_state(pipe, items)
-    warm = pipe.lm_cfg.channels                     # past the TF window
+    warm = eng.cfg.channels                         # past the TF window
     eng.run(st, base, warm, gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -290,7 +420,7 @@ def profile_decode(pipe, steps: int = 16):
             kern.append((e.key, t, e.count))
     busy_us = sum(t for _, t, _ in kern)
     kern.sort(key=lambda x: -x[1])
-    emit({"phase": "profile", "steps": steps,
+    emit({"phase": "profile", "run": run, "steps": steps,
           "host_ms_per_step": wall / steps * 1e3,
           "device_busy_ms_per_step": busy_us / 1e3 / steps,
           "device_idle_share": 1.0 - busy_us / (wall * 1e6),
@@ -348,11 +478,14 @@ def reference_check():
     prompt[..., 0] = rng.integers(1, 90, (B, 20))
     mask = np.ones((B, 20), np.int64)
     mask[0, :5] = 0
-    toks = [GenerationEngine(cfg, m, greedy, bucket=32, device=dev)
-            .generate(prompt, mask, 12).tokens
-            for m, dev in ((cpu, "cpu"), (gpu, "cuda"))]
-    tok_match = float(np.mean(toks[0] == toks[1])) \
-        if toks[0].shape == toks[1].shape else 0.0
+    tok_match = {}
+    for name, policy in (("bf16_path", {}),
+                         ("int8_kv8", dict(quant="int8", kv_quant="int8"))):
+        toks = [GenerationEngine(cfg, m, greedy, bucket=32, device=dev,
+                                 **policy).generate(prompt, mask, 12).tokens
+                for m, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+        tok_match[name] = float(np.mean(toks[0] == toks[1])) \
+            if toks[0].shape == toks[1].shape else 0.0
 
     ccfg = CodecConfig().tiny()
     spt_cpu = XYTokenizer.init_random(ccfg, seed=0, device="cpu")
@@ -373,58 +506,27 @@ def reference_check():
 
 
 def main_path():
-    import numpy as np
     import torch
-    from moss_ttsd_torch.ops import flash_attention as fa
-
     t0 = time.perf_counter()
     pipe, cfg = build_full_pipeline()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    with open(JSONL) as f:
-        items = [json.loads(line) for line in f if line.strip()]
-
-    # warm-up: cuBLAS/cuDNN handles and autotuning, allocator growth
-    pipe.process_batch(items, max_new_tokens=16, seed=1)
-    torch.cuda.synchronize()
-    pipe.timings.__init__()
-
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    texts, audio = pipe.process_batch(items, max_new_tokens=256, seed=0)
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    counts = fa.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    st = dict(pipe.engine.last_stats)
+    items = load_items()
+    texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items)
     L = cfg.num_hidden_layers
-
-    problems = []
-    if any("error" in t for t in texts):
-        problems.append(f"item errors: {texts}")
-    wav_lens, audio_s = [], 0.0
-    for res in audio:
-        if res is None:
-            problems.append("an item produced no audio")
-            continue
-        w = res["audio_data"]
-        n = w.shape[-1]
-        wav_lens.append(n)
-        audio_s += n / res["sample_rate"]
-        if not np.isfinite(w).all():
-            problems.append("non-finite audio")
-        if n == 0 or n % 1920 or n > (st["steps"] - (cfg.channels - 1)) * 1920:
-            problems.append(f"wav length {n} for {st['steps']} steps")
+    problems, wav_lens, audio_s = audio_problems(texts, audio, st["steps"],
+                                                 cfg.channels)
     if counts["flash_prefill"] != L * 1:
         problems.append(f"prefill launches {counts['flash_prefill']} != {L}")
     if counts["flash_decode_hs"] != L * st["steps"]:
         problems.append(f"decode launches {counts['flash_decode_hs']} != "
                         f"{L} x {st['steps']}")
+    if counts["flash_decode_int8_hs"]:
+        problems.append("the bf16 path ran the int8-cache kernel")
     if st["steps"] != 256:
         problems.append(f"decode ran {st['steps']} of 256 steps")
 
-    syncs = count_syncs_per_step(pipe, items)
+    syncs = count_syncs_per_step(*decode_state(pipe, items))
     tm = pipe.timings
     line = {"phase": "main_path", "layers": L, "batch": st["batch"],
             "base": st["base"], "buf_steps": st["buf_steps"],
@@ -441,6 +543,137 @@ def main_path():
     if problems:
         raise SystemExit(f"main path failed: {problems}")
     return pipe, line
+
+
+# ---------------------------------------------------------------------------
+# phase 6: int8 serving at the full width
+# ---------------------------------------------------------------------------
+
+def int8_pipeline_run(name, pipe, items):
+    """One counted TTSPipeline run of the int8 phase: the bf16-cache decode
+    kernel at every step, audio checked. Without the restricted head the
+    whole vocab is speech and the run must take all 256 steps; with it a
+    row may stop on <|end_of_speech|>, so it must take at least C - 1 steps
+    past the teacher-forcing window, and its audit must have counted rows."""
+    texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items)
+    cfg = pipe.lm_cfg
+    C, L, steps = cfg.channels, cfg.num_hidden_layers, st["steps"]
+    problems, wav_lens, audio_s = audio_problems(texts, audio, steps, C)
+    want = {"flash_prefill": L, "flash_decode_hs": L * steps,
+            "flash_decode_int8_hs": 0}
+    if counts != want:
+        problems.append(f"launches {counts} != {want}")
+    if not cfg.restricted_text_head and steps != 256:
+        problems.append(f"decode ran {steps} of 256 steps")
+    if cfg.restricted_text_head and steps < 2 * (C - 1):
+        problems.append(f"{steps} steps: fewer than C - 1 past the "
+                        "teacher-forcing window")
+    audit = st["audit"]
+    if cfg.restricted_audit_every and not (audit and audit[0] > 0):
+        problems.append(f"audit counters {audit}")
+    line = {"phase": "int8", "run": name, "quantized": cfg.quantized,
+            "kv_quant": cfg.kv_quant, "batch": st["batch"],
+            "base": st["base"], "steps": steps,
+            "prefill_ms": st["prefill_s"] * 1e3, "decode_s": st["decode_s"],
+            "decode_steps_per_s": steps / st["decode_s"],
+            "vocode_s": pipe.timings.vocode_s, "e2e_s": e2e_s,
+            "audio_s": audio_s, "rtf": audio_s / e2e_s,
+            "wav_samples": wav_lens, "peak_mem_gib": peak / 2 ** 30,
+            "host_syncs_per_step": count_syncs_per_step(
+                *decode_state(pipe, items)),
+            "audit_rows_flagged": audit, "launches": counts,
+            "ok": not problems, "problems": problems}
+    emit(line)
+    return line
+
+
+def int8_phase(profile: bool = False):
+    """int8 serving at the LMConfig() width, the seeded bf16 random weights
+    quantized inside the engine: (1) TTSPipeline(quant="int8"); (2) the same
+    with the restricted text head and its audit under the speech window
+    (151665, 152695) of bench.py; (3) the long-form engine of bench_full.py
+    (quant and kv_quant "int8", bucket 64, step_bucket 1500, batch 1, a
+    64-row random text prompt, 1500 steps). ``profile``: a decode profile
+    of runs 1 and 3 besides."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+
+    cfg, model, spt, sampling = full_width_parts()
+    items = load_items()
+    C, L = cfg.channels, cfg.num_hidden_layers
+    lines = []
+
+    pipe = TTSPipeline(MockTokenizer(), cfg, model, spt, sampling,
+                       bucket=128, quant="int8", device="cuda")
+    lines.append(int8_pipeline_run("quant_int8", pipe, items))
+    if profile:
+        profile_decode("int8:quant_int8", *decode_state(pipe, items))
+    del pipe
+
+    # the window [151665, 152695) holds the speech ids and
+    # <|end_of_speech|>; counting all of it as speech keeps random weights
+    # from the EOS flush, but a row still stops when it samples the EOS id
+    rcfg = LMConfig.from_dict({**cfg.to_dict(),
+                               "speech_token_range": [151665, 152695]})
+    pipe = TTSPipeline(MockTokenizer(), rcfg, model, spt, sampling,
+                       bucket=128, quant="int8", restricted_text_head=True,
+                       restricted_audit_every=16, device="cuda")
+    lines.append(int8_pipeline_run("restricted_head_audit16", pipe, items))
+    del pipe, spt
+
+    steps = 1500
+    sampling.max_new_tokens = steps
+    eng = GenerationEngine(cfg, model, sampling, bucket=64, quant="int8",
+                           kv_quant="int8", step_bucket=steps, device="cuda")
+    del model
+    rng = np.random.default_rng(0)
+    ids = np.full((1, 64, C), cfg.speech_pad_token, np.int64)
+    ids[..., 0] = rng.integers(1, 10000, (1, 64))
+    mask = np.ones((1, 64), np.int64)
+    eng.generate(ids, mask, max_new_tokens=16, seed=1)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(ids, mask, max_new_tokens=steps, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, st = fa.launch_counts(), eng.last_stats
+    problems = []
+    want = {"flash_prefill": L, "flash_decode_hs": 0,
+            "flash_decode_int8_hs": L * steps}
+    if counts != want:
+        problems.append(f"launches {counts} != {want}")
+    if res.steps != steps:
+        problems.append(f"decode ran {res.steps} of {steps} steps")
+    gen = res.tokens[:, res.base:]
+    if not ((gen[..., 0] >= 0).all() and (gen[..., 0] < cfg.vocab_size).all()
+            and (gen[..., 1:] < cfg.speech_vocab_size).all()):
+        problems.append("generated ids out of range")
+    line = {"phase": "int8", "run": "longform_kv8", "quantized": True,
+            "kv_quant": "int8", "batch": 1, "base": res.base,
+            "buf_steps": st["buf_steps"], "steps": res.steps,
+            "prefill_ms": st["prefill_s"] * 1e3, "decode_s": st["decode_s"],
+            "decode_steps_per_s": res.steps / st["decode_s"],
+            "generate_s": wall, "decode_rtf": res.steps / st["decode_s"] / 12.5,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "host_syncs_per_step": count_syncs_per_step(
+                *engine_state(eng, ids, mask, steps)),
+            "launches": counts, "ok": not problems, "problems": problems}
+    emit(line)
+    lines.append(line)
+    if profile:
+        profile_decode("int8:longform_kv8",
+                       *engine_state(eng, ids, mask, steps))
+    bad = [ln["run"] for ln in lines if not ln["ok"]]
+    if bad:
+        raise SystemExit(f"int8 phase failed: {bad}")
+    return lines
 
 
 def logits_check(pipe):
@@ -476,36 +709,40 @@ def logits_check(pipe):
 # ---------------------------------------------------------------------------
 
 def cli_check():
+    """The --tiny CLI on the card, as it is and with int8 serving."""
     out_dir = os.path.join(ROOT, "build", "chip_smoke_cli")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "moss_ttsd_torch.cli.inference",
-         "--jsonl", JSONL, "--tiny", "--max_new_tokens", "32",
-         "--output_dir", out_dir],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    wavs = sorted(f for f in os.listdir(out_dir) if f.endswith(".wav")) \
-        if os.path.isdir(out_dir) else []
-    ok = proc.returncode == 0 and len(wavs) == 2
-    emit({"phase": "cli", "rc": proc.returncode, "wavs": wavs,
-          "seconds": time.perf_counter() - t0, "ok": ok,
-          "tail": proc.stdout.strip().splitlines()[-2:]})
-    shutil.rmtree(out_dir, ignore_errors=True)
-    if not ok:
-        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-        raise SystemExit("tiny CLI failed")
+    for extra in ([], ["--quant", "int8", "--restricted_text_head"]):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "moss_ttsd_torch.cli.inference",
+             "--jsonl", JSONL, "--tiny", "--max_new_tokens", "32",
+             "--output_dir", out_dir, *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wavs = sorted(f for f in os.listdir(out_dir) if f.endswith(".wav")) \
+            if os.path.isdir(out_dir) else []
+        ok = proc.returncode == 0 and len(wavs) == 2
+        emit({"phase": "cli", "flags": extra, "rc": proc.returncode,
+              "wavs": wavs, "seconds": time.perf_counter() - t0, "ok": ok,
+              "tail": proc.stdout.strip().splitlines()[-2:]})
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if not ok:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise SystemExit(f"tiny CLI {extra} failed")
 
 
 # ---------------------------------------------------------------------------
 # kernels line: times at the main path's shapes, bounds, launches
 # ---------------------------------------------------------------------------
 
-def kernel_table(main, checks):
-    """Times at the main path's shapes. Each timing rotates over ``SETS``
-    distinct input sets (one per layer, as the main path reads 28 layer
-    caches in turn), ~145-170 MB in all, so inputs come from HBM, not L2.
-    Bounds count only what the function must move and compute: the rows
-    and slots that are valid in this run's padding."""
+def kernel_table(main, longform, checks):
+    """Times at the shapes of the runs that launch each kernel: the main
+    path's for flash_prefill and flash_decode_hs, the long-form run's for
+    flash_decode_int8_hs. Each timing rotates over ``SETS`` distinct input
+    sets (one per layer, as the decode step reads 28 layer caches in turn),
+    ~90-170 MB in all, so inputs come from HBM, not L2. Bounds count only
+    what the function must move and compute: the rows and slots that are
+    valid in the run's padding, below the extent."""
     import torch
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
@@ -577,8 +814,65 @@ def kernel_table(main, checks):
         cuda_ms(lib_d, 2 * SETS), d_bytes, d_flops,
         {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16", "extent": ext,
          "input_sets": SETS}))
+    del ds
+    if longform is not None:
+        rows.append(int8_decode_row(longform, checks, SETS))
     emit({"kernels": rows})
     return rows
+
+
+def int8_decode_row(lf, checks, SETS):
+    """flash_decode_int8_hs at the long-form run's shapes: B 1, the
+    full-capacity cache S = base + buf_steps, the mid-run extent, layer
+    views of one (L, ...) int8 stack (L = SETS distinct layers). No single
+    PyTorch call attends over an int8 cache, so library_ms is null;
+    dequant_sdpa_ms (a cast-and-scale to bf16 of the slots below the
+    extent, then SDPA over them) is a reference point, not a library port."""
+    import torch
+    import torch.nn.functional as F
+    from moss_ttsd_torch.ops import flash_attention as fa
+    B, H, Hkv, D = lf["batch"], 16, 8, 128
+    S = lf["base"] + lf["buf_steps"]
+    ext = lf["base"] + (lf["steps"] + 1) // 2
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    scale = D ** -0.5
+    q = _rand(gen, (B, 1, H, D), bf)
+    kq, ks = _int8_kv(gen, (SETS, B, Hkv, S, D))
+    vq, vs = _int8_kv(gen, (SETS, B, Hkv, S, D))
+    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    valid[:, :ext] = True              # the long-form prompt has no padding
+    nv = int(valid.sum())
+    nbytes = (2 * Hkv * nv * D            # int8 K and V rows
+              + 2 * Hkv * nv * 4          # fp32 k and v scales
+              + 2 * 2 * q.numel()         # bf16 q in, out
+              + B * ext)                  # key_valid below the extent
+    flops = 4 * D * H * nv
+    qh = q.transpose(1, 2)
+
+    def dequant_sdpa(i):
+        l = i % SETS
+        k = kq[l][:, :, :ext].to(bf) * ks[l][:, :, :ext, None].to(bf)
+        v = vq[l][:, :, :ext].to(bf) * vs[l][:, :, :ext, None].to(bf)
+        return F.scaled_dot_product_attention(
+            qh, k, v, attn_mask=valid[:, None, None, :ext], scale=scale,
+            enable_gqa=True)
+    row = _row(
+        "flash_decode_int8_hs", "moss_ttsd_torch/csrc/flash_decode_int8.cu",
+        "moss_ttsd_tpu/ops/pallas_attention.py:311 (flash_decode_int8_hs / "
+        "_decode_int8_kernel)", lf["launches"]["flash_decode_int8_hs"],
+        checks["flash_decode_int8_hs:longform"],
+        cuda_ms(lambda i: fa.flash_decode_int8_hs(
+            q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS),
+            2 * SETS),
+        cuda_ms(lambda i: fa.flash_decode_int8_hs_plain(
+            q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS),
+            SETS),
+        None, nbytes, flops,
+        {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16 q, int8 cache",
+         "extent": ext, "input_sets": SETS,
+         "dequant_sdpa_ms": cuda_ms(dequant_sdpa, 2 * SETS)})
+    return row
 
 
 def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
@@ -601,8 +895,8 @@ def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of kernels,reference,main,logits,cli,"
-                         "profile "
+                    help="comma list of kernels,reference,main,logits,int8,"
+                         "cli,profile "
                          "(default all = every phase but profile)")
     args = ap.parse_args(argv)
     import torch
@@ -610,7 +904,7 @@ def main(argv=None) -> int:
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 1
     from moss_ttsd_torch.ops import flash_attention as fa
-    phases = ({"kernels", "reference", "main", "logits", "cli"}
+    phases = ({"kernels", "reference", "main", "logits", "int8", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -639,16 +933,20 @@ def main(argv=None) -> int:
     checks = kernel_checks() if "kernels" in phases else {}
     if "reference" in phases:
         reference_check()
-    main_line = None
+    main_line = longform = None
     if "main" in phases:
         pipe, main_line = main_path()
         if "logits" in phases:
             logits_check(pipe)
         if "profile" in phases:
-            profile_decode(pipe)
-        if "kernels" in phases:
-            kernel_table(main_line, checks)
+            profile_decode("main_path", *decode_state(pipe, load_items()))
         del pipe
+        torch.cuda.empty_cache()
+    if "int8" in phases:
+        longform = int8_phase("profile" in phases)[-1]
+        torch.cuda.empty_cache()
+    if "kernels" in phases and main_line is not None:
+        kernel_table(main_line, longform, checks)
         torch.cuda.empty_cache()
     if "cli" in phases:
         cli_check()

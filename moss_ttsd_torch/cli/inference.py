@@ -2,8 +2,9 @@
 
 Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
---platform). Runs on the CUDA card unless ``--platform cpu``. ``--tiny``
-runs tiny random-weight models (no checkpoint needed).
+--platform --quant --restricted_text_head). Runs on the CUDA card unless
+``--platform cpu``. ``--tiny`` runs tiny random-weight models (no checkpoint
+needed).
 
     python -m moss_ttsd_torch.cli.inference --jsonl examples/examples_only_text.jsonl \\
         --tiny --platform cpu --output_dir outputs --max_new_tokens 32
@@ -21,7 +22,8 @@ SPT_CONFIG_PATH = "XY_Tokenizer/config/xy_tokenizer_config.yaml"
 SPT_CHECKPOINT_PATH = "XY_Tokenizer/weights/xy_tokenizer.ckpt"
 
 
-def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda"):
+def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
+                        quant=None, restricted_text_head: bool = False):
     """Random tiny LM + codec + mock tokenizer wired into the real pipeline
     (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
     from ..core.config import (ChannelSamplingConfig, CodecConfig, LMConfig,
@@ -47,6 +49,8 @@ def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda"):
                   for _ in range(lm_cfg.channels)],
         max_new_tokens=64)
     return TTSPipeline(tokenizer, lm_cfg, model, spt, sampling, bucket=bucket,
+                       quant=quant,
+                       restricted_text_head=restricted_text_head or None,
                        device=dev)
 
 
@@ -72,19 +76,20 @@ def main(argv=None):
     parser.add_argument("--platform", choices=["default", "cpu"],
                         default="default",
                         help="default = the CUDA card; cpu = run on the CPU")
+    parser.add_argument("--quant", choices=["int8"], default=None,
+                        help="weight-only int8 serving (w8a16)")
+    parser.add_argument("--restricted_text_head", action="store_true",
+                        help="channel-0 logits over the speech window only")
     # flags of the JAX CLI that this port does not implement yet: accepted
     # so they fail loudly instead of being silently ignored
-    parser.add_argument("--quant", default=None)
     parser.add_argument("--mesh", default=None)
     parser.add_argument("--lora_adapter", action="append", default=[])
     parser.add_argument("--attn_impl", default=None)
-    parser.add_argument("--restricted_text_head", action="store_true")
     parser.add_argument("--profile_dir", default=None)
     args = parser.parse_args(argv)
 
-    for flag, val in (("--quant", args.quant), ("--mesh", args.mesh),
+    for flag, val in (("--mesh", args.mesh),
                       ("--lora_adapter", args.lora_adapter),
-                      ("--restricted_text_head", args.restricted_text_head),
                       ("--profile_dir", args.profile_dir)):
         if val:
             _not_yet(parser, flag)
@@ -93,7 +98,9 @@ def main(argv=None):
 
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.tiny:
-        pipe = build_tiny_pipeline(seed=args.seed or 0, device=device)
+        pipe = build_tiny_pipeline(
+            seed=args.seed or 0, device=device, quant=args.quant,
+            restricted_text_head=args.restricted_text_head)
     else:
         raise SystemExit(
             "loading a real checkpoint is not yet ported: it needs the HF LM "

@@ -2,10 +2,9 @@
 
 A copy of ``moss_ttsd_tpu/core/config.py`` (the port imports nothing of the
 JAX package): the same fields and defaults, so one config dict drives both
-packages. Fields that name TPU-only policies (attn_impl, decode_len_bucket,
-pallas_interpret, the bench ablations) are kept for dict round-trips; the
-port's main path reads only the model geometry, the token-space contract and
-the dtypes.
+packages. Fields that name TPU-only policies are kept for dict
+round-trips; the comment on LMConfig's decode-policy fields says which of
+them the port's engine implements, refuses or ignores.
 
 These mirror the reference's configuration surface:
   * ``LMConfig``      — AsteroidTTSConfig (reference modeling_asteroid.py:17-28) on
@@ -74,10 +73,14 @@ class LMConfig:
 
     # Decode policies of the JAX package (ops/pallas_attention.py, int8
     # serving, restricted head, LoRA, training, bench ablations). The port
-    # keeps the fields so one config dict drives both packages; its main
-    # path ignores them: attention always goes through the flash kernels of
-    # ops/flash_attention.py, and the options it has not ported raise in the
-    # CLI.
+    # keeps every field so one config dict drives both packages.
+    # GenerationEngine implements quantized, kv_quant, restricted_text_head
+    # and restricted_audit_every, and raises ValueError for lora_rank > 0,
+    # remat_layers, the ablate_* stubs, an attn_impl other than mixed or
+    # pallas (attention is always the kernels of ops/flash_attention.py) and
+    # an unknown kv_quant. The TPU performance knobs decode_len_bucket,
+    # decode_extent_kernel, decode_block_k, pallas_interpret and
+    # fuse_qk_norm_rope change no number and are accepted and ignored.
     attn_impl: str = "mixed"
     pallas_interpret: bool = False
     quantized: bool = False

@@ -1,5 +1,7 @@
 """Autoregressive generation engine, PyTorch port of
-``moss_ttsd_tpu/decode/engine.py`` (the static-batch ``generate``).
+``moss_ttsd_tpu/decode/engine.py`` (the static-batch ``generate``, with the
+int8 serving policies: ``quant="int8"`` weights, the ``kv_quant="int8"``
+cache and the restricted text head with its audit).
 
 Prefill runs the left-padded, bucketed prompt through the LM once; a
 host-driven step loop (the JAX ``while_loop``) then runs the decode
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional, Union
+from typing import List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,43 +35,55 @@ from ..core.config import LMConfig, SamplingConfig
 from ..core.device import DeviceLike, resolve_device, torch_dtype
 from ..models.lm import AsteroidLM, init_cache
 from ..ops.attention import NEG_INF
+from ..ops.quantize import is_quantized_tree, quantize_lm_params
 from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
+
 
 class GenerateResult(NamedTuple):
     tokens: np.ndarray       # (B, base + steps, C) — prompt-minus-tail + generated
     steps: int               # decode steps actually run
     base: int                # index of the first generated row (bucketed L - C + 1)
+    audit: Optional[Tuple[int, int]] = None   # restricted-head audit
+    #                          (rows_audited, rows_flagged); None when off
 
 
 @dataclasses.dataclass
 class DecodeState:
     step: int
     tokens: torch.Tensor         # (B, S, C) token buffer
-    cache: dict                  # {"k","v"} (L, B, Hkv, S, D)
+    cache: dict                  # {"k","v"[,"k_s","v_s"]} (L, B, Hkv, S[, D])
     key_valid: torch.Tensor      # (B, S) bool
     hidden_last: torch.Tensor    # (B, 1, H)
     last_pos: torch.Tensor       # (B,) last RoPE position used
     needs: torch.Tensor          # (B,) EOS-flush countdown, -1 = inactive
     unfinished: torch.Tensor     # (B,) bool
-    presence_text: torch.Tensor  # (B, V_text) bool
+    presence_text: torch.Tensor  # (B, V_text) bool; restricted head: (B, window)
     presence_speech: torch.Tensor  # (B, C-1, V_speech) bool
+    audit_rows: torch.Tensor     # () int64 — unfinished rows audited
+    audit_flagged: torch.Tensor  # () int64 — rows whose full-head best
+    #                              out-of-window logit beat the window max
 
 
 def sample_channels(gen, text_logits, speech_logits, presence_text,
                     presence_speech, srow: int, ch_params, prefilter,
-                    approx_topk, eos, pad_speech):
-    """One sampling round -> next_tokens (B, C)."""
+                    approx_topk, eos, pad_speech, text_offset: int = 0):
+    """One sampling round -> next_tokens (B, C). ``text_offset``: vocab id
+    of column 0 of text_logits / presence_text (the restricted head's window
+    start); ``eos`` and the returned channel-0 tokens are full vocab ids."""
     lg = channel_logits(text_logits, speech_logits, presence_text,
-                        presence_speech, srow, ch_params, eos, pad_speech)
-    return torch.stack([sample_from_channel(gen, x, ch_params[i], prefilter,
-                                            approx_topk)
-                        for i, x in enumerate(lg)], dim=-1)
+                        presence_speech, srow, ch_params, eos, pad_speech,
+                        text_offset)
+    toks = [sample_from_channel(gen, x, ch_params[i], prefilter, approx_topk)
+            for i, x in enumerate(lg)]
+    toks[0] = toks[0] + text_offset
+    return torch.stack(toks, dim=-1)
 
 
 def channel_logits(text_logits, speech_logits, presence_text,
-                   presence_speech, srow: int, ch_params, eos, pad_speech):
+                   presence_speech, srow: int, ch_params, eos, pad_speech,
+                   text_offset: int = 0):
     """The masked + penalized per-channel logits the draws see (the JAX
     ``_sample_channels_body`` chain): channel 0 gets -1e30 on eos inside the
     TF window, channel i >= 1 on the speech pad once its delay elapsed; then
@@ -77,7 +91,7 @@ def channel_logits(text_logits, speech_logits, presence_text,
     C = len(ch_params)
     t = text_logits.clone()
     if srow < C - 1:
-        t[:, eos] += NEG_INF
+        t[:, eos - text_offset] += NEG_INF
     out = [apply_repetition_penalty(t, presence_text,
                                     ch_params[0].repetition_penalty)]
     for i in range(1, C):
@@ -90,31 +104,71 @@ def channel_logits(text_logits, speech_logits, presence_text,
     return out
 
 
+def _refuse_unported(cfg: LMConfig) -> None:
+    """ValueError for the LMConfig fields this engine does not implement.
+
+    Implemented: the geometry, the dtypes, ``quantized``, ``kv_quant``,
+    ``restricted_text_head`` and ``restricted_audit_every``. TPU performance
+    knobs with no numeric effect (``decode_len_bucket``,
+    ``decode_extent_kernel``, ``decode_block_k``, ``pallas_interpret``,
+    ``fuse_qk_norm_rope``) are accepted and ignored."""
+    unported = [name for name in ("ablate_attention", "ablate_norms",
+                                  "ablate_rope", "remat_layers")
+                if getattr(cfg, name)]
+    if cfg.lora_rank > 0:
+        unported.append(f"lora_rank={cfg.lora_rank}")
+    if unported:
+        raise ValueError(f"LMConfig {', '.join(unported)}: not ported to "
+                         "moss_ttsd_torch's GenerationEngine")
+    if cfg.attn_impl not in ("mixed", "pallas"):
+        raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported (the "
+                         "port's attention is its kernels: mixed or pallas)")
+    if cfg.kv_quant not in ("none", "int8"):
+        raise ValueError(f"unknown kv_quant mode {cfg.kv_quant!r}")
+
+
 class GenerationEngine:
     """Prefill + decode loop over a static-shape KV cache.
 
-    ``params``: an ``AsteroidLM`` (used as is) or a state dict for one. The
-    weights are cast once to ``cfg.dtype`` (the decode step is
-    weight-bandwidth-bound). The KV cache is stored in ``cfg.dtype`` too:
-    the kernels read it in the compute dtype."""
+    ``params``: an ``AsteroidLM`` or a state dict for one. Float weights are
+    cast once to ``cfg.dtype`` (the decode step is weight-bandwidth-bound)
+    and then, with ``quant="int8"``, quantized to w8a16
+    (``ops/quantize.py``); a state dict already in the int8 layout skips
+    both. The engine builds its own module around the weights (no copy), so
+    its decode policy never leaks into the caller's model.
+
+    ``kv_quant="int8"``: int8 KV cache with per-head-per-token scales, read
+    by ``flash_decode_int8_hs`` at every decode step; otherwise the cache is
+    in ``cfg.dtype`` (the kernels read it in the compute dtype).
+    ``restricted_text_head``: channel-0 logits over the speech window only;
+    ``restricted_audit_every=N`` streams the full text head every N-th step
+    and counts the rows where it would have preferred an out-of-window
+    token (``GenerateResult.audit``). The four keywords override ``cfg``."""
 
     def __init__(self, cfg: LMConfig,
-                 params: Union[AsteroidLM, dict],
+                 params: Union[AsteroidLM, Mapping[str, torch.Tensor]],
                  sampling: Optional[SamplingConfig] = None,
                  bucket: int = 128, step_bucket: int = 256,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", quant: Optional[str] = None,
+                 kv_quant: Optional[str] = None,
+                 restricted_text_head: Optional[bool] = None,
+                 restricted_audit_every: Optional[int] = None):
         self.device = resolve_device(device)
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        overrides = {k: v for k, v in (
+            ("kv_quant", kv_quant),
+            ("restricted_text_head", restricted_text_head),
+            ("restricted_audit_every", restricted_audit_every)) if v is not None}
+        if quant == "int8":
+            # int8 serving runs merged weights (the JAX engine's rule)
+            overrides.update(quantized=True, lora_rank=0)
+        cfg = dataclasses.replace(cfg, **overrides)
+        _refuse_unported(cfg)
         self.cfg = cfg
-        dtype = torch_dtype(cfg.dtype)
-        if isinstance(params, AsteroidLM):
-            model = params
-        else:
-            with torch.device(self.device):
-                model = AsteroidLM(cfg)
-            model.load_state_dict(params)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
-        self.model.requires_grad_(False)
-        self.cache_dtype = dtype
+        self.text_window = cfg.text_head_window()
+        self.model = self._build_model(cfg, params)
+        self.cache_dtype = torch_dtype(cfg.dtype)
         self.sampling = sampling or SamplingConfig.default(cfg.channels)
         if step_bucket < cfg.channels - 1:
             raise ValueError(
@@ -127,6 +181,29 @@ class GenerationEngine:
             for c in self.sampling.channels]
         # host-clock split of the last generate() (prefill / decode loop)
         self.last_stats: dict = {}
+
+    def _build_model(self, cfg: LMConfig, params) -> AsteroidLM:
+        """The engine's own ``AsteroidLM(cfg)`` around the given weights:
+        cast to ``cfg.dtype`` first, quantized after (``cfg.quantized``); a
+        state dict already quantized is taken as it is. The module is made
+        on the meta device and the tensors assigned, so nothing is copied
+        that needs no cast."""
+        state = (params.state_dict() if isinstance(params, AsteroidLM)
+                 else dict(params))
+        dev = self.device
+        if is_quantized_tree(state):
+            if not cfg.quantized:
+                raise ValueError("int8 weights need quant='int8'")
+            state = {k: v.to(dev) for k, v in state.items()}
+        else:
+            state = {k: v.to(device=dev, dtype=torch_dtype(cfg.dtype))
+                     for k, v in state.items()}
+            if cfg.quantized:
+                state = quantize_lm_params(state)
+        with torch.device("meta"):
+            model = AsteroidLM(cfg)
+        model.load_state_dict(state, assign=True)
+        return model.eval().requires_grad_(False)
 
     # -- budget / bucketing (host) -------------------------------------------
 
@@ -182,17 +259,22 @@ class GenerationEngine:
         cache = init_cache(cfg, B, S, self.cache_dtype, dev)
         hidden, cache = self.model.backbone(buf[:, :base], positions,
                                             key_valid, cache, 0)
+        lo, hi = self.text_window
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
         return DecodeState(
             step=0, tokens=buf, cache=cache, key_valid=key_valid,
             hidden_last=hidden[:, -1:], last_pos=positions[:, -1].clone(),
             needs=torch.full((B,), -1, dtype=torch.int64, device=dev),
             unfinished=torch.ones((B,), dtype=torch.bool, device=dev),
-            presence_text=presence_from_history(buf[:, :base, 0],
-                                                cfg.vocab_size),
+            # window-relative ids; ids below the window go negative and
+            # are dropped, never wrapped onto window slots
+            presence_text=presence_from_history(buf[:, :base, 0] - lo,
+                                                hi - lo),
             presence_speech=torch.stack(
                 [presence_from_history(buf[:, :base, i],
                                        cfg.speech_vocab_size)
-                 for i in range(1, C)], dim=1))
+                 for i in range(1, C)], dim=1),
+            audit_rows=zero, audit_flagged=zero.clone())
 
     @torch.no_grad()
     def _step(self, st: DecodeState, base: int,
@@ -204,12 +286,27 @@ class GenerationEngine:
         cur_len = base + s
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
         speech_lo, speech_hi = cfg.speech_token_range
-        text_logits, speech_logits = self.model.logits_all(st.hidden_last)
+        lo = self.text_window[0]
+        restricted = cfg.restricted_text_head
+        text_logits, speech_logits = self.model.logits_all(st.hidden_last,
+                                                           restricted)
+        text_logits = text_logits[:, 0]              # (B, hi - lo)
         next_tokens = sample_channels(
-            gen, text_logits[:, 0], speech_logits[:, 0], st.presence_text,
+            gen, text_logits, speech_logits[:, 0], st.presence_text,
             st.presence_speech, s, self.ch_params,
             self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
-            pad_speech)                                          # (B, C)
+            pad_speech, lo)                                      # (B, C)
+
+        # restricted-head audit: every N-th step stream the full text head
+        # once and count the live rows whose best out-of-window raw logit
+        # beats the window max (counters stay on the device: no sync)
+        every = cfg.restricted_audit_every
+        if restricted and every > 0 and s % every == 0:
+            outside = self.model.text_logits_outside_max(st.hidden_last)
+            live = st.unfinished & (st.needs < 0)
+            st.audit_rows += live.sum()
+            st.audit_flagged += (live & (outside
+                                         > text_logits.amax(dim=-1))).sum()
 
         # EOS detection on the sampled channel 0
         tok0 = next_tokens[:, 0]
@@ -232,7 +329,7 @@ class GenerationEngine:
         next_tokens = torch.where(st.unfinished[:, None], next_tokens, fill)
 
         st.tokens[:, cur_len] = next_tokens
-        scatter_presence(st.presence_text, next_tokens[:, 0])
+        scatter_presence(st.presence_text, next_tokens[:, 0] - lo)
         scatter_presence(st.presence_speech, next_tokens[:, 1:])
         needs = torch.where(needs > 0, needs - 1, needs)
         stopping = (next_tokens[:, 0] == eos) | (needs == 0)
@@ -277,10 +374,14 @@ class GenerationEngine:
         t1 = time.perf_counter()
         st = self.run(st, base, max_steps, gen)
         tokens = st.tokens.cpu().numpy()
+        audit = None
+        if self.cfg.restricted_text_head and self.cfg.restricted_audit_every > 0:
+            audit = tuple(int(v) for v in
+                          torch.stack([st.audit_rows, st.audit_flagged]).cpu())
         self.last_stats = {
             "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
             "steps": st.step, "base": base, "buf_steps": buf_steps,
-            "batch": int(input_ids.shape[0]),
+            "batch": int(input_ids.shape[0]), "audit": audit,
             "left_pad": (attention_mask[:, :base] == 0).sum(axis=1).tolist()}
         return GenerateResult(tokens=tokens[:, :base + st.step],
-                              steps=st.step, base=base)
+                              steps=st.step, base=base, audit=audit)

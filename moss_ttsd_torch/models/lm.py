@@ -1,15 +1,21 @@
 """AsteroidLM — the 8-channel Qwen3-style decoder, PyTorch port of
-``moss_ttsd_tpu/models/lm.py`` (bf16/fp32 path: no int8 weights, no LoRA).
+``moss_ttsd_tpu/models/lm.py`` (bf16/fp32 and int8 weights; no LoRA).
 
   * 8 embedding tables summed into one hidden stream (``embed``);
   * Qwen3 blocks: RMSNorm, GQA attention with per-head q/k RMSNorm + RoPE,
     SwiGLU MLP; ``attention_bias`` puts a bias on q/k/v and o_proj;
-  * 8 LM heads tied to their embedding tables, fp32 logits (``logits_all``);
-  * a static head-major KV cache (L, B, Hkv, S, D) written in place.
+  * 8 LM heads tied to their embedding tables, fp32 logits (``logits_all``),
+    optionally over the restricted text-head window only;
+  * a static head-major KV cache (L, B, Hkv, S, D) written in place, in the
+    compute dtype or int8 with per-head-per-token fp32 scales.
 
-Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` and
-single-token decode through the extent-clamped ``flash_decode_hs`` — the
-port's one decode attention; the cache-free forward uses the plain
+``cfg.quantized`` (w8a16): the seven projections are ``QLinear`` and the
+embedding tables int8 with per-row scales (``ops/quantize.py``).
+
+Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` on
+the exact k/v; single-token decode through the extent-clamped
+``flash_decode_hs``, or ``flash_decode_int8_hs`` over an int8 cache — the
+port's decode attentions; the cache-free forward uses the plain
 ``gqa_attention``.
 """
 
@@ -25,7 +31,9 @@ from torch import nn
 from ..core.config import LMConfig
 from ..core.device import torch_dtype
 from ..ops.attention import causal_mask, gqa_attention
-from ..ops.flash_attention import flash_decode_hs, flash_prefill
+from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
+                                   flash_prefill)
+from ..ops.quantize import quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 
 
@@ -48,6 +56,31 @@ class RMSNorm(nn.Module):
         return rms_norm_fn(x, self.weight, self.eps)
 
 
+def _int8(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.int8),
+                        requires_grad=False)
+
+
+class QLinear(nn.Module):
+    """Weight-only int8 linear (w8a16, JAX ``QDense``): an int8 (out, in)
+    weight, an fp32 (out, 1) per-output-row scale and an optional float
+    bias. The scale is cast to the compute dtype before the product, as the
+    JAX layer does; activations stay in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = False):
+        super().__init__()
+        self.weight_q = _int8(out_features, in_features)
+        self.weight_s = nn.Parameter(torch.ones(out_features, 1),
+                                     requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight_q.to(x.dtype) * self.weight_s.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, w, b)
+
+
 class Qwen3Block(nn.Module):
     """One decoder layer (JAX ``Qwen3Block``)."""
 
@@ -57,17 +90,18 @@ class Qwen3Block(nn.Module):
         self.cfg = cfg
         H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         hid, bias = c.hidden_size, c.attention_bias
+        dense = QLinear if c.quantized else nn.Linear
         self.input_ln = RMSNorm(hid, c.rms_norm_eps)
-        self.q_proj = nn.Linear(hid, H * D, bias=bias)
-        self.k_proj = nn.Linear(hid, Hkv * D, bias=bias)
-        self.v_proj = nn.Linear(hid, Hkv * D, bias=bias)
-        self.o_proj = nn.Linear(H * D, hid, bias=bias)   # HF Qwen3: o_proj too
+        self.q_proj = dense(hid, H * D, bias=bias)
+        self.k_proj = dense(hid, Hkv * D, bias=bias)
+        self.v_proj = dense(hid, Hkv * D, bias=bias)
+        self.o_proj = dense(H * D, hid, bias=bias)       # HF Qwen3: o_proj too
         self.q_norm = RMSNorm(D, c.rms_norm_eps)
         self.k_norm = RMSNorm(D, c.rms_norm_eps)
         self.post_ln = RMSNorm(hid, c.rms_norm_eps)
-        self.gate_proj = nn.Linear(hid, c.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(hid, c.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(c.intermediate_size, hid, bias=False)
+        self.gate_proj = dense(hid, c.intermediate_size, bias=False)
+        self.up_proj = dense(hid, c.intermediate_size, bias=False)
+        self.down_proj = dense(c.intermediate_size, hid, bias=False)
 
     def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
                 cache_pos: int, key_valid: torch.Tensor,
@@ -88,19 +122,32 @@ class Qwen3Block(nn.Module):
             # slice is transposed. The write at the scalar cache_pos is an
             # in-place copy_ into the slot — the counterpart of XLA's in-place
             # dynamic_update_slice on the loop carry; no cache copy is made.
-            ck, cv = cache["k"][layer_idx], cache["v"][layer_idx]
-            ck[:, :, cache_pos:cache_pos + T].copy_(k.transpose(1, 2))
-            cv[:, :, cache_pos:cache_pos + T].copy_(v.transpose(1, 2))
+            # An int8 cache ("k_s" present) stores the quantized slice and
+            # its per-head-per-token scales.
+            kv8 = "k_s" in cache
+            slot = slice(cache_pos, cache_pos + T)
+            for name, new in (("k", k), ("v", v)):
+                new = new.transpose(1, 2)
+                if kv8:
+                    new, sc = quantize_kv(new)
+                    cache[name + "_s"][layer_idx][:, :, slot].copy_(sc)
+                cache[name][layer_idx][:, :, slot].copy_(new)
             if T > 1:
                 if cache_pos != 0:
                     raise NotImplementedError(
                         "multi-token segments are prefill-only (cache_pos 0)")
                 # prefill: queries see only keys < T, i.e. the current k/v
+                # (exact even over an int8 cache: only later steps read it)
                 attn = flash_prefill(q, k, v, key_valid[:, :T], scale)
-            else:
+            elif kv8:
                 # decode: read only the slots up to the one just written
-                attn = flash_decode_hs(q, ck, cv, key_valid, scale,
-                                       extent=cache_pos + 1)
+                attn = flash_decode_int8_hs(
+                    q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
+                    key_valid, scale, extent=cache_pos + 1, layer=layer_idx)
+            else:
+                attn = flash_decode_hs(q, cache["k"], cache["v"], key_valid,
+                                       scale, extent=cache_pos + 1,
+                                       layer=layer_idx)
         else:
             attn = gqa_attention(q, k, v, mask, scale)
         x = x + self.o_proj(attn.reshape(B, T, H * D))
@@ -116,9 +163,19 @@ class AsteroidLM(nn.Module):
         super().__init__()
         c = cfg
         self.cfg = cfg
-        self.embed_text = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size))
-        self.embed_speech = nn.Parameter(
-            torch.empty(c.channels - 1, c.speech_vocab_size, c.hidden_size))
+        text = (c.vocab_size, c.hidden_size)
+        speech = (c.channels - 1, c.speech_vocab_size, c.hidden_size)
+        if c.quantized:
+            # int8 tables + fp32 per-row scales (ops/quantize.py)
+            self.embed_text_q = _int8(*text)
+            self.embed_text_s = nn.Parameter(torch.ones(text[0], 1),
+                                             requires_grad=False)
+            self.embed_speech_q = _int8(*speech)
+            self.embed_speech_s = nn.Parameter(torch.ones(*speech[:2], 1),
+                                               requires_grad=False)
+        else:
+            self.embed_text = nn.Parameter(torch.empty(text))
+            self.embed_speech = nn.Parameter(torch.empty(speech))
         self.layers = nn.ModuleList(Qwen3Block(c)
                                     for _ in range(c.num_hidden_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
@@ -128,7 +185,8 @@ class AsteroidLM(nn.Module):
                     dtype: Optional[torch.dtype] = None) -> "AsteroidLM":
         """Random weights made on ``device`` from a seeded generator:
         embeddings N(0, 0.02), projections N(0, 1/fan_in), norms 1, biases 0
-        (the JAX init's scales; the draws differ)."""
+        (the JAX init's scales; the draws differ). Float weights: an int8
+        model is quantized from them (``GenerationEngine(quant="int8")``)."""
         dtype = dtype or torch_dtype(cfg.param_dtype)
         with torch.device(device):
             model = cls(cfg).to(dtype)
@@ -149,15 +207,28 @@ class AsteroidLM(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids (B, T, C) -> summed embeddings (B, T, hidden). Ids are
-        clamped into each table (the JAX ``take(mode="clip")``)."""
+        clamped into each table (the JAX ``take(mode="clip")``). int8
+        tables: the gathered rows and their scales are dequantized in the
+        compute dtype and summed in it."""
         c = self.cfg
-        x = F.embedding(input_ids[..., 0].clamp(0, c.vocab_size - 1),
-                        self.embed_text)
+        dtype = torch_dtype(c.dtype)
+        ids = [input_ids[..., 0].clamp(0, c.vocab_size - 1)] + [
+            input_ids[..., i].clamp(0, c.speech_vocab_size - 1)
+            for i in range(1, c.channels)]
+        if c.quantized:
+            rows = [self.embed_text_q[ids[0]].to(dtype)
+                    * self.embed_text_s[ids[0]].to(dtype)]
+            rows += [self.embed_speech_q[i - 1][ids[i]].to(dtype)
+                     * self.embed_speech_s[i - 1][ids[i]].to(dtype)
+                     for i in range(1, c.channels)]
+            x = rows[0]
+            for r in rows[1:]:
+                x = x + r
+            return x
+        x = F.embedding(ids[0], self.embed_text)
         for i in range(1, c.channels):
-            x = x + F.embedding(
-                input_ids[..., i].clamp(0, c.speech_vocab_size - 1),
-                self.embed_speech[i - 1])
-        return x.to(torch_dtype(c.dtype))
+            x = x + F.embedding(ids[i], self.embed_speech[i - 1])
+        return x.to(dtype)
 
     # -- backbone ------------------------------------------------------------
 
@@ -184,21 +255,56 @@ class AsteroidLM(nn.Module):
 
     # -- tied heads ----------------------------------------------------------
 
-    def logits_all(self, hidden: torch.Tensor
+    def logits_all(self, hidden: torch.Tensor, restricted: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """hidden (..., hidden) -> (text_logits (..., vocab), speech_logits
         (..., C-1, speech_vocab)), both fp32.
 
-        The products run on the tables' own dtype with fp32 accumulation
-        and fp32 output (``matmul_f32_out``): no fp32 copy of the 152704 x
-        2048 table is ever made."""
-        w_t, w_s = self.embed_text, self.embed_speech
+        The products run on the tables' own dtype (int8 tables cast to the
+        compute dtype) with fp32 accumulation and fp32 output
+        (``matmul_f32_out``): no fp32 copy of the 152704 x 2048 table is
+        ever made. int8 per-row scales multiply the fp32 product, output
+        side. ``restricted``: text logits over the ``cfg.text_head_window()``
+        rows only (index i means vocab id lo + i)."""
+        c = self.cfg
+        lo, hi = c.text_head_window() if restricted else (0, c.vocab_size)
+        t = self._text_head(hidden, lo, hi)
         lead = hidden.shape[:-1]
-        h = hidden.to(w_t.dtype).reshape(-1, hidden.shape[-1])
-        t = matmul_f32_out(h, w_t.t())
-        Cm1, Vs, Hd = w_s.shape
-        s = matmul_f32_out(h, w_s.reshape(Cm1 * Vs, Hd).t())
-        return t.reshape(*lead, -1), s.reshape(*lead, Cm1, Vs)
+        h = self._head_input(hidden)
+        Cm1, Vs, Hd = c.channels - 1, c.speech_vocab_size, c.hidden_size
+        if c.quantized:
+            w = self.embed_speech_q.reshape(Cm1 * Vs, Hd).to(h.dtype)
+            s = (matmul_f32_out(h, w.t())
+                 * self.embed_speech_s.reshape(Cm1 * Vs).float())
+        else:
+            s = matmul_f32_out(h, self.embed_speech.reshape(Cm1 * Vs, Hd).t())
+        return t, s.reshape(*lead, Cm1, Vs)
+
+    def _head_input(self, hidden: torch.Tensor) -> torch.Tensor:
+        dtype = (torch_dtype(self.cfg.dtype) if self.cfg.quantized
+                 else self.embed_text.dtype)
+        return hidden.to(dtype).reshape(-1, hidden.shape[-1])
+
+    def _text_head(self, hidden: torch.Tensor, lo: int, hi: int
+                   ) -> torch.Tensor:
+        """Text logits over table rows [lo, hi): (..., hi - lo) fp32."""
+        h = self._head_input(hidden)
+        if self.cfg.quantized:
+            w = self.embed_text_q[lo:hi].to(h.dtype)
+            t = matmul_f32_out(h, w.t()) * self.embed_text_s[lo:hi, 0].float()
+        else:
+            t = matmul_f32_out(h, self.embed_text[lo:hi].t())
+        return t.reshape(*hidden.shape[:-1], hi - lo)
+
+    def text_logits_outside_max(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Max channel-0 logit outside the restricted-head window — the
+        audit probe of ``cfg.restricted_audit_every``: one full-table head
+        product that asks whether the full head would have preferred an
+        ordinary text token. hidden (B, 1, H) -> (B,) fp32."""
+        lo, hi = self.cfg.text_head_window()
+        t = self._text_head(hidden, 0, self.cfg.vocab_size)[:, 0]
+        t[:, lo:hi] = float("-inf")
+        return t.amax(dim=-1)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None):
@@ -230,9 +336,15 @@ def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device="cpu") -> Dict[str, torch.Tensor]:
-    """Static KV cache, head-major (L, B, Hkv, S, D): the decode kernel reads
-    it directly with no per-step transpose."""
+    """Static KV cache, head-major (L, B, Hkv, S, D): the decode kernels read
+    it directly with no per-step transpose. With ``cfg.kv_quant == "int8"``
+    k/v are int8 and "k_s"/"v_s" hold fp32 (L, B, Hkv, S) scales."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
              cfg.head_dim)
+    if cfg.kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], device=device),
+                "v_s": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,12 +1,15 @@
 """Flash attention for the LM: Hopper kernels plus their plain versions.
 
-Ports the two TPU kernels of the main path
-(``moss_ttsd_tpu/ops/pallas_attention.py``):
+Ports the three TPU kernels of ``moss_ttsd_tpu/ops/pallas_attention.py``:
 
-  * ``flash_prefill``   — causal GQA prefill attention
-                          (CUDA: ``csrc/flash_prefill.cu``);
-  * ``flash_decode_hs`` — single-query GQA decode over the head-major cache,
-                          extent-clamped (CUDA: ``csrc/flash_decode.cu``).
+  * ``flash_prefill``        — causal GQA prefill attention
+                               (CUDA: ``csrc/flash_prefill.cu``);
+  * ``flash_decode_hs``      — single-query GQA decode over the head-major
+                               cache, extent-clamped
+                               (CUDA: ``csrc/flash_decode.cu``);
+  * ``flash_decode_int8_hs`` — the same decode over an int8 cache with fp32
+                               per-head-per-token scales
+                               (CUDA: ``csrc/flash_decode_int8.cu``).
 
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain PyTorch version beside it, which is also the
@@ -40,7 +43,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "moss_ttsd_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"flash_prefill": "flash_prefill.cu",
-           "flash_decode": "flash_decode.cu"}
+           "flash_decode": "flash_decode.cu",
+           "flash_decode_int8": "flash_decode_int8.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
@@ -119,9 +123,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "flash_prefill":
         fn = lib.moss_flash_prefill
         fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F] + [LL] * 13 + [P]
-    else:
+    elif name == "flash_decode":
         fn = lib.moss_flash_decode
         fn.argtypes = [I, P, P, P, P, P, I, P, I, I, I, I, I, F] + [LL] * 11 + [P]
+    else:
+        fn = lib.moss_flash_decode_int8
+        fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F]
+                       + [LL] * 15 + [P])
     fn.restype = I
 
 
@@ -230,6 +238,17 @@ def _extent_mask(extent, B: int, S: int, device) -> Optional[torch.Tensor]:
     return (pos < int(extent))[None, :].expand(B, S)
 
 
+def _extent_arg(extent, B: int, device, S: int, what: str):
+    """(pointer or None, scalar) kernel arguments of a decode extent."""
+    if isinstance(extent, torch.Tensor):
+        if (extent.device != device or extent.dtype != torch.int32
+                or extent.shape != (B,) or extent.stride(0) != 1):
+            raise ValueError(f"{what}: a tensor extent must be a "
+                             f"contiguous ({B},) int32 tensor on {device}")
+        return extent.data_ptr(), S
+    return None, S if extent is None else int(extent)
+
+
 def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
                           vt: torch.Tensor, key_valid: torch.Tensor,
                           scale: float, extent=None, layer=None,
@@ -286,15 +305,8 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                                     for i in range(3)):
             raise ValueError(f"flash_decode_hs: {name} rows must be 16-byte "
                              "aligned")
-    ext_ptr, ext_scalar = None, S
-    if isinstance(extent, torch.Tensor):
-        if (extent.device != q.device or extent.dtype != torch.int32
-                or extent.shape != (B,) or extent.stride(0) != 1):
-            raise ValueError("flash_decode_hs: a tensor extent must be a "
-                             f"contiguous ({B},) int32 tensor on {q.device}")
-        ext_ptr = extent.data_ptr()
-    elif extent is not None:
-        ext_scalar = int(extent)
+    ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S,
+                                      "flash_decode_hs")
     lib = build_kernels()["flash_decode"]
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -313,11 +325,88 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
 flash_decode_hs.launches = 0
 
 
+def flash_decode_int8_hs_plain(q: torch.Tensor, kq: torch.Tensor,
+                               ks: torch.Tensor, vq: torch.Tensor,
+                               vs: torch.Tensor, key_valid: torch.Tensor,
+                               scale: float, extent=None, layer=None,
+                               out_dtype: Optional[torch.dtype] = None
+                               ) -> torch.Tensor:
+    """Plain version of ``flash_decode_int8_hs``: dequantize in fp32, then
+    the dense masked softmax of ``flash_decode_hs_plain``."""
+    if layer is not None:
+        kq, ks, vq, vs = (t[int(layer)] for t in (kq, ks, vq, vs))
+    k = kq.float() * ks.float()[..., None]
+    v = vq.float() * vs.float()[..., None]
+    return flash_decode_hs_plain(q, k, v, key_valid, scale, extent,
+                                 out_dtype=out_dtype or q.dtype)
+
+
+def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                         vq: torch.Tensor, vs: torch.Tensor,
+                         key_valid: torch.Tensor, scale: float,
+                         extent: Union[None, int, torch.Tensor] = None,
+                         layer: Optional[int] = None) -> torch.Tensor:
+    """Single-query GQA decode attention over an int8 KV cache.
+
+    q (B, 1, H, D) fp32/bf16; kq/vq (B, Hkv, S, D) int8 and ks/vs
+    (B, Hkv, S) fp32 per-head-per-token scales (k ~ kq * ks[..., None]), or
+    the full (L, ...) stacks with ``layer`` (free views, never copied);
+    key_valid (B, S) bool; ``extent`` as in ``flash_decode_hs``. The k scale
+    multiplies the score column and the v scale the probability row, so the
+    kernel reads the int8 rows as they are. Returns (B, 1, H, D) in
+    q.dtype."""
+    if layer is not None:
+        kq, ks, vq, vs = (t[int(layer)] for t in (kq, ks, vq, vs))
+    if q.device.type != "cuda":
+        return flash_decode_int8_hs_plain(q, kq, ks, vq, vs, key_valid, scale,
+                                          extent)
+    what = "flash_decode_int8_hs"
+    B, one, H, D = q.shape
+    Hkv, S = kq.shape[1], kq.shape[2]
+    if (one != 1 or kq.shape != (B, Hkv, S, D) or vq.shape != kq.shape
+            or ks.shape != (B, Hkv, S) or vs.shape != ks.shape or H % Hkv):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, kq "
+                         f"{tuple(kq.shape)}, ks {tuple(ks.shape)}, vq "
+                         f"{tuple(vq.shape)}, vs {tuple(vs.shape)}")
+    if key_valid.shape != (B, S):
+        raise ValueError(f"{what}: key_valid {tuple(key_valid.shape)} != "
+                         f"{(B, S)}")
+    _check_common(q, {}, key_valid, what)
+    for name, t, dt in (("kq", kq, torch.int8), ("vq", vq, torch.int8),
+                        ("ks", ks, torch.float32), ("vs", vs, torch.float32)):
+        if t.device != q.device or t.dtype != dt or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be {dt} on {q.device}, "
+                             "contiguous in its last dim")
+    for name, t in (("kq", kq), ("vq", vq)):
+        # 16-byte vector loads of the int8 rows
+        if t.data_ptr() % 16 or any(t.stride(i) % 16 for i in range(3)):
+            raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
+    ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S, what)
+    lib = build_kernels()["flash_decode_int8"]
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.moss_flash_decode_int8(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), key_valid.data_ptr(), ext_ptr,
+        ext_scalar, out.data_ptr(), B, Hkv, H // Hkv, S, D, float(scale),
+        q.stride(0), q.stride(2), kq.stride(0), kq.stride(1), kq.stride(2),
+        ks.stride(0), ks.stride(1), vq.stride(0), vq.stride(1), vq.stride(2),
+        vs.stride(0), vs.stride(1), key_valid.stride(0), out.stride(0),
+        out.stride(2), stream)
+    _check_rc(rc, what)
+    flash_decode_int8_hs.launches += 1
+    return out
+
+
+flash_decode_int8_hs.launches = 0
+
+_WRAPPERS = (flash_prefill, flash_decode_hs, flash_decode_int8_hs)
+
+
 def reset_launch_counts() -> None:
-    flash_prefill.launches = 0
-    flash_decode_hs.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"flash_prefill": flash_prefill.launches,
-            "flash_decode_hs": flash_decode_hs.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

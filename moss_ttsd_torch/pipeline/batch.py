@@ -49,12 +49,21 @@ class TTSPipeline:
 
     def __init__(self, tokenizer, lm_cfg: LMConfig, lm_params,
                  spt: XYTokenizer, sampling: Optional[SamplingConfig] = None,
-                 bucket: int = 128, vocode_rows_per_call: Optional[int] = 4,
+                 bucket: int = 128, quant: Optional[str] = None,
+                 vocode_rows_per_call: Optional[int] = 4,
+                 restricted_text_head: Optional[bool] = None,
+                 restricted_audit_every: Optional[int] = None,
                  device: DeviceLike = "cuda"):
+        """``quant="int8"`` serves w8a16 weights; ``restricted_text_head``
+        and ``restricted_audit_every`` set the decode policies of the same
+        names (``GenerationEngine``). ``self.lm_cfg`` is the engine's config,
+        with these overrides applied."""
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
-        self.engine = GenerationEngine(lm_cfg, lm_params, sampling,
-                                       bucket=bucket, device=self.device)
+        self.engine = GenerationEngine(
+            lm_cfg, lm_params, sampling, bucket=bucket, device=self.device,
+            quant=quant, restricted_text_head=restricted_text_head,
+            restricted_audit_every=restricted_audit_every)
         self.lm_cfg = self.engine.cfg
         self.spt = spt
         self.vocode_rows_per_call = vocode_rows_per_call

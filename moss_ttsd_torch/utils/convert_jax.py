@@ -1,7 +1,9 @@
 """Weight carry-over into the port's ``state_dict`` layouts.
 
   * ``lm_state_from_jax``: the JAX ``AsteroidLM`` param tree (as numpy:
-    stacked scan layers, flax ``(in, out)`` Dense kernels) -> ``AsteroidLM``.
+    stacked scan layers, flax ``(in, out)`` Dense kernels) -> ``AsteroidLM``;
+    a quantized tree (``kernel_q`` / ``kernel_s``, ``embed_*_q`` / ``_s``)
+    -> the int8 layout of ``ops/quantize.py``, bytes unchanged.
   * ``load_reference_lm_state_dict``: the reference checkpoint's names
     (``model.embedding_list.{i}``, ``model.language_model.layers.{l}.*``;
     the layout of ``moss_ttsd_tpu/utils/convert_lm.py``) -> ``AsteroidLM``.
@@ -12,7 +14,8 @@
     they are flipped along k -> torch (in, out, k).
 
 Arrays are accepted as numpy (or anything ``np.asarray`` takes); the
-results are fp32 CPU tensors, ready for ``load_state_dict``.
+results are fp32 (int8 for quantized weights) CPU tensors, ready for
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -43,18 +46,36 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _i8(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.int8, copy=True))
+
+
 def lm_state_from_jax(params_np: Mapping, cfg: LMConfig) -> StateDict:
+    """Float or quantized JAX tree -> the port's state dict. Quantized:
+    ``kernel_q`` (L, in, out) is transposed to ``weight_q`` (out, in) and
+    ``kernel_s`` (L, 1, out) becomes ``weight_s`` (out, 1) per layer."""
     p = params_np["params"] if "params" in params_np else params_np
     block = p["layers"]["block"]
-    sd: StateDict = {"embed_text": _t(p["embed_text"]),
-                     "embed_speech": _t(p["embed_speech"]),
-                     "final_norm.weight": _t(p["final_norm"]["weight"])}
+    sd: StateDict = {"final_norm.weight": _t(p["final_norm"]["weight"])}
+    for name in ("embed_text", "embed_speech"):
+        if name + "_q" in p:
+            sd[name + "_q"] = _i8(p[name + "_q"])
+            sd[name + "_s"] = _t(p[name + "_s"])
+        else:
+            sd[name] = _t(p[name])
     for l in range(cfg.num_hidden_layers):
         pre = f"layers.{l}."
         for n in _LM_NORM:
             sd[pre + n + ".weight"] = _t(np.asarray(block[n]["weight"])[l])
         for n in _LM_PROJ:
-            sd[pre + n + ".weight"] = _t(np.asarray(block[n]["kernel"])[l].T)
+            if "kernel_q" in block[n]:
+                sd[pre + n + ".weight_q"] = _i8(
+                    np.asarray(block[n]["kernel_q"])[l].T)
+                sd[pre + n + ".weight_s"] = _t(
+                    np.asarray(block[n]["kernel_s"])[l].T)
+            else:
+                sd[pre + n + ".weight"] = _t(
+                    np.asarray(block[n]["kernel"])[l].T)
             if "bias" in block[n]:
                 sd[pre + n + ".bias"] = _t(np.asarray(block[n]["bias"])[l])
     return sd

@@ -1,5 +1,6 @@
 """The port on a CUDA card: each Hopper kernel against its plain version,
-and the tiny LM engine on the card (kernels) against the same engine on the
+``quantize_kv`` on the card against the CPU, and the tiny LM engine (bf16
+path and int8 serving) on the card (kernels) against the same engine on the
 CPU (plain versions). Imports no JAX, so it runs on a machine with the card
 and no JAX:
 
@@ -83,9 +84,52 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
         fa.flash_prefill(q[..., :12], k[..., :12], k[..., :12], valid, 0.25)
 
 
-def test_tiny_engine_on_card_matches_cpu(cuda):
+def _int8_cache(gen, shape):
+    from moss_ttsd_torch.ops.quantize import quantize_kv
+    return quantize_kv(torch.randn(shape, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv", [8, 4])              # G = 2 and G = 4
+def test_int8_decode_kernel_matches_plain(cuda, dtype, Hkv):
+    dt = getattr(torch, dtype)
+    B, S, H, D, L = 2, 333, 16, 128, 3
+    q = torch.randn(B, 1, H, D, generator=cuda, device="cuda").to(dt)
+    kq, ks = _int8_cache(cuda, (L, B, Hkv, S, D))
+    vq, vs = _int8_cache(cuda, (L, B, Hkv, S, D))
+    valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    valid[0, :200] = True
+    valid[1, 30:150] = True
+    fa.reset_launch_counts()
+    for ext in (200, torch.tensor([200, 150], dtype=torch.int32,
+                                  device="cuda"), None, 1):
+        out = fa.flash_decode_int8_hs(q, kq, ks, vq, vs, valid, D ** -0.5,
+                                      extent=ext, layer=2)
+        ref = fa.flash_decode_int8_hs_plain(q, kq, ks, vq, vs, valid,
+                                            D ** -0.5, extent=ext, layer=2,
+                                            out_dtype=torch.float32)
+        _close(out, ref, dtype)
+    assert fa.launch_counts()["flash_decode_int8_hs"] == 4
+    empty = torch.zeros_like(valid)                  # no valid key at all
+    out = fa.flash_decode_int8_hs(q, kq[0], ks[0], vq[0], vs[0], empty,
+                                  D ** -0.5, extent=S)
+    assert bool((out == 0).all())
+
+
+def test_quantize_kv_on_card_matches_cpu(cuda):
+    from moss_ttsd_torch.ops.quantize import quantize_kv
+    x = torch.randn(2, 8, 57, 128, generator=cuda, device="cuda") * 3
+    x[1, 2, 5] = 0.0
+    for xx in (x, x.to(torch.bfloat16)):
+        qg, sg = quantize_kv(xx)
+        qc, sc = quantize_kv(xx.cpu())
+        assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+
+@pytest.mark.parametrize("policy", [{}, dict(quant="int8", kv_quant="int8")])
+def test_tiny_engine_on_card_matches_cpu(cuda, policy):
     """Greedy tokens of the tiny fp32 engine: kernels on the card ==
-    plain versions on the CPU."""
+    plain versions on the CPU (the bf16 path and int8 serving)."""
     from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
                                              LMConfig, SamplingConfig)
     from moss_ttsd_torch.decode.engine import GenerationEngine
@@ -102,6 +146,7 @@ def test_tiny_engine_on_card_matches_cpu(cuda):
     toks = []
     for dev in ("cpu", "cuda"):
         model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
-        eng = GenerationEngine(cfg, model, greedy, bucket=32, device=dev)
+        eng = GenerationEngine(cfg, model, greedy, bucket=32, device=dev,
+                               **policy)
         toks.append(eng.generate(prompt, mask, 12).tokens)
     np.testing.assert_array_equal(toks[1], toks[0])

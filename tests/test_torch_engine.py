@@ -159,3 +159,38 @@ def test_sampled_generate_holds_tf_window(models):
                                       ids[:, base + s, s + 1:])
     r2 = eng.generate(batch, mask, 16, seed=1)
     np.testing.assert_array_equal(r.tokens, r2.tokens)   # seeded generator
+
+
+@pytest.mark.parametrize("cfg_fields,kwargs,match", [
+    (dict(lora_rank=8), {}, "lora_rank"),
+    (dict(ablate_attention=True), {}, "ablate_attention"),
+    (dict(ablate_norms=True), {}, "ablate_norms"),
+    (dict(ablate_rope=True), {}, "ablate_rope"),
+    (dict(remat_layers=True), {}, "remat_layers"),
+    (dict(attn_impl="xla"), {}, "attn_impl"),
+    (dict(kv_quant="fp8"), {}, "kv_quant"),
+    ({}, dict(kv_quant="int4"), "kv_quant"),
+    ({}, dict(quant="int4"), "quant"),
+])
+def test_engine_refuses_unported_config_fields(models, cfg_fields, kwargs,
+                                               match):
+    """A decode policy the port does not implement raises instead of
+    decoding silently with the defaults."""
+    import dataclasses
+    cfg, model = models[2], models[3]
+    with pytest.raises(ValueError, match=match):
+        GenerationEngine(dataclasses.replace(cfg, **cfg_fields), model,
+                         device="cpu", **kwargs)
+
+
+def test_engine_accepts_tpu_performance_knobs(models):
+    """Knobs with no numeric effect are accepted and ignored; int8 serving
+    drops a training-time LoRA rank, as the JAX engine does."""
+    import dataclasses
+    cfg, model = models[2], models[3]
+    knobs = dataclasses.replace(cfg, decode_len_bucket=64,
+                                decode_extent_kernel=True, decode_block_k=32,
+                                pallas_interpret=True, fuse_qk_norm_rope=True,
+                                attn_impl="pallas", lora_rank=8)
+    eng = GenerationEngine(knobs, model, device="cpu", quant="int8")
+    assert eng.cfg.quantized and eng.cfg.lora_rank == 0

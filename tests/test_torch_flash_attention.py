@@ -165,5 +165,11 @@ def test_cpu_wrappers_do_not_count_launches():
     fa.reset_launch_counts()
     q = torch.zeros(1, 3, 4, 16)
     k = torch.zeros(1, 3, 2, 16)
-    fa.flash_prefill(q, k, k, torch.ones(1, 3, dtype=torch.bool), 0.25)
-    assert fa.launch_counts() == {"flash_prefill": 0, "flash_decode_hs": 0}
+    valid = torch.ones(1, 3, dtype=torch.bool)
+    fa.flash_prefill(q, k, k, valid, 0.25)
+    kt = torch.zeros(1, 2, 3, 16)
+    fa.flash_decode_hs(q[:, :1], kt, kt, valid, 0.25)
+    kq, ks = torch.zeros(1, 2, 3, 16, dtype=torch.int8), torch.ones(1, 2, 3)
+    fa.flash_decode_int8_hs(q[:, :1], kq, ks, kq, ks, valid, 0.25)
+    assert fa.launch_counts() == {"flash_prefill": 0, "flash_decode_hs": 0,
+                                  "flash_decode_int8_hs": 0}

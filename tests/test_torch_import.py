@@ -103,10 +103,9 @@ def test_cli_without_cuda_raises(no_cuda, tmp_path):
 
 def test_cli_unported_flags_fail_loudly(tmp_path):
     from moss_ttsd_torch.cli.inference import main
-    for extra in (["--quant", "int8"], ["--mesh", "2x1"],
-                  ["--attn_impl", "xla"], ["--restricted_text_head"],
+    for extra in (["--mesh", "2x1"], ["--attn_impl", "xla"],
                   ["--profile_dir", str(tmp_path)],
-                  ["--lora_adapter", "a=b"]):
+                  ["--lora_adapter", "a=b"], ["--quant", "int4"]):
         with pytest.raises(SystemExit):
             main(["--tiny", "--platform", "cpu", *extra])
     with pytest.raises(SystemExit, match="not yet ported"):
