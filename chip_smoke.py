@@ -9,8 +9,13 @@ Phases, each printing one JSON line:
   3. kernels vs plain — every kernel against its plain PyTorch version on
      the same inputs: the main path's and the long-form run's shapes, the
      edge cases (left padding, fully masked rows, ragged T and S, per-row
-     extents, extent 1, layer views, G 2 and 4) and the --tiny shapes (fp32,
-     head_dim 16); quantize_kv on the card vs the CPU (same int8 bytes);
+     extents, extent 1, layer views, G 2 and 4), the bf16 prefill's
+     tensor-core tile edges and its bf16 rounding of P (held to the bf16-P
+     plain version at a tolerance the fp32-P one misses), the split-K
+     decode's chunk boundaries (also against the plain split arithmetic at
+     the kernel's own plan), batch 8 and the --tiny shapes (fp32, head_dim
+     16); which prefill kernel each dtype launches (the library's launch
+     counts); quantize_kv on the card vs the CPU (same int8 bytes);
      reference — small fp32 models on the card vs the same on the CPU (LM
      hidden states, greedy tokens of the bf16 and int8 engines, codec wav);
   4. main path — TTSPipeline.process_batch at the full MOSS-TTSD-v0.5 width
@@ -24,9 +29,10 @@ Phases, each printing one JSON line:
      batch 1, 1500 steps) whose every decode step runs flash_decode_int8_hs;
   7. cli      — the --tiny CLI on the card writes wavs (as it is, and with
      --quant int8 --restricted_text_head);
-then the ``kernels`` line (times, bounds, launches) and, last, the result
-line {"ok": true, "device": {...}}. Any failing phase exits non-zero with no
-result line. Without a CUDA device it exits 1 at once.
+then the ``kernels`` line (times, bounds, launches; with ``--phases
+...,sweep`` also the decode at other splits, ``split_sweep_ms``) and, last,
+the result line {"ok": true, "device": {...}}. Any failing phase exits
+non-zero with no result line. Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -131,6 +137,9 @@ def prefill_case(gen, name, B, T, H, Hkv, D, dtype, pads):
 
 def decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
                 layers=None, layer=None):
+    """flash_decode_hs against its plain version, and against the plain
+    split-K arithmetic at the kernel's own (n_split, chunk) plan: the two
+    references agree to fp32 rounding, so the kernel is held to both."""
     import torch
     from moss_ttsd_torch.ops import flash_attention as fa
     q = _rand(gen, (B, 1, H, D), dtype)
@@ -148,9 +157,17 @@ def decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
     torch.cuda.synchronize()
     ref = fa.flash_decode_hs_plain(q, kt, vt, valid, D ** -0.5, extent=ext,
                                    layer=layer, out_dtype=torch.float32)
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S, fa.sm_count(q.device))
+    split = fa.flash_decode_hs_split_plain(
+        q, kt, vt, valid, D ** -0.5, extent=ext, layer=layer,
+        n_split=n_split, chunk=chunk, out_dtype=torch.float32)
+    vs_split = compare(out, split)
+    res = compare(out, ref)
     return {"kernel": "flash_decode_hs", "case": name,
             "shape": [B, S, H, Hkv, D], "extent": extent, "layer": layer,
-            **compare(out, ref)}
+            "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split,
+            **res, "split_plain_max_abs_err": vs_split["max_abs_err"],
+            "ok": res["ok"] and vs_split["ok"]}
 
 
 def _int8_kv(gen, shape):
@@ -202,10 +219,95 @@ def quantize_kv_check(gen):
             "finite": True, "ok": bool(ok)}
 
 
+def _p_rounding_inputs(gen, B, T, H, Hkv, D):
+    """bf16 q, k, v (for scale 1) on which rounding P to bf16 before P.V
+    decides the output: every score of a row is the row's max (even keys)
+    or 2^-10 below it (odd keys), so e^(s - m) is 1 or e^(-2^-10), which
+    bf16 rounds to 1; v is +c on even keys and -c on odd keys, |c| in
+    [32, 64). An odd row (as many odd keys as even) then comes out exactly
+    0 with bf16 P and c (1 - e^(-2^-10)) / (1 + e^(-2^-10)) ~ c 2^-11,
+    at least 0.0156, with fp32 P."""
+    import torch
+    bf = torch.bfloat16
+    q = torch.zeros((B, T, H, D), device="cuda")
+    q[..., 0], q[..., 1] = 1.0, 2.0 ** -10
+    k = torch.zeros((B, T, Hkv, D), device="cuda")
+    k[..., 0] = 1.0
+    k[:, 1::2, :, 1] = -1.0
+    c = 32 + 32 * torch.rand((B, 1, Hkv, D), generator=gen, device="cuda")
+    c = c * (2 * torch.randint(0, 2, c.shape, generator=gen, device="cuda")
+             - 1)
+    sign = 1 - 2 * (torch.arange(T, device="cuda") % 2)
+    return q.to(bf), k.to(bf), c.to(bf) * sign[None, :, None, None].to(bf)
+
+
+P_TOL = 1e-3     # the bf16-P check: far below the fp32-P gap of >= 0.0156
+
+
+def prefill_p_rounding_case(gen, name, B, T, H, Hkv, D):
+    """The bf16 kernel rounds P to bf16 before P.V, as the TPU kernel's
+    ``p.astype(v.dtype)`` does: on ``_p_rounding_inputs`` it is held to
+    the bf16-P plain version at P_TOL + 2^-8 |ref|, which the fp32-P plain
+    version must miss (both readings are reported)."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    q, k, v = _p_rounding_inputs(gen, B, T, H, Hkv, D)
+    valid = _left_pad_valid(B, T, ())
+    out = fa.flash_prefill(q, k, v, valid, 1.0)
+    torch.cuda.synchronize()
+    refs = {p_name: fa.flash_prefill_plain(q, k, v, valid, 1.0,
+                                           out_dtype=torch.float32,
+                                           p_dtype=p_dtype)
+            for p_name, p_dtype in (("bf16_p", torch.bfloat16),
+                                    ("fp32_p", None))}
+    excess = {p_name: float(((out.float() - ref).abs()
+                             - REL["bfloat16"] * ref.abs()).max())
+              for p_name, ref in refs.items()}
+    finite = bool(torch.isfinite(out).all())
+    return {"kernel": "flash_prefill", "case": name,
+            "shape": [B, T, H, Hkv, D], "dtype": "bfloat16",
+            "max_abs_err": float((out.float() - refs["bf16_p"]).abs().max()),
+            "tolerance": f"{P_TOL:g} + 2^-8*|ref| vs the bf16-P plain; "
+                         "the fp32-P plain must exceed it",
+            "excess_over_rel": excess, "finite": finite,
+            "ok": (finite and excess["bf16_p"] <= P_TOL
+                   and excess["fp32_p"] > P_TOL)}
+
+
+def prefill_dispatch_check(gen):
+    """Which prefill kernel each dtype launches, from the library's own
+    per-kernel launch counts around one bf16 and one fp32 call: bf16 must
+    add one prefill_wgmma_kernel launch and no SIMT one, fp32 the
+    reverse."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    added = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q = _rand(gen, (2, 130, 16, 128), dt)
+        kv = _rand(gen, (2, 130, 8, 128), dt)
+        valid = _left_pad_valid(2, 130, (0, 7))
+        before = fa.prefill_kernel_launches()
+        fa.flash_prefill(q, kv, kv, valid, 128 ** -0.5)
+        after = fa.prefill_kernel_launches()
+        added[str(dt).replace("torch.", "")] = {k: after[k] - before[k]
+                                                 for k in after}
+    ok = added == {"bfloat16": {"simt": 0, "wgmma": 1},
+                   "float32": {"simt": 1, "wgmma": 0}}
+    return {"kernel": "flash_prefill", "case": "dispatch_by_dtype",
+            "launches_added": added, "dtype": "bfloat16,float32",
+            "max_abs_err": 0.0, "tolerance": "kernel launch counts",
+            "finite": True, "ok": ok}
+
+
 def kernel_checks():
     import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
+    # chunk boundaries of the split decode at the shapes below
+    sms = fa.sm_count(torch.device("cuda"))
+    _, ch4k = fa.decode_split_plan(2, 8, 4096, sms)
+    _, ch633 = fa.decode_split_plan(2, 8, 633, sms)
     cases = [
         # the main path's own shapes: bf16, 16/8 heads, D=128, T = base 377,
         # the two example items left-padded by 92 and 177 slots
@@ -219,6 +321,21 @@ def kernel_checks():
         prefill_case(gen, "D32", 2, 33, 4, 4, 32, f32, (0, 2)),
         # --tiny shapes: fp32, 4/2 heads, D=16
         prefill_case(gen, "tiny", 2, 57, 4, 2, 16, f32, (0, 9)),
+        # the tensor-core kernel's tile edges (64-row tiles), left pads, a
+        # fully padded row, D 64 with G 4, batch 8 at the main path's T
+        prefill_case(gen, "bf16_T63", 2, 63, 16, 8, 128, bf, (5, 0)),
+        prefill_case(gen, "bf16_T64", 2, 64, 16, 8, 128, bf, (0, 64)),
+        prefill_case(gen, "bf16_T65", 2, 65, 16, 8, 128, bf, (64, 1)),
+        prefill_case(gen, "bf16_T128", 2, 128, 16, 8, 128, bf, (3, 100)),
+        prefill_case(gen, "bf16_T1024", 2, 1024, 16, 8, 128, bf, (0, 333)),
+        prefill_case(gen, "bf16_D64_G4", 2, 200, 16, 4, 64, bf, (17, 0)),
+        prefill_case(gen, "bf16_B8_T377", 8, 377, 16, 8, 128, bf,
+                     (92, 177, 0, 1, 63, 64, 65, 376)),
+        # P rounded to bf16 before P.V, as the TPU kernel does
+        prefill_p_rounding_case(gen, "bf16_p_rounding", 2, 377, 16, 8, 128),
+        prefill_p_rounding_case(gen, "bf16_p_rounding_D64_G4", 2, 130, 16, 4,
+                                64),
+        prefill_dispatch_check(gen),
         decode_case(gen, "main", 2, 633, 16, 8, 128, bf,
                     [(92, 505), (177, 505)], 505),
         decode_case(gen, "main_fp32", 2, 633, 16, 8, 128, f32,
@@ -237,6 +354,27 @@ def kernel_checks():
                     [(0, 70), (9, 70)], 70),
         decode_case(gen, "D64_G4", 2, 130, 16, 4, 64, f32,
                     [(0, 129), (1, 129)], [129, 129]),
+        # the split-K boundaries: a long cache, extents exactly at chunk
+        # boundaries, a whole in-extent chunk with no valid key (row 1's
+        # keys start two chunks in), batch 8, a layer view of the 28-layer
+        # stack, fp32
+        decode_case(gen, "split_S4096_ext4000", 2, 4096, 16, 8, 128, bf,
+                    [(0, 4000), (2000, 4000)], 4000),
+        decode_case(gen, "split_ext_at_chunk", 2, 4096, 16, 8, 128, bf,
+                    [(0, ch4k), (5, 3 * ch4k)], [ch4k, 3 * ch4k]),
+        decode_case(gen, "split_ext_at_chunk_633", 2, 633, 16, 8, 128, bf,
+                    [(0, 2 * ch633), (1, 7 * ch633)],
+                    [2 * ch633, 7 * ch633]),
+        decode_case(gen, "split_empty_chunk", 2, 633, 16, 8, 128, bf,
+                    [(0, 505), (2 * ch633 + 3, 505)], 505),
+        decode_case(gen, "split_B8", 8, 633, 16, 8, 128, bf,
+                    [(92, 505), (177, 505), (0, 505), (0, 1), (63, 64),
+                     (64, 65), (300, 505), (0, 0)], 505),
+        decode_case(gen, "split_layer27", 2, 633, 16, 8, 128, bf,
+                    [(92, 505), (177, 400)], [505, 400], layers=28,
+                    layer=27),
+        decode_case(gen, "split_fp32_S4096", 2, 4096, 16, 8, 128, f32,
+                    [(0, 3001), (1000, 3001)], 3001),
         # int8 cache: the long-form run's shapes (B 1, S 1557 = base 57 +
         # 1500 steps, mid-run extent 807, a layer view of the 28-layer
         # stack), then the edge cases and the --tiny shapes
@@ -735,14 +873,15 @@ def cli_check():
 # kernels line: times at the main path's shapes, bounds, launches
 # ---------------------------------------------------------------------------
 
-def kernel_table(main, longform, checks):
+def kernel_table(main, longform, checks, sweep=False):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs, the long-form run's for
     flash_decode_int8_hs. Each timing rotates over ``SETS`` distinct input
     sets (one per layer, as the decode step reads 28 layer caches in turn),
     ~90-170 MB in all, so inputs come from HBM, not L2. Bounds count only
     what the function must move and compute: the rows and slots that are
-    valid in the run's padding, below the extent."""
+    valid in the run's padding, below the extent. ``sweep``: the decode
+    also at other splits than its plan (``split_sweep_ms``)."""
     import torch
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
@@ -783,12 +922,19 @@ def kernel_table(main, longform, checks):
                                                  scale), SETS),
         cuda_ms(lib, 2 * SETS), p_bytes, p_flops,
         {"shape": [B, base, H, Hkv, D], "dtype": "bfloat16",
-         "left_pad": pads, "input_sets": SETS}))
+         "left_pad": pads, "input_sets": SETS,
+         "design": "wgmma m64n64k16 tensor-core tiles (S = Q K^T from "
+                   "shared memory, O += P V with bf16 P from registers), "
+                   "cp.async double-buffered K/V, one warpgroup per "
+                   "(64-query tile, q-head, row)",
+         "blocks": -(-base // 64) * H * B}))
     del ps, psh
 
     # decode at the mid-run extent over the full-capacity cache; only the
     # valid slots below the extent are read by contract
     ext = base + (steps + 1) // 2
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
     qd = _rand(gen, (B, 1, H, D), bf)
     ds = [(_rand(gen, (B, Hkv, S, D), bf), _rand(gen, (B, Hkv, S, D), bf))
           for _ in range(SETS)]
@@ -802,18 +948,32 @@ def kernel_table(main, longform, checks):
     lib_d = lambda i: F.scaled_dot_product_attention(
         qdh, ds[i % SETS][0][:, :, :ext], ds[i % SETS][1][:, :, :ext],
         attn_mask=vd[:, None, None, :ext], scale=scale, enable_gqa=True)
+    decode = lambda split: lambda i: fa.flash_decode_hs(
+        qd, *ds[i % SETS], vd, scale, extent=ext, split=split)
+    extra = {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16", "extent": ext,
+             "input_sets": SETS,
+             "design": "split-K: the capacity cut into n_split chunks of "
+                       "64-slot tiles (decode_split_plan), one block per "
+                       "(chunk, kv-head, row), cp.async double-buffered "
+                       "tiles, the last block of each (kv-head, row) merges "
+                       "the fp32 partials in the same launch",
+             "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split}
+    if sweep:
+        # other splits of the capacity: one chunk, two, chunks of two
+        # tiles, chunks of one tile ("n_split x chunk")
+        tiles = -(-S // 64)
+        extra["split_sweep_ms"] = {
+            "%dx%d" % split: cuda_ms(decode(split), 2 * SETS)
+            for split in ((-(-tiles // per), 64 * per) for per in
+                          sorted({tiles, -(-tiles // 2), 2, 1}, reverse=True))}
     rows.append(_row(
         "flash_decode_hs", "moss_ttsd_torch/csrc/flash_decode.cu",
         "moss_ttsd_tpu/ops/pallas_attention.py:203 (flash_decode_hs / "
         "_decode_kernel)", main["launches"]["flash_decode_hs"],
-        checks["flash_decode_hs:main"],
-        cuda_ms(lambda i: fa.flash_decode_hs(qd, *ds[i % SETS], vd, scale,
-                                             extent=ext), 2 * SETS),
+        checks["flash_decode_hs:main"], cuda_ms(decode(None), 2 * SETS),
         cuda_ms(lambda i: fa.flash_decode_hs_plain(qd, *ds[i % SETS], vd,
                                                    scale, extent=ext), SETS),
-        cuda_ms(lib_d, 2 * SETS), d_bytes, d_flops,
-        {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16", "extent": ext,
-         "input_sets": SETS}))
+        cuda_ms(lib_d, 2 * SETS), d_bytes, d_flops, extra))
     del ds
     if longform is not None:
         rows.append(int8_decode_row(longform, checks, SETS))
@@ -896,8 +1056,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,int8,"
-                         "cli,profile "
-                         "(default all = every phase but profile)")
+                         "cli,profile,sweep "
+                         "(default all = every phase but profile and sweep)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -924,8 +1084,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     fa.build_kernels()
-    ptxas = {n: [l.strip() for l in log.splitlines()
-                 if "registers" in l or "spill" in l]
+    ptxas = {n: [l.strip()[:160] for l in log.splitlines()
+                 if any(w in l for w in ("registers", "spill", "entry",
+                                         "warning", "wgmma"))]
              for n, log in fa.build_info.get("ptxas", {}).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": fa.build_info.get("compiled"), "ptxas": ptxas})
@@ -946,7 +1107,7 @@ def main(argv=None) -> int:
         longform = int8_phase("profile" in phases)[-1]
         torch.cuda.empty_cache()
     if "kernels" in phases and main_line is not None:
-        kernel_table(main_line, longform, checks)
+        kernel_table(main_line, longform, checks, "sweep" in phases)
         torch.cuda.empty_cache()
     if "cli" in phases:
         cli_check()

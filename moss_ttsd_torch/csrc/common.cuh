@@ -1,4 +1,5 @@
-// Shared helpers for the attention kernels (flash_prefill.cu, flash_decode.cu).
+// Shared helpers for the attention kernels (flash_prefill.cu,
+// flash_decode.cu, flash_decode_int8.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +61,90 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Two consecutive elements at p (8-byte aligned for float, 4 for bf16).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// ---------------------------------------------------------------------------
+// Split-K decode (flash-decoding): the cache's slots are cut into n_split
+// chunks and one block per (chunk s, kv-head hk, batch row b) attends over
+// its chunk. Partial layout, part = (b * Hkv + hk) * n_split + s:
+//   acc[part][g][d]   the chunk's unnormalised sum  sum_j e^(s_j - m) v_j,
+//   ml[part][g][0|1]  its running max m and denominator l = sum_j e^(s_j - m),
+// fp32, in a workspace the wrapper allocates. A chunk with no valid key (at
+// or past the row's extent, or all masked) leaves m = NEG_INF, l = 0 and no
+// sums. The block that arrives last for its (b, hk) merges the n_split
+// partials in the same launch.
+// ---------------------------------------------------------------------------
+
+// True, in every thread, for the block that arrives last of the n_split
+// blocks that share *counter; that block re-arms the counter to 0 for the
+// next launch. The counters are zeroed once, when the wrapper creates them.
+// Every thread must call it, after writing its share of the partial.
+__device__ __forceinline__ bool split_arrive_last(int* counter, int n_split) {
+  __shared__ int last;
+  __threadfence();                     // this block's partial is visible
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == n_split - 1;
+    if (last) atomicExch(counter, 0);
+  }
+  __syncthreads();
+  if (last) __threadfence();           // ... before the others' are read
+  return last;
+}
+
+// Merge the n_split partials of one (b, hk) (acc, ml point at its first
+// part) into out[g * so_h + d] for the G heads of the group:
+//   m = max over chunks with l_s > 0 of m_s,   w_s = e^(m_s - m) (0 if empty),
+//   out = sum_s w_s acc_s / max(sum_s w_s l_s, L_FLOOR),
+// 0 for a head row with no valid key in any chunk. The (m, l) of all chunks
+// are read at once into `scratch` (2 * n_split * G + G floats of shared
+// memory), then every output sums its n_split partials with independent
+// loads. Partials written by other blocks are read through L2 (__ldcg).
+template <typename T>
+__device__ void split_merge(const float* acc, const float* ml, int n_split,
+                            int G, int D, T* out, long long so_h,
+                            float* scratch) {
+  float* w = scratch;                  // [s][g]: m_s, then the weight w_s
+  float* ls = w + n_split * G;         // [s][g]: l_s
+  float* inv = ls + n_split * G;       // [g]: 1 / max(sum w_s l_s, L_FLOOR)
+  for (int i = threadIdx.x; i < n_split * G; i += blockDim.x) {
+    w[i] = __ldcg(ml + 2 * i);
+    ls[i] = __ldcg(ml + 2 * i + 1);
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float m = NEG_INF;
+    for (int s = 0; s < n_split; ++s)
+      if (ls[s * G + g] > 0.f) m = fmaxf(m, w[s * G + g]);
+    float l = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float x = ls[s * G + g] > 0.f ? expf(w[s * G + g] - m) : 0.f;
+      w[s * G + g] = x;
+      l += x * ls[s * G + g];
+    }
+    inv[g] = 1.f / fmaxf(l, L_FLOOR);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D, d = i % D;
+    float o = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      // an empty chunk's sums were never written: its weight 0 drops them
+      const float a = __ldcg(acc + ((long long)s * G + g) * D + d);
+      const float ws = w[s * G + g];
+      o = ws > 0.f ? fmaf(ws, a, o) : o;
+    }
+    out[g * so_h + d] = from_float<T>(o * inv[g]);
+  }
 }
 
 }  // namespace moss

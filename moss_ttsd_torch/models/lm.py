@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import LMConfig
-from ..core.device import torch_dtype
+from ..core.device import DeviceLike, resolve_device, torch_dtype
 from ..ops.attention import causal_mask, gqa_attention
 from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
                                    flash_prefill)
@@ -181,12 +181,15 @@ class AsteroidLM(nn.Module):
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
 
     @classmethod
-    def init_random(cls, cfg: LMConfig, seed: int = 0, device="cpu",
+    def init_random(cls, cfg: LMConfig, seed: int = 0,
+                    device: DeviceLike = "cuda",
                     dtype: Optional[torch.dtype] = None) -> "AsteroidLM":
-        """Random weights made on ``device`` from a seeded generator:
+        """Random weights made on ``device`` (the card unless the caller
+        asks for the CPU; no card raises) from a seeded generator:
         embeddings N(0, 0.02), projections N(0, 1/fan_in), norms 1, biases 0
         (the JAX init's scales; the draws differ). Float weights: an int8
         model is quantized from them (``GenerationEngine(quant="int8")``)."""
+        device = resolve_device(device)
         dtype = dtype or torch_dtype(cfg.param_dtype)
         with torch.device(device):
             model = cls(cfg).to(dtype)
@@ -335,10 +338,13 @@ def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device="cpu") -> Dict[str, torch.Tensor]:
-    """Static KV cache, head-major (L, B, Hkv, S, D): the decode kernels read
-    it directly with no per-step transpose. With ``cfg.kv_quant == "int8"``
-    k/v are int8 and "k_s"/"v_s" hold fp32 (L, B, Hkv, S) scales."""
+               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Static KV cache, head-major (L, B, Hkv, S, D), on ``device`` (the
+    card unless the caller asks for the CPU; no card raises): the decode
+    kernels read it directly with no per-step transpose. With
+    ``cfg.kv_quant == "int8"`` k/v are int8 and "k_s"/"v_s" hold fp32
+    (L, B, Hkv, S) scales."""
+    device = resolve_device(device)
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
              cfg.head_dim)
     if cfg.kv_quant == "int8":

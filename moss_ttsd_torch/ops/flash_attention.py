@@ -3,10 +3,13 @@
 Ports the three TPU kernels of ``moss_ttsd_tpu/ops/pallas_attention.py``:
 
   * ``flash_prefill``        — causal GQA prefill attention
-                               (CUDA: ``csrc/flash_prefill.cu``);
+                               (CUDA: ``csrc/flash_prefill.cu``: wgmma
+                               tensor-core tiles for bf16, a SIMT kernel
+                               for fp32 — chosen by dtype);
   * ``flash_decode_hs``      — single-query GQA decode over the head-major
-                               cache, extent-clamped
-                               (CUDA: ``csrc/flash_decode.cu``);
+                               cache, extent-clamped, split-K over the
+                               cache (CUDA: ``csrc/flash_decode.cu``, chunks
+                               from ``decode_split_plan``);
   * ``flash_decode_int8_hs`` — the same decode over an int8 cache with fp32
                                per-head-per-token scales
                                (CUDA: ``csrc/flash_decode_int8.cu``).
@@ -34,7 +37,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -46,6 +49,8 @@ SOURCES = {"flash_prefill": "flash_prefill.cu",
            "flash_decode": "flash_decode.cu",
            "flash_decode_int8": "flash_decode_int8.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
+PREFILL_BF16_HEAD_DIMS = (64, 128)   # the wgmma kernel's 128-byte panels
+DECODE_TILE = 64                     # flash_decode.cu key slots per tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _L_FLOOR = 1e-30
@@ -53,6 +58,8 @@ _L_FLOOR = 1e-30
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 build_info: Dict[str, object] = {}
+_sm_counts: Dict[int, int] = {}
+_split_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +130,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "flash_prefill":
         fn = lib.moss_flash_prefill
         fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F] + [LL] * 13 + [P]
+        lib.moss_flash_prefill_kernel_launches.argtypes = [I]
+        lib.moss_flash_prefill_kernel_launches.restype = LL
     elif name == "flash_decode":
         fn = lib.moss_flash_decode
-        fn.argtypes = [I, P, P, P, P, P, I, P, I, I, I, I, I, F] + [LL] * 11 + [P]
+        fn.argtypes = ([I, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I, P, P, P]
+                       + [LL] * 11 + [P])
     else:
         fn = lib.moss_flash_decode_int8
         fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F]
@@ -158,17 +168,29 @@ def _check_common(q, tensors, key_valid, what):
         raise ValueError(f"{what}: key_valid must be contiguous in its last dim")
 
 
+def _check_rows_16b(t: torch.Tensor, what: str, name: str) -> None:
+    """16-byte vector loads of t's rows (cp.async): base and outer strides
+    16-byte aligned."""
+    esz = t.element_size()
+    if t.data_ptr() % 16 or any((t.stride(i) * esz) % 16
+                                for i in range(t.dim() - 1)):
+        raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: torch.Tensor, scale: float,
-                        out_dtype: Optional[torch.dtype] = None
+                        out_dtype: Optional[torch.dtype] = None,
+                        p_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """Plain version of ``flash_prefill``: dense causal masked softmax in
     fp32 from the same inputs. ``out_dtype`` defaults to q.dtype (fp32 keeps
-    the unrounded oracle)."""
+    the unrounded oracle). ``p_dtype`` rounds the probabilities to that
+    dtype before the P.V product (the denominator sums them in fp32), as
+    the bf16 kernel and the TPU kernel's ``p.astype(v.dtype)`` do."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -177,15 +199,18 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pos = torch.arange(T, device=q.device)
     mask = (pos[None, :] <= pos[:, None])[None] & key_valid[:, None, :]
     mask = mask[:, None, None]                              # (B,1,1,T,T)
-    out = _masked_softmax_pv(s, mask, v.float(), "bhgts,bshd->bthgd")
+    out = _masked_softmax_pv(s, mask, v.float(), "bhgts,bshd->bthgd",
+                             p_dtype)
     return out.reshape(B, T, H, D).to(out_dtype or q.dtype)
 
 
-def _masked_softmax_pv(s, mask, v, pv_eq):
+def _masked_softmax_pv(s, mask, v, pv_eq, p_dtype=None):
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)   # finite when empty
     p = torch.exp(s - m)                                    # masked -> 0
     l = p.sum(dim=-1, keepdim=True).clamp_min(_L_FLOOR)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     return torch.einsum(pv_eq, p / l, v)
 
 
@@ -194,7 +219,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal GQA prefill attention.
 
     q (B, T, H, D); k/v (B, T, Hkv, D) (prefill writes cache slots [0, T));
-    key_valid (B, T) bool. Returns (B, T, H, D) in q.dtype."""
+    key_valid (B, T) bool. Returns (B, T, H, D) in q.dtype. On the card,
+    bf16 runs the wgmma tensor-core kernel (head_dim 64 or 128, rows 16-byte
+    aligned) and fp32 the SIMT kernel (head_dim in ``HEAD_DIMS``); any other
+    bf16 shape raises."""
     if q.device.type != "cuda":
         return flash_prefill_plain(q, k, v, key_valid, scale)
     B, T, H, D = q.shape
@@ -206,6 +234,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_prefill: key_valid {tuple(key_valid.shape)}"
                          f" != {(B, T)}")
     _check_common(q, {"k": k, "v": v}, key_valid, "flash_prefill")
+    if q.dtype == torch.bfloat16:
+        if D not in PREFILL_BF16_HEAD_DIMS:
+            raise ValueError(f"flash_prefill: bf16 head_dim {D} not in "
+                             f"{PREFILL_BF16_HEAD_DIMS} (the tensor-core "
+                             "kernel's tiles)")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_rows_16b(t, "flash_prefill", name)
     lib = build_kernels()["flash_prefill"]
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -222,6 +257,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_prefill.launches = 0
+
+
+def prefill_kernel_launches() -> Dict[str, int]:
+    """Launches of each prefill kernel so far, as the library counts them
+    where it launches each: {"simt": fp32 kernel, "wgmma": bf16 kernel}.
+    The dispatch check of ``chip_smoke.py`` reads them."""
+    fn = build_kernels()["flash_prefill"].moss_flash_prefill_kernel_launches
+    return {"simt": fn(0), "wgmma": fn(1)}
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +292,52 @@ def _extent_arg(extent, B: int, device, S: int, what: str):
     return None, S if extent is None else int(extent)
 
 
+def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int
+                      ) -> Tuple[int, int]:
+    """(n_split, chunk) of the split-K decode over a cache of capacity S.
+
+    A pure function of the shapes: the extent never enters, so a tensor
+    extent or a captured step needs no host read. ``chunk`` is a multiple
+    of the 64-slot tile and n_split * chunk >= S; B * Hkv * n_split blocks
+    reach ``sm_count`` wherever the cache has enough tiles for it (else
+    one tile per chunk). It splits only when B * Hkv < sm_count."""
+    tiles = max(1, -(-S // DECODE_TILE))
+    want = -(-sm_count // max(1, B * Hkv))      # chunks per (row, kv-head)
+    per = max(1, tiles // max(1, want))         # tiles per chunk
+    return -(-tiles // per), per * DECODE_TILE
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once, cached)."""
+    idx = _device_index(device)
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _arrival_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The split-K merge's per-(row, kv-head) ticket counters of one CUDA
+    stream: zeroed once when created, re-armed by each launch's merging
+    block, and never replaced, so a CUDA graph may keep their address.
+    Launches on two streams never share a ticket. A graph keeps the
+    counters of the stream it was captured on: two graphs captured on one
+    stream must not replay at the same time. ``sm_count`` counters serve
+    every plan that splits (``decode_split_plan`` splits only below
+    ``sm_count`` rows x kv-heads)."""
+    key = (_device_index(device), stream)
+    c = _split_counters.get(key)
+    if c is None:
+        c = torch.zeros(sm_count(device), dtype=torch.int32, device=device)
+        _split_counters[key] = c
+    return c
+
+
 def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
                           vt: torch.Tensor, key_valid: torch.Tensor,
                           scale: float, extent=None, layer=None,
@@ -272,10 +361,63 @@ def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
     return out.reshape(B, 1, H, D).to(out_dtype or q.dtype)
 
 
+def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
+                                vt: torch.Tensor, key_valid: torch.Tensor,
+                                scale: float, extent=None, layer=None,
+                                n_split: int = 1,
+                                chunk: Optional[int] = None,
+                                out_dtype: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
+    """The split-K arithmetic of the ``flash_decode_hs`` kernel in plain
+    torch (for the tests and the card's checks): per chunk of ``chunk``
+    slots (default: the 64-slot tiles dealt evenly over ``n_split``) the
+    running max m, denominator l and unnormalised sum acc, an empty chunk
+    (m = NEG_INF, l = 0) past the extent or with no valid key; then the
+    kernel's merge, out = sum e^(m_s - m) acc_s / max(sum e^(m_s - m) l_s,
+    1e-30) with m the max over non-empty chunks."""
+    if layer is not None:
+        kt, vt = kt[int(layer)], vt[int(layer)]
+    B, _, H, D = q.shape
+    Hkv, S = kt.shape[1], kt.shape[2]
+    G = H // Hkv
+    if chunk is None:
+        tiles = -(-S // DECODE_TILE)
+        chunk = -(-tiles // n_split) * DECODE_TILE
+    qg = q[:, 0].float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kt.float()) * scale
+    mask = key_valid
+    ext = _extent_mask(extent, B, S, q.device)
+    if ext is not None:
+        mask = mask & ext
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    ms, ls, accs = [], [], []
+    for c0 in range(0, n_split * chunk, chunk):
+        sc = s[..., c0:c0 + chunk]
+        if sc.shape[-1] == 0:                       # past the capacity
+            ms.append(torch.full(s.shape[:-1], _NEG_INF, device=q.device))
+            ls.append(torch.zeros(s.shape[:-1], device=q.device))
+            accs.append(torch.zeros((B, Hkv, G, D), device=q.device))
+            continue
+        m = sc.amax(dim=-1).clamp_min(_NEG_INF)
+        p = torch.exp(sc - m[..., None])            # masked -> 0
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgs,bhsd->bhgd", p,
+                                 vt[:, :, c0:c0 + chunk].float()))
+    m_s, l_s, acc_s = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = l_s > 0
+    m = torch.where(live, m_s, _NEG_INF).amax(dim=0)
+    w = torch.where(live, torch.exp(m_s - m), 0.0)
+    l = (w * l_s).sum(dim=0).clamp_min(_L_FLOOR)
+    out = (w[..., None] * acc_s).sum(dim=0) / l[..., None]
+    return out.reshape(B, 1, H, D).to(out_dtype or q.dtype)
+
+
 def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                     key_valid: torch.Tensor, scale: float,
                     extent: Union[None, int, torch.Tensor] = None,
-                    layer: Optional[int] = None) -> torch.Tensor:
+                    layer: Optional[int] = None,
+                    split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Single-query GQA decode attention over the head-major cache.
 
     q (B, 1, H, D); kt/vt (B, Hkv, S, D), or the full (L, B, Hkv, S, D)
@@ -283,10 +425,18 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     never copies a layer's cache to call the kernel); key_valid (B, S) bool.
     ``extent``: None (all S slots), an int, or a (B,) int32 tensor — slots at
     or past a row's extent are never read, and must be key_valid=False.
-    Returns (B, 1, H, D) in q.dtype."""
+    Returns (B, 1, H, D) in q.dtype. On the card the kernel is split-K over
+    the cache into ``split`` = (n_split, chunk), by default
+    ``decode_split_plan``'s; the fp32 partials go to a workspace allocated
+    here, and the last block of each (row, kv-head) merges them in the same
+    launch. On the CPU a given ``split`` runs the plain split arithmetic."""
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
     if q.device.type != "cuda":
+        if split is not None:
+            return flash_decode_hs_split_plain(q, kt, vt, key_valid, scale,
+                                               extent, n_split=split[0],
+                                               chunk=split[1])
         return flash_decode_hs_plain(q, kt, vt, key_valid, scale, extent)
     B, one, H, D = q.shape
     Hkv, S = kt.shape[1], kt.shape[2]
@@ -298,22 +448,35 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         raise ValueError(f"flash_decode_hs: key_valid "
                          f"{tuple(key_valid.shape)} != {(B, S)}")
     _check_common(q, {"kt": kt, "vt": vt}, key_valid, "flash_decode_hs")
-    esz = q.element_size()
     for name, t in (("kt", kt), ("vt", vt)):
-        # 16-byte vector loads of K/V rows
-        if t.data_ptr() % 16 or any((t.stride(i) * esz) % 16
-                                    for i in range(3)):
-            raise ValueError(f"flash_decode_hs: {name} rows must be 16-byte "
-                             "aligned")
+        _check_rows_16b(t, "flash_decode_hs", name)
     ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S,
                                       "flash_decode_hs")
+    G = H // Hkv
+    n_split, chunk = split or decode_split_plan(B, Hkv, S, sm_count(q.device))
+    if chunk <= 0 or chunk % DECODE_TILE or n_split < 1 or n_split * chunk < S:
+        raise ValueError(f"flash_decode_hs: split {(n_split, chunk)} does not "
+                         f"cover {S} slots in chunks of 64-slot tiles")
     lib = build_kernels()["flash_decode"]
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws_acc = ws_ml = counters = None
+    if n_split > 1:
+        parts = B * Hkv * n_split * G
+        ws = torch.empty(parts * (D + 2), dtype=torch.float32,
+                         device=q.device)
+        ws_acc, ws_ml = ws.data_ptr(), ws[parts * D:].data_ptr()
+        c = _arrival_counters(q.device, stream)
+        if B * Hkv > c.numel():
+            raise ValueError(f"flash_decode_hs: a split over {B} x {Hkv} rows "
+                             f"x kv-heads needs more than the {c.numel()} "
+                             "ticket counters (one per SM)")
+        counters = c.data_ptr()
     rc = lib.moss_flash_decode(
         _DTYPE_CODE[q.dtype], q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
         key_valid.data_ptr(), ext_ptr, ext_scalar, out.data_ptr(),
-        B, Hkv, H // Hkv, S, D, float(scale), q.stride(0), q.stride(2),
+        B, Hkv, G, S, D, float(scale), chunk, n_split, ws_acc, ws_ml,
+        counters, q.stride(0), q.stride(2),
         kt.stride(0), kt.stride(1), kt.stride(2),
         vt.stride(0), vt.stride(1), vt.stride(2), key_valid.stride(0),
         out.stride(0), out.stride(2), stream)
@@ -378,9 +541,7 @@ def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
             raise ValueError(f"{what}: {name} must be {dt} on {q.device}, "
                              "contiguous in its last dim")
     for name, t in (("kq", kq), ("vq", vq)):
-        # 16-byte vector loads of the int8 rows
-        if t.data_ptr() % 16 or any(t.stride(i) % 16 for i in range(3)):
-            raise ValueError(f"{what}: {name} rows must be 16-byte aligned")
+        _check_rows_16b(t, what, name)
     ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S, what)
     lib = build_kernels()["flash_decode_int8"]
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)

@@ -71,6 +71,183 @@ def test_decode_kernel_matches_plain(cuda, dtype):
         _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("T,pads", [(63, (5, 0)), (64, (0, 64)),
+                                    (65, (64, 1)), (128, (3, 100)),
+                                    (200, (0, 199))])
+@pytest.mark.parametrize("Hkv,D", [(8, 128), (4, 64)])   # G 2 and G 4
+def test_prefill_tensor_core_tile_edges(cuda, T, pads, Hkv, D):
+    """bf16 prefill (the wgmma kernel, 64-row tiles) at and around the tile
+    edges, with left pads and a fully padded row, against the plain
+    version."""
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    B, H = 2, 16
+    q, k, v = rn(B, T, H, D), rn(B, T, Hkv, D), rn(B, T, Hkv, D)
+    valid = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    for b, p in enumerate(pads):
+        valid[b, :p] = False
+    out = fa.flash_prefill(q, k, v, valid, D ** -0.5)
+    ref = fa.flash_prefill_plain(q, k, v, valid, D ** -0.5,
+                                 out_dtype=torch.float32)
+    _close(out, ref, "bfloat16")
+    for b, p in enumerate(pads):
+        assert bool((out[b, :p] == 0).all())
+
+
+def _p_rounding_inputs(gen, B, T, H, Hkv, D):
+    """bf16 q, k, v (for scale 1) on which rounding P to bf16 before P.V
+    decides the output: scores are the row max (even keys) or 2^-10 below
+    it (odd keys), so bf16 rounds every e^(s - m) to 1; v is +c on even
+    keys and -c on odd keys, |c| in [32, 64). Odd rows are then exactly 0
+    with bf16 P and ~c * 2^-11 (>= 0.0156) with fp32 P."""
+    bf = torch.bfloat16
+    q = torch.zeros((B, T, H, D), device="cuda")
+    q[..., 0], q[..., 1] = 1.0, 2.0 ** -10
+    k = torch.zeros((B, T, Hkv, D), device="cuda")
+    k[..., 0] = 1.0
+    k[:, 1::2, :, 1] = -1.0
+    c = 32 + 32 * torch.rand((B, 1, Hkv, D), generator=gen, device="cuda")
+    c = c * (2 * torch.randint(0, 2, c.shape, generator=gen, device="cuda")
+             - 1)
+    sign = 1 - 2 * (torch.arange(T, device="cuda") % 2)
+    return q.to(bf), k.to(bf), c.to(bf) * sign[None, :, None, None].to(bf)
+
+
+@pytest.mark.parametrize("T,Hkv,D", [(377, 8, 128), (130, 4, 64)])
+def test_prefill_bf16_rounds_p_like_the_tpu_kernel(cuda, T, Hkv, D):
+    """The wgmma kernel rounds P to bf16 before P.V (the TPU kernel's
+    p.astype(v.dtype)): within 1e-3 + 2^-8 |ref| of the bf16-P plain
+    version on inputs where the rounding moves odd rows by >= 0.0156,
+    which the fp32-P plain version therefore misses."""
+    q, k, v = _p_rounding_inputs(cuda, 2, T, 16, Hkv, D)
+    valid = torch.ones(2, T, dtype=torch.bool, device="cuda")
+    out = fa.flash_prefill(q, k, v, valid, 1.0).float()
+    excess = {}
+    for p_dtype in (torch.bfloat16, None):
+        ref = fa.flash_prefill_plain(q, k, v, valid, 1.0,
+                                     out_dtype=torch.float32, p_dtype=p_dtype)
+        excess[p_dtype] = float(((out - ref).abs()
+                                 - 2.0 ** -8 * ref.abs()).max())
+    assert excess[torch.bfloat16] <= 1e-3 < excess[None]
+
+
+def test_prefill_bf16_head_dims_outside_tensor_core_tiles_raise(cuda):
+    q = torch.zeros(1, 3, 4, 32, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 3, 2, 32, device="cuda", dtype=torch.bfloat16)
+    valid = torch.ones(1, 3, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_prefill(q, k, k, valid, 0.25)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_boundaries(cuda, dtype):
+    """The split-K decode at its chunk boundaries: extents exactly at and
+    one past a boundary, a long cache, a whole in-extent chunk with no valid
+    key, a row with no valid key at all, a layer view — against the plain
+    version and the plain split arithmetic at the kernel's plan."""
+    dt = getattr(torch, dtype)
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dt)
+    B, H, Hkv, D = 2, 16, 8, 128
+    for S in (633, 4096):
+        n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                              fa.sm_count(torch.device("cuda")))
+        assert n_split > 1 and B * Hkv * n_split >= 132
+        q, kt, vt = rn(B, 1, H, D), rn(3, B, Hkv, S, D), rn(3, B, Hkv, S, D)
+        for lo, hi in ((0, chunk), (0, chunk + 1), (2 * chunk + 3, S - 7),
+                       (0, S), (0, 0)):
+            valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+            valid[0, lo:hi] = True
+            valid[1, :max(hi, 1)] = True
+            ext = torch.tensor([max(hi, 1), max(hi, 1)], dtype=torch.int32,
+                               device="cuda")
+            out = fa.flash_decode_hs(q, kt, vt, valid, D ** -0.5, extent=ext,
+                                     layer=2)
+            ref = fa.flash_decode_hs_plain(q, kt, vt, valid, D ** -0.5,
+                                           extent=ext, layer=2,
+                                           out_dtype=torch.float32)
+            split = fa.flash_decode_hs_split_plain(
+                q, kt, vt, valid, D ** -0.5, extent=ext, layer=2,
+                n_split=n_split, chunk=chunk, out_dtype=torch.float32)
+            _close(out, ref, dtype)
+            _close(out, split, dtype)
+            if hi == 0:
+                assert bool((out[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_every_split(cuda, dtype):
+    """The kernel at splits other than its plan (n_split 1 writes the
+    output directly; 2, 3 and one tile a chunk merge), extents on and off
+    the chunk boundaries, against the plain split arithmetic at the same
+    split and the plain version; a split that leaves slots uncovered
+    raises."""
+    dt = getattr(torch, dtype)
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dt)
+    B, S, H, Hkv, D = 2, 200, 16, 8, 128
+    q, kt, vt = rn(B, 1, H, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
+    valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    valid[0, :170] = True
+    valid[1, 130:180] = True
+    for split in ((1, 256), (2, 128), (3, 128), (4, 64)):
+        for extent in (None, 192, 128, [150, 1], [64, 190]):
+            ext = (torch.tensor(extent, dtype=torch.int32, device="cuda")
+                   if isinstance(extent, list) else extent)
+            vm = valid.clone()                   # none past the extent
+            if extent is not None:
+                e = torch.as_tensor(extent, device="cuda").expand(B)
+                vm &= torch.arange(S, device="cuda")[None] < e[:, None]
+            out = fa.flash_decode_hs(q, kt, vt, vm, D ** -0.5, extent=ext,
+                                     split=split)
+            ref = fa.flash_decode_hs_split_plain(
+                q, kt, vt, vm, D ** -0.5, extent=ext, n_split=split[0],
+                chunk=split[1], out_dtype=torch.float32)
+            _close(out, ref, dtype)
+            _close(out, fa.flash_decode_hs_plain(
+                q, kt, vt, vm, D ** -0.5, extent=ext,
+                out_dtype=torch.float32), dtype)
+    for bad in ((3, 64), (2, 100), (0, 256)):
+        with pytest.raises(ValueError, match="split"):
+            fa.flash_decode_hs(q, kt, vt, valid, D ** -0.5, split=bad)
+
+
+def test_decode_split_on_two_streams_at_once(cuda):
+    """Split decodes running on two streams at the same time each take the
+    tickets of their own stream, so both merge only their own partials.
+    Only the first chunk lies below the extent: it walks its tiles while
+    the other chunks take their tickets at once, so tickets shared across
+    streams would let a block merge before the first chunk's partial is
+    written. Each stream first spins the card for ~50 ms, so that all the
+    launches are queued before either stream runs."""
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    B, S, H, Hkv, D = 1, 16384, 16, 8, 128
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
+    assert n_split > 1 and chunk > 64
+    valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    valid[:, :chunk] = True
+    inputs = [(rn(B, 1, H, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D))
+              for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    fa.flash_decode_hs(*inputs[0], valid, D ** -0.5, extent=chunk)  # build
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(100_000_000)
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(fa.flash_decode_hs(*inputs[i], valid,
+                                                  D ** -0.5, extent=chunk))
+    torch.cuda.synchronize()
+    for i in range(2):
+        ref = fa.flash_decode_hs_plain(*inputs[i], valid, D ** -0.5,
+                                       extent=chunk, out_dtype=torch.float32)
+        for out in outs[i]:
+            _close(out, ref, "bfloat16")
+
+
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     fa.reset_launch_counts()
     q = torch.zeros(1, 3, 4, 16, device="cuda")

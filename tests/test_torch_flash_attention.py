@@ -120,6 +120,168 @@ def test_decode_extent_and_layer_match_jax_kernel():
     np.testing.assert_allclose(out, ref, atol=2e-5)
 
 
+SPLIT_S = 200        # 4 tiles of 64: chunk boundaries at 64, 128, 192
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, -(-SPLIT_S // 64)])
+def test_decode_split_plain_matches_jax_kernel(n_split):
+    """The split-K arithmetic of the decode kernel (per-chunk m, l, acc and
+    the kernel's merge) against the Pallas kernel in interpret mode: extents
+    on and off chunk boundaries, a per-row extent with one row at 1, a chunk
+    inside the extent with no valid key (row 1's keys start at 130), and a
+    layer view of the (L, ...) stack."""
+    rng = np.random.default_rng(17)
+    L, B, S, H, Hkv, D = 3, 2, SPLIT_S, 8, 4, 16
+    q, _, _ = make_qkv(rng, B, 1, S, H, Hkv, D)
+    kt = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    vt = rng.standard_normal((L, B, Hkv, S, D)).astype(np.float32)
+    base = np.zeros((B, S), bool)
+    base[0, :170] = True
+    base[1, 130:180] = True
+    scale = D ** -0.5
+    pos = np.arange(S)
+    for extent in (None, 200, 192, 128, 150, [150, 1], [64, 190]):
+        ext = np.full(B, S) if extent is None else np.broadcast_to(extent, B)
+        valid = base & (pos[None, :] < ext[:, None])   # none past the extent
+        if extent == [150, 1]:
+            valid[1, 0] = True
+        for lay in (0, 2):
+            kw = {} if extent is None else dict(
+                extent=jnp.asarray(extent, jnp.int32))
+            ref = np.asarray(jpa.flash_decode_hs(
+                jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt),
+                jnp.asarray(valid), scale, block_k=40, interpret=True,
+                layer=jnp.int32(lay), **kw))
+            pext = (torch.tensor(extent, dtype=torch.int32)
+                    if isinstance(extent, list) else extent)
+            out = fa.flash_decode_hs_split_plain(
+                T_(q), T_(kt), T_(vt), T_(valid), scale, extent=pext,
+                layer=lay, n_split=n_split).numpy()
+            # a row with no valid key: unspecified in the TPU kernel, 0 here
+            live = valid.any(axis=1)
+            np.testing.assert_allclose(out[live], ref[live], atol=2e-5)
+            np.testing.assert_array_equal(out[~live], 0.0)
+
+
+@pytest.mark.parametrize("B,Hkv,S,sm", [
+    (2, 8, 633, 132),      # the main path: 10 chunks x 16 = 160 blocks
+    (8, 8, 633, 132),      # batch 8
+    (2, 8, 4096, 132),
+    (1, 8, 1557, 132),     # the long form's capacity
+    (1, 1, 1, 132),        # one slot
+    (3, 2, 70, 132),       # fewer tiles than the card needs
+    (64, 8, 300, 132),     # more (row, kv-head) pairs than SMs
+])
+def test_decode_split_plan(B, Hkv, S, sm):
+    import inspect
+    # a function of the shapes only: the extent never reaches the host
+    assert list(inspect.signature(fa.decode_split_plan).parameters) == [
+        "B", "Hkv", "S", "sm_count"]
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S, sm)
+    tiles = -(-S // 64)
+    assert chunk % 64 == 0 and chunk > 0
+    assert n_split * chunk >= S
+    assert (n_split - 1) * chunk < S             # no chunk past the capacity
+    assert n_split == 1 or B * Hkv < sm          # sm ticket counters suffice
+    if tiles * B * Hkv >= sm:
+        assert B * Hkv * n_split >= sm
+    else:
+        assert n_split == tiles                  # one tile per chunk
+    if (B, Hkv, S, sm) == (2, 8, 633, 132):
+        assert (n_split, chunk) == (10, 64)
+
+
+def test_prefill_bf16_p_plain_matches_jax_kernel_bf16():
+    """The bf16-P plain variant (P rounded to bf16 before P.V, the fp32 P
+    summed into l — what the wgmma kernel computes) against the Pallas
+    prefill kernel run in bf16 in interpret mode. Tolerance 1e-2 + 2^-8 *
+    |ref|, the card's bf16 tolerance: the Pallas output is rounded to bf16
+    (half an ulp, 2^-9 relative), and the two round P at different points
+    (the Pallas kernel relative to its running max over 32-key blocks, the
+    plain variant relative to the row's final max), each within 2^-9 of
+    p."""
+    rng = np.random.default_rng(23)
+    B, T, H, Hkv, D = 2, 96, 4, 2, 64
+    q, k, v = make_qkv(rng, B, T, T, H, Hkv, D)
+    valid = np.ones((B, T), bool)
+    valid[1, :20] = False
+    bq, bk, bv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jb = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    scale = D ** -0.5
+    ref = np.asarray(jpa.flash_prefill(
+        jb(bq), jb(bk), jb(bv), jnp.asarray(valid), scale, block_q=32,
+        block_k=32, interpret=True).astype(jnp.float32))
+    out = fa.flash_prefill_plain(bq, bk, bv, T_(valid), scale,
+                                 out_dtype=torch.float32,
+                                 p_dtype=torch.bfloat16).numpy()
+    for o, r in ((out[0], ref[0]), (out[1, 20:], ref[1, 20:])):
+        assert (np.abs(o - r) - 2.0 ** -8 * np.abs(r)).max() <= 1e-2
+    np.testing.assert_array_equal(out[1, :20], 0.0)
+
+
+def p_rounding_inputs(rng, B, T, H, Hkv, D):
+    """q, k, v, exact in bf16 (for scale 1), on which rounding P to bf16
+    before P.V decides the output: scores are the row max (even keys) or
+    2^-10 below it (odd keys), so bf16 rounds every e^(s - m) to 1; v is +c
+    on even keys and -c on odd keys, |c| in [32, 64). Odd rows are then
+    exactly 0 with bf16 P and c (1 - e^(-2^-10)) / (1 + e^(-2^-10)), at
+    least 0.0156, with fp32 P."""
+    q = np.zeros((B, T, H, D), np.float32)
+    q[..., 0], q[..., 1] = 1.0, 2.0 ** -10
+    k = np.zeros((B, T, Hkv, D), np.float32)
+    k[..., 0] = 1.0
+    k[:, 1::2, :, 1] = -1.0
+    c = rng.uniform(32, 64, (B, 1, Hkv, D)) * rng.choice([-1, 1],
+                                                         (B, 1, Hkv, D))
+    c = torch.from_numpy(c).to(torch.bfloat16).float().numpy()
+    sign = np.where(np.arange(T) % 2 == 0, 1.0, -1.0)[None, :, None, None]
+    return q, k, (c * sign).astype(np.float32)
+
+
+def test_prefill_bf16_p_rounding_matches_jax_kernel_bf16():
+    """Where rounding P to bf16 moves the output (odd rows by >= 0.0156),
+    the bf16-P plain variant agrees with the Pallas prefill kernel run in
+    bf16 in interpret mode within 1e-3 + 2^-8 |ref| (the Pallas output's
+    bf16 rounding, half an ulp, is inside the relative term; 1e-3 is far
+    below the 0.0156 the rounding makes), and the fp32-P plain version
+    misses that tolerance."""
+    rng = np.random.default_rng(29)
+    B, T, H, Hkv, D = 2, 96, 4, 2, 64
+    q, k, v = p_rounding_inputs(rng, B, T, H, Hkv, D)
+    valid = np.ones((B, T), bool)
+    ref = np.asarray(jpa.flash_prefill(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(valid), 1.0, block_q=32, block_k=32,
+        interpret=True).astype(jnp.float32))
+    bq, bk, bv = (T_(x).to(torch.bfloat16) for x in (q, k, v))
+    excess = {}
+    for p_dtype in (torch.bfloat16, None):
+        out = fa.flash_prefill_plain(bq, bk, bv, T_(valid), 1.0,
+                                     out_dtype=torch.float32,
+                                     p_dtype=p_dtype).numpy()
+        excess[p_dtype] = (np.abs(out - ref) - 2.0 ** -8 * np.abs(ref)).max()
+    assert excess[torch.bfloat16] <= 1e-3 < excess[None]
+    np.testing.assert_array_equal(ref[:, 1::2], 0.0)
+
+
+def test_decode_wrapper_split_on_cpu_runs_split_plain():
+    """On a CPU tensor, flash_decode_hs with a split runs the plain split
+    arithmetic at that split."""
+    rng = np.random.default_rng(31)
+    q, k, v = make_qkv(rng, 2, 1, 150, 8, 4, 16)
+    kt, vt = np.moveaxis(k, 2, 1).copy(), np.moveaxis(v, 2, 1).copy()
+    valid = np.ones((2, 150), bool)
+    valid[1, :70] = False
+    args = (T_(q), T_(kt), T_(vt), T_(valid), 0.25)
+    for n_split, chunk in ((1, 192), (2, 128), (3, 64)):
+        out = fa.flash_decode_hs(*args, extent=140, split=(n_split, chunk))
+        ref = fa.flash_decode_hs_split_plain(*args, extent=140,
+                                             n_split=n_split, chunk=chunk)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        np.testing.assert_allclose(out.numpy(), fa.flash_decode_hs(
+            *args, extent=140).numpy(), atol=2e-6)
+
+
 def test_decode_row_without_valid_key_is_zero():
     rng = np.random.default_rng(11)
     q, k, v = make_qkv(rng, 2, 1, 30, 4, 2, 16)

@@ -82,6 +82,20 @@ def test_codec_without_cuda_raises(no_cuda):
     XYTokenizer.init_random(CodecConfig().tiny(), device="cpu")
 
 
+def test_lm_without_cuda_raises(no_cuda):
+    """AsteroidLM.init_random and init_cache default to the card too."""
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM, init_cache
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AsteroidLM.init_random(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert init_cache(cfg, 1, 8, device="cpu")["k"].device.type == "cpu"
+
+
 def test_pipeline_without_cuda_raises(no_cuda):
     from moss_ttsd_torch.core.config import CodecConfig
     from moss_ttsd_torch.models.codec.model import XYTokenizer

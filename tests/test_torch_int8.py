@@ -193,7 +193,7 @@ def test_kv8_prefill_and_decode_step_match_jax(bias):
                            method=jlm.AsteroidLM.backbone)
     jt, js = jm.apply(qtree, jh2, method=jlm.AsteroidLM.logits_all)
     with torch.no_grad():
-        cache = init_cache(cfg, B, S)
+        cache = init_cache(cfg, B, S, device="cpu")
         assert cache["k"].dtype == torch.int8
         assert cache["k_s"].shape == (cfg.num_hidden_layers, B,
                                       cfg.num_key_value_heads, S)

@@ -98,7 +98,7 @@ def test_prefill_and_cached_decode_step_match(bias):
                            method=jlm.AsteroidLM.backbone)
 
     with torch.no_grad():
-        cache = init_cache(cfg, B, S, torch.float32)
+        cache = init_cache(cfg, B, S, torch.float32, device="cpu")
         ph, cache = model.backbone(torch.from_numpy(ids),
                                    torch.from_numpy(pos),
                                    torch.from_numpy(kv), cache, 0)
@@ -135,7 +135,7 @@ def test_reference_state_dict_loads_same_model(bias):
 
 def test_init_random_is_seeded():
     cfg = LMConfig(dtype="float32", param_dtype="float32").tiny()
-    a = AsteroidLM.init_random(cfg, seed=3).state_dict()
-    b = AsteroidLM.init_random(cfg, seed=3).state_dict()
+    a = AsteroidLM.init_random(cfg, seed=3, device="cpu").state_dict()
+    b = AsteroidLM.init_random(cfg, seed=3, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.isfinite(a["embed_text"]).all()
