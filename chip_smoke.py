@@ -10,12 +10,13 @@ Phases, each printing one JSON line:
      the same inputs: the main path's and the long-form run's shapes, the
      edge cases (left padding, fully masked rows, ragged T and S, per-row
      extents, extent 1, layer views, G 2 and 4), the bf16 prefill's
-     tensor-core tile edges and its bf16 rounding of P (held to the bf16-P
-     plain version at a tolerance the fp32-P one misses), the split-K
-     decode's chunk boundaries (also against the plain split arithmetic at
-     the kernel's own plan), batch 8 and the --tiny shapes (fp32, head_dim
-     16); which prefill kernel each dtype launches (the library's launch
-     counts); quantize_kv on the card vs the CPU (same int8 bytes);
+     tensor-core tile edges, the bf16 rounding of P in the prefill and of
+     P (p * vs over the int8 cache) in both decodes (held to the bf16-P
+     plain version at a tolerance the fp32-P one misses), both split-K
+     decodes' chunk boundaries (every decode case also against the plain
+     split arithmetic at the kernel's own plan), batch 8 and the --tiny
+     shapes (fp32, head_dim 16); which prefill kernel each dtype launches
+     (the library's launch counts); quantize_kv on the card vs the CPU;
      reference — small fp32 models on the card vs the same on the CPU (LM
      hidden states, greedy tokens of the bf16 and int8 engines, codec wav);
   4. main path — TTSPipeline.process_batch at the full MOSS-TTSD-v0.5 width
@@ -30,7 +31,7 @@ Phases, each printing one JSON line:
   7. cli      — the --tiny CLI on the card writes wavs (as it is, and with
      --quant int8 --restricted_text_head);
 then the ``kernels`` line (times, bounds, launches; with ``--phases
-...,sweep`` also the decode at other splits, ``split_sweep_ms``) and, last,
+...,sweep`` also both decodes at other splits, ``split_sweep_ms``) and, last,
 the result line {"ok": true, "device": {...}}. Any failing phase exits
 non-zero with no result line. Without a CUDA device it exits 1 at once.
 """
@@ -135,39 +136,56 @@ def prefill_case(gen, name, B, T, H, Hkv, D, dtype, pads):
             **compare(out, ref)}
 
 
-def decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
-                layers=None, layer=None):
-    """flash_decode_hs against its plain version, and against the plain
-    split-K arithmetic at the kernel's own (n_split, chunk) plan: the two
-    references agree to fp32 rounding, so the kernel is held to both."""
+def _decode_check(name, kernel, inputs, valid, extent, layer, shape):
+    """One decode kernel (``kernel`` = "flash_decode_hs" or
+    "flash_decode_int8_hs", ``inputs`` its q and cache tensors) against its
+    plain version and against the plain split-K arithmetic at the kernel's
+    own (n_split, chunk) plan, both with P rounded to q's type as the
+    kernel rounds it: the two references agree to fp32 rounding, so the
+    kernel is held to both."""
     import torch
     from moss_ttsd_torch.ops import flash_attention as fa
+    B, S, H, Hkv, D = shape
+    q = inputs[0]
+    ext = extent
+    if isinstance(extent, list):
+        ext = torch.tensor(extent, dtype=torch.int32, device="cuda")
+    args = (*inputs, valid, D ** -0.5)
+    out = getattr(fa, kernel)(*args, extent=ext, layer=layer)
+    torch.cuda.synchronize()
+    kw = dict(extent=ext, layer=layer, out_dtype=torch.float32,
+              p_dtype=q.dtype)
+    ref = getattr(fa, kernel + "_plain")(*args, **kw)
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S, fa.sm_count(q.device))
+    split = getattr(fa, kernel + "_split_plain")(
+        *args, n_split=n_split, chunk=chunk, **kw)
+    vs_split = compare(out, split)
+    res = compare(out, ref)
+    return {"kernel": kernel, "case": name, "shape": list(shape),
+            "extent": extent, "layer": layer, "n_split": n_split,
+            "chunk": chunk, "blocks": B * Hkv * n_split,
+            **res, "split_plain_max_abs_err": vs_split["max_abs_err"],
+            "ok": res["ok"] and vs_split["ok"]}
+
+
+def _valid_spans(B, S, valid_spans):
+    import torch
+    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    for b, (lo, hi) in enumerate(valid_spans):
+        valid[b, lo:hi] = True
+    return valid
+
+
+def decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
+                layers=None, layer=None):
+    """flash_decode_hs on random inputs (``_decode_check``)."""
     q = _rand(gen, (B, 1, H, D), dtype)
     shape = (B, Hkv, S, D) if layers is None else (layers, B, Hkv, S, D)
     kt = _rand(gen, shape, dtype)
     vt = _rand(gen, shape, dtype)
-    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
-    for b, (lo, hi) in enumerate(valid_spans):
-        valid[b, lo:hi] = True
-    ext = extent
-    if isinstance(extent, list):
-        ext = torch.tensor(extent, dtype=torch.int32, device="cuda")
-    out = fa.flash_decode_hs(q, kt, vt, valid, D ** -0.5, extent=ext,
-                             layer=layer)
-    torch.cuda.synchronize()
-    ref = fa.flash_decode_hs_plain(q, kt, vt, valid, D ** -0.5, extent=ext,
-                                   layer=layer, out_dtype=torch.float32)
-    n_split, chunk = fa.decode_split_plan(B, Hkv, S, fa.sm_count(q.device))
-    split = fa.flash_decode_hs_split_plain(
-        q, kt, vt, valid, D ** -0.5, extent=ext, layer=layer,
-        n_split=n_split, chunk=chunk, out_dtype=torch.float32)
-    vs_split = compare(out, split)
-    res = compare(out, ref)
-    return {"kernel": "flash_decode_hs", "case": name,
-            "shape": [B, S, H, Hkv, D], "extent": extent, "layer": layer,
-            "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split,
-            **res, "split_plain_max_abs_err": vs_split["max_abs_err"],
-            "ok": res["ok"] and vs_split["ok"]}
+    return _decode_check(name, "flash_decode_hs", (q, kt, vt),
+                         _valid_spans(B, S, valid_spans), extent, layer,
+                         (B, S, H, Hkv, D))
 
 
 def _int8_kv(gen, shape):
@@ -178,27 +196,15 @@ def _int8_kv(gen, shape):
 
 def int8_decode_case(gen, name, B, S, H, Hkv, D, dtype, valid_spans, extent,
                      layers=None, layer=None):
-    import torch
-    from moss_ttsd_torch.ops import flash_attention as fa
+    """flash_decode_int8_hs on a random cache quantized by quantize_kv
+    (``_decode_check``)."""
     q = _rand(gen, (B, 1, H, D), dtype)
     shape = (B, Hkv, S, D) if layers is None else (layers, B, Hkv, S, D)
     kq, ks = _int8_kv(gen, shape)
     vq, vs = _int8_kv(gen, shape)
-    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
-    for b, (lo, hi) in enumerate(valid_spans):
-        valid[b, lo:hi] = True
-    ext = extent
-    if isinstance(extent, list):
-        ext = torch.tensor(extent, dtype=torch.int32, device="cuda")
-    out = fa.flash_decode_int8_hs(q, kq, ks, vq, vs, valid, D ** -0.5,
-                                  extent=ext, layer=layer)
-    torch.cuda.synchronize()
-    ref = fa.flash_decode_int8_hs_plain(q, kq, ks, vq, vs, valid, D ** -0.5,
-                                        extent=ext, layer=layer,
-                                        out_dtype=torch.float32)
-    return {"kernel": "flash_decode_int8_hs", "case": name,
-            "shape": [B, S, H, Hkv, D], "extent": extent, "layer": layer,
-            **compare(out, ref)}
+    return _decode_check(name, "flash_decode_int8_hs", (q, kq, ks, vq, vs),
+                         _valid_spans(B, S, valid_spans), extent, layer,
+                         (B, S, H, Hkv, D))
 
 
 def quantize_kv_check(gen):
@@ -224,9 +230,10 @@ def _p_rounding_inputs(gen, B, T, H, Hkv, D):
     decides the output: every score of a row is the row's max (even keys)
     or 2^-10 below it (odd keys), so e^(s - m) is 1 or e^(-2^-10), which
     bf16 rounds to 1; v is +c on even keys and -c on odd keys, |c| in
-    [32, 64). An odd row (as many odd keys as even) then comes out exactly
-    0 with bf16 P and c (1 - e^(-2^-10)) / (1 + e^(-2^-10)) ~ c 2^-11,
-    at least 0.0156, with fp32 P."""
+    [32, 64), a multiple of 1/2 (so 2c fits an int8). An odd row (as many
+    odd keys as even) then comes out exactly 0 with bf16 P and
+    c (1 - e^(-2^-10)) / (1 + e^(-2^-10)) ~ c 2^-11, at least 0.0156, with
+    fp32 P."""
     import torch
     bf = torch.bfloat16
     q = torch.zeros((B, T, H, D), device="cuda")
@@ -234,7 +241,8 @@ def _p_rounding_inputs(gen, B, T, H, Hkv, D):
     k = torch.zeros((B, T, Hkv, D), device="cuda")
     k[..., 0] = 1.0
     k[:, 1::2, :, 1] = -1.0
-    c = 32 + 32 * torch.rand((B, 1, Hkv, D), generator=gen, device="cuda")
+    c = torch.randint(64, 128, (B, 1, Hkv, D), generator=gen,
+                      device="cuda") / 2
     c = c * (2 * torch.randint(0, 2, c.shape, generator=gen, device="cuda")
              - 1)
     sign = 1 - 2 * (torch.arange(T, device="cuda") % 2)
@@ -260,18 +268,56 @@ def prefill_p_rounding_case(gen, name, B, T, H, Hkv, D):
                                            p_dtype=p_dtype)
             for p_name, p_dtype in (("bf16_p", torch.bfloat16),
                                     ("fp32_p", None))}
+    return {"kernel": "flash_prefill", "case": name,
+            "shape": [B, T, H, Hkv, D], **_p_rounding_verdict(out, refs)}
+
+
+def _p_rounding_verdict(out, refs):
+    """out held to refs["bf16_p"] at P_TOL + 2^-8 |ref|, which
+    refs["fp32_p"] must miss."""
+    import torch
     excess = {p_name: float(((out.float() - ref).abs()
                              - REL["bfloat16"] * ref.abs()).max())
               for p_name, ref in refs.items()}
     finite = bool(torch.isfinite(out).all())
-    return {"kernel": "flash_prefill", "case": name,
-            "shape": [B, T, H, Hkv, D], "dtype": "bfloat16",
+    return {"dtype": "bfloat16",
             "max_abs_err": float((out.float() - refs["bf16_p"]).abs().max()),
             "tolerance": f"{P_TOL:g} + 2^-8*|ref| vs the bf16-P plain; "
                          "the fp32-P plain must exceed it",
             "excess_over_rel": excess, "finite": finite,
             "ok": (finite and excess["bf16_p"] <= P_TOL
                    and excess["fp32_p"] > P_TOL)}
+
+
+def decode_p_rounding_case(gen, name, kernel, B, S, H, Hkv, D, extent):
+    """B2 rounds P, and B3 p * vs, to bf16 before P.V, as the TPU kernels
+    do: ``_p_rounding_inputs`` at decode shapes (as a bf16 cache for
+    flash_decode_hs; for flash_decode_int8_hs as an int8 one with kq = k,
+    ks = 1, vq = 2v, vs = 1/2, powers of two that blur nothing), an even
+    extent and an even left pad, so every row has as many valid even keys
+    as odd and comes out 0 with bf16 P; held to the bf16-P plain version at
+    P_TOL + 2^-8 |ref|, which the fp32-P plain version must miss."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    q, k, v = _p_rounding_inputs(gen, B, S, H, Hkv, D)
+    q = q[:, :1].contiguous()
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    if kernel == "flash_decode_int8_hs":
+        ones = torch.ones((B, Hkv, S), device="cuda")
+        inputs = (q, kt.to(torch.int8), ones, (2 * vt).to(torch.int8),
+                  ones / 2)
+    else:
+        inputs = (q, kt, vt)
+    valid = _valid_spans(B, S, [(2 * (b % 2), extent) for b in range(B)])
+    out = getattr(fa, kernel)(*inputs, valid, 1.0, extent=extent)
+    torch.cuda.synchronize()
+    refs = {p_name: getattr(fa, kernel + "_plain")(
+                *inputs, valid, 1.0, extent=extent, out_dtype=torch.float32,
+                p_dtype=p_dtype)
+            for p_name, p_dtype in (("bf16_p", torch.bfloat16),
+                                    ("fp32_p", None))}
+    return {"kernel": kernel, "case": name, "shape": [B, S, H, Hkv, D],
+            "extent": extent, **_p_rounding_verdict(out, refs)}
 
 
 def prefill_dispatch_check(gen):
@@ -308,6 +354,7 @@ def kernel_checks():
     sms = fa.sm_count(torch.device("cuda"))
     _, ch4k = fa.decode_split_plan(2, 8, 4096, sms)
     _, ch633 = fa.decode_split_plan(2, 8, 633, sms)
+    _, ch1557 = fa.decode_split_plan(1, 8, 1557, sms)
     cases = [
         # the main path's own shapes: bf16, 16/8 heads, D=128, T = base 377,
         # the two example items left-padded by 92 and 177 slots
@@ -375,6 +422,9 @@ def kernel_checks():
                     layer=27),
         decode_case(gen, "split_fp32_S4096", 2, 4096, 16, 8, 128, f32,
                     [(0, 3001), (1000, 3001)], 3001),
+        # P rounded to bf16 before P.V, as the TPU kernel does
+        decode_p_rounding_case(gen, "bf16_p_rounding", "flash_decode_hs", 2,
+                               633, 16, 8, 128, 506),
         # int8 cache: the long-form run's shapes (B 1, S 1557 = base 57 +
         # 1500 steps, mid-run extent 807, a layer view of the 28-layer
         # stack), then the edge cases and the --tiny shapes
@@ -392,6 +442,33 @@ def kernel_checks():
                          [(0, 129), (1, 129)], [129, 129]),
         int8_decode_case(gen, "tiny", 2, 89, 4, 2, 16, f32,
                          [(0, 70), (9, 70)], 70),
+        # the split-K boundaries over the int8 cache, as B2's above: a long
+        # cache, extents exactly at chunk boundaries, a whole in-extent
+        # chunk with no valid key, batch 8, the first long-form step (extent
+        # 58, layer 0 of the 28-layer stack), fp32, head_dim 16 (a row is
+        # one lane) and 64
+        int8_decode_case(gen, "split_S4096_ext4000", 2, 4096, 16, 8, 128, bf,
+                         [(0, 4000), (2000, 4000)], 4000),
+        int8_decode_case(gen, "split_ext_at_chunk", 2, 4096, 16, 8, 128, bf,
+                         [(0, ch4k), (5, 3 * ch4k)], [ch4k, 3 * ch4k]),
+        int8_decode_case(gen, "split_ext_at_chunk_1557", 1, 1557, 16, 8, 128,
+                         bf, [(0, 7 * ch1557)], 7 * ch1557),
+        int8_decode_case(gen, "split_empty_chunk", 2, 633, 16, 8, 128, bf,
+                         [(0, 505), (2 * ch633 + 3, 505)], 505),
+        int8_decode_case(gen, "split_B8", 8, 633, 16, 8, 128, bf,
+                         [(92, 505), (177, 505), (0, 505), (0, 1), (63, 64),
+                          (64, 65), (300, 505), (0, 0)], 505),
+        int8_decode_case(gen, "split_longform_first_step", 1, 1557, 16, 8,
+                         128, bf, [(0, 58)], 58, layers=28, layer=0),
+        int8_decode_case(gen, "split_fp32_S4096", 2, 4096, 16, 8, 128, f32,
+                         [(0, 3001), (1000, 3001)], 3001),
+        int8_decode_case(gen, "split_D64_G4", 2, 700, 16, 4, 64, bf,
+                         [(0, 650), (13, 650)], 650),
+        int8_decode_case(gen, "split_tiny_S300", 2, 300, 4, 2, 16, f32,
+                         [(0, 250), (70, 250)], [250, 250]),
+        # p * vs rounded to bf16 before P.V, as the TPU kernel does
+        decode_p_rounding_case(gen, "bf16_p_rounding", "flash_decode_int8_hs",
+                               1, 1557, 16, 8, 128, 808),
         quantize_kv_check(gen),
     ]
     for c in cases:
@@ -959,35 +1036,40 @@ def kernel_table(main, longform, checks, sweep=False):
                        "the fp32 partials in the same launch",
              "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split}
     if sweep:
-        # other splits of the capacity: one chunk, two, chunks of two
-        # tiles, chunks of one tile ("n_split x chunk")
-        tiles = -(-S // 64)
-        extra["split_sweep_ms"] = {
-            "%dx%d" % split: cuda_ms(decode(split), 2 * SETS)
-            for split in ((-(-tiles // per), 64 * per) for per in
-                          sorted({tiles, -(-tiles // 2), 2, 1}, reverse=True))}
+        extra["split_sweep_ms"] = {"%dx%d" % split: cuda_ms(decode(split),
+                                                            2 * SETS)
+                                   for split in _split_sweep(S)}
     rows.append(_row(
         "flash_decode_hs", "moss_ttsd_torch/csrc/flash_decode.cu",
         "moss_ttsd_tpu/ops/pallas_attention.py:203 (flash_decode_hs / "
         "_decode_kernel)", main["launches"]["flash_decode_hs"],
         checks["flash_decode_hs:main"], cuda_ms(decode(None), 2 * SETS),
-        cuda_ms(lambda i: fa.flash_decode_hs_plain(qd, *ds[i % SETS], vd,
-                                                   scale, extent=ext), SETS),
+        cuda_ms(lambda i: fa.flash_decode_hs_plain(
+            qd, *ds[i % SETS], vd, scale, extent=ext, p_dtype=bf), SETS),
         cuda_ms(lib_d, 2 * SETS), d_bytes, d_flops, extra))
     del ds
     if longform is not None:
-        rows.append(int8_decode_row(longform, checks, SETS))
+        rows.append(int8_decode_row(longform, checks, SETS, sweep))
     emit({"kernels": rows})
     return rows
 
 
-def int8_decode_row(lf, checks, SETS):
+def _split_sweep(S):
+    """The splits of the sweep ("n_split x chunk"): one chunk, two, chunks
+    of two tiles, chunks of one tile."""
+    tiles = -(-S // 64)
+    return [(-(-tiles // per), 64 * per) for per in
+            sorted({tiles, -(-tiles // 2), 2, 1}, reverse=True)]
+
+
+def int8_decode_row(lf, checks, SETS, sweep=False):
     """flash_decode_int8_hs at the long-form run's shapes: B 1, the
     full-capacity cache S = base + buf_steps, the mid-run extent, layer
     views of one (L, ...) int8 stack (L = SETS distinct layers). No single
     PyTorch call attends over an int8 cache, so library_ms is null;
     dequant_sdpa_ms (a cast-and-scale to bf16 of the slots below the
-    extent, then SDPA over them) is a reference point, not a library port."""
+    extent, then SDPA over them) is a reference point, not a library port.
+    ``sweep``: also at other splits than its plan (``split_sweep_ms``)."""
     import torch
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
@@ -1017,22 +1099,45 @@ def int8_decode_row(lf, checks, SETS):
         return F.scaled_dot_product_attention(
             qh, k, v, attn_mask=valid[:, None, None, :ext], scale=scale,
             enable_gqa=True)
-    row = _row(
+    decode = lambda split: lambda i: fa.flash_decode_int8_hs(
+        q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS,
+        split=split)
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
+    extra = {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16 q, int8 cache",
+             "extent": ext, "input_sets": SETS,
+             "design": "split-K as flash_decode_hs (the same template over "
+                       "an int8 cache): one block per (chunk, kv-head, "
+                       "row), cp.async double-buffered int8 tiles with "
+                       "their k/v scales, scores (q.kq)*(ks*scale), "
+                       "bf16(p*vs) into P.V, the last block of each "
+                       "(kv-head, row) merges the fp32 partials in the same "
+                       "launch",
+             "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split,
+             "dequant_sdpa_ms": cuda_ms(dequant_sdpa, 2 * SETS)}
+    if sweep:
+        extra["split_sweep_ms"] = {"%dx%d" % split: cuda_ms(decode(split),
+                                                            2 * SETS)
+                                   for split in _split_sweep(S)}
+        # the same call over views of capacity ext rounded up to a tile, so
+        # that the plan has no chunk past the extent: what the empty chunks
+        # and their partials in the merge cost
+        Se = -(-ext // 64) * 64
+        extra["capacity_at_extent_ms"] = cuda_ms(
+            lambda i: fa.flash_decode_int8_hs(
+                q, kq[..., :Se, :], ks[..., :Se], vq[..., :Se, :],
+                vs[..., :Se], valid[:, :Se], scale, extent=ext,
+                layer=i % SETS), 2 * SETS)
+    return _row(
         "flash_decode_int8_hs", "moss_ttsd_torch/csrc/flash_decode_int8.cu",
         "moss_ttsd_tpu/ops/pallas_attention.py:311 (flash_decode_int8_hs / "
         "_decode_int8_kernel)", lf["launches"]["flash_decode_int8_hs"],
         checks["flash_decode_int8_hs:longform"],
-        cuda_ms(lambda i: fa.flash_decode_int8_hs(
-            q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS),
-            2 * SETS),
+        cuda_ms(decode(None), 2 * SETS),
         cuda_ms(lambda i: fa.flash_decode_int8_hs_plain(
-            q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS),
-            SETS),
-        None, nbytes, flops,
-        {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16 q, int8 cache",
-         "extent": ext, "input_sets": SETS,
-         "dequant_sdpa_ms": cuda_ms(dequant_sdpa, 2 * SETS)})
-    return row
+            q, kq, ks, vq, vs, valid, scale, extent=ext, layer=i % SETS,
+            p_dtype=bf), SETS),
+        None, nbytes, flops, extra)
 
 
 def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,

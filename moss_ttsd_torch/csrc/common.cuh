@@ -1,5 +1,5 @@
-// Shared helpers for the attention kernels (flash_prefill.cu,
-// flash_decode.cu, flash_decode_int8.cu).
+// Shared helpers for the attention kernels (flash_prefill.cu and the
+// split-K decode of decode_split.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +20,7 @@ constexpr float L_FLOOR = 1e-30f;
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { static constexpr int N = 4; };
 template <> struct Vec16<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec16<int8_t> { static constexpr int N = 16; };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -35,6 +36,11 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T's precision (the identity for float).
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
 // Unpack one 16-byte vector at p (16-byte aligned) into floats.
 __device__ __forceinline__ void unpack16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -48,6 +54,17 @@ __device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* out) {
     const float2 f = __bfloat1622float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)   // sign-extend byte e of word i
+      out[4 * i + e] = static_cast<float>(
+          static_cast<int>(static_cast<unsigned>(w[i]) << (24 - 8 * e)) >> 24);
   }
 }
 
@@ -69,6 +86,46 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {   // 2-byte aligned
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+
+// One key tile's online-softmax step, one warp per head (heads warp,
+// warp + nwarp, ...). The tile's scores P[g * BK + r] (-inf where masked)
+// become the probabilities that P.V reads: e^(s - m_new), times vscale[r]
+// where given (an int8 cache's v scales), rounded to T once here, as the
+// TPU kernels round them before P.V (p.astype(v.dtype) over a bf16 cache,
+// (p * vs).astype(q.dtype) over an int8 one). The denominator sums the
+// unrounded, unscaled e^(s - m_new). M and L carry the running max and
+// denominator of each head; A takes the tile's rescale e^(m_old - m_new).
+template <typename T, int BK>
+__device__ __forceinline__ void softmax_tile(float* P, float* M, float* L,
+                                             float* A, int G,
+                                             const float* vscale) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int g = warp; g < G; g += blockDim.x / 32) {
+    float* pg = P + g * BK;
+    float mx = -INFINITY;
+    for (int r = lane; r < BK; r += 32) mx = fmaxf(mx, pg[r]);
+    mx = warp_max(mx);
+    const float m_old = M[g];
+    const float m_new = fmaxf(m_old, mx);
+    float sum = 0.f;
+    for (int r = lane; r < BK; r += 32) {
+      const float p = expf(pg[r] - m_new);   // masked: exp(-inf) = 0
+      pg[r] = round_to<T>(vscale != nullptr ? p * vscale[r] : p);
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      const float alpha = expf(m_old - m_new);
+      A[g] = alpha;
+      L[g] = L[g] * alpha + sum;
+      M[g] = m_new;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -106,8 +163,9 @@ __device__ __forceinline__ bool split_arrive_last(int* counter, int n_split) {
 //   out = sum_s w_s acc_s / max(sum_s w_s l_s, L_FLOOR),
 // 0 for a head row with no valid key in any chunk. The (m, l) of all chunks
 // are read at once into `scratch` (2 * n_split * G + G floats of shared
-// memory), then every output sums its n_split partials with independent
-// loads. Partials written by other blocks are read through L2 (__ldcg).
+// memory), then every output sums its non-empty partials with independent
+// loads (eight in flight). Partials written by other blocks are read
+// through L2 (__ldcg).
 template <typename T>
 __device__ void split_merge(const float* acc, const float* ml, int n_split,
                             int G, int D, T* out, long long so_h,
@@ -136,12 +194,13 @@ __device__ void split_merge(const float* acc, const float* ml, int n_split,
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D, d = i % D;
     float o = 0.f;
-#pragma unroll 4
+#pragma unroll 8
     for (int s = 0; s < n_split; ++s) {
-      // an empty chunk's sums were never written: its weight 0 drops them
-      const float a = __ldcg(acc + ((long long)s * G + g) * D + d);
+      // an empty chunk's sums were never written: it is not read (the test
+      // is uniform across the threads of a head)
       const float ws = w[s * G + g];
-      o = ws > 0.f ? fmaf(ws, a, o) : o;
+      if (ws > 0.f)
+        o = fmaf(ws, __ldcg(acc + ((long long)s * G + g) * D + d), o);
     }
     out[g * so_h + d] = from_float<T>(o * inv[g]);
   }

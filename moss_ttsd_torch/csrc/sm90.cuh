@@ -39,6 +39,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
                : "memory");
 }
+// 4-byte copy (through L1: cp.async takes less than 16 bytes only as .ca);
+// pred false writes 4 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+                   "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

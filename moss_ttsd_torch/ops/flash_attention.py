@@ -11,15 +11,19 @@ Ports the three TPU kernels of ``moss_ttsd_tpu/ops/pallas_attention.py``:
                                cache (CUDA: ``csrc/flash_decode.cu``, chunks
                                from ``decode_split_plan``);
   * ``flash_decode_int8_hs`` — the same decode over an int8 cache with fp32
-                               per-head-per-token scales
-                               (CUDA: ``csrc/flash_decode_int8.cu``).
+                               per-head-per-token scales, split-K as well
+                               (CUDA: ``csrc/flash_decode_int8.cu``; both
+                               decodes are ``csrc/decode_split.cuh``'s
+                               kernel over their cache type).
 
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain PyTorch version beside it, which is also the
-kernel's oracle on the card. Both compute the softmax in fp32 and give 0 for
-a query row with no valid key (the TPU kernels' finite ``NEG_INF`` /
-``max(l, 1e-30)`` contract keeps such rows finite; the port pins their value
-to 0 so kernel and plain version agree on every row).
+kernel's oracle on the card. Both compute the softmax in fp32, round the
+probabilities to q's type before P.V as the TPU kernels do (bf16; the
+plain versions take it as ``p_dtype``), and give 0 for a query row with no
+valid key (the TPU kernels' finite ``NEG_INF`` / ``max(l, 1e-30)`` contract
+keeps such rows finite; the port pins their value to 0 so kernel and plain
+version agree on every row).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 shared libraries with a plain C interface (loaded with ``ctypes``), cached
@@ -138,8 +142,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                        + [LL] * 11 + [P])
     else:
         fn = lib.moss_flash_decode_int8
-        fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F]
-                       + [LL] * 15 + [P])
+        fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I,
+                        P, P, P] + [LL] * 15 + [P])
     fn.restype = I
 
 
@@ -209,9 +213,17 @@ def _masked_softmax_pv(s, mask, v, pv_eq, p_dtype=None):
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_INF)   # finite when empty
     p = torch.exp(s - m)                                    # masked -> 0
     l = p.sum(dim=-1, keepdim=True).clamp_min(_L_FLOOR)
-    if p_dtype is not None:
-        p = p.to(p_dtype).float()
-    return torch.einsum(pv_eq, p / l, v)
+    return torch.einsum(pv_eq, _p_for_pv(p, None, p_dtype) / l, v)
+
+
+def _p_for_pv(p, vscale, p_dtype):
+    """The probabilities that P.V reads: p times an int8 cache's v scales
+    where given, then rounded to ``p_dtype`` (None keeps fp32), as the
+    kernels and the TPU kernels round them (``p.astype(v.dtype)``,
+    ``(p * vs).astype(q.dtype)``); the denominator sums p unrounded."""
+    if vscale is not None:
+        p = p * vscale
+    return p if p_dtype is None else p.to(p_dtype).float()
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,7 +236,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned) and fp32 the SIMT kernel (head_dim in ``HEAD_DIMS``); any other
     bf16 shape raises."""
     if q.device.type != "cuda":
-        return flash_prefill_plain(q, k, v, key_valid, scale)
+        return flash_prefill_plain(q, k, v, key_valid, scale,
+                                   p_dtype=q.dtype)
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or H % Hkv:
@@ -338,27 +351,117 @@ def _arrival_counters(device: torch.device, stream: int) -> torch.Tensor:
     return c
 
 
-def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
-                          vt: torch.Tensor, key_valid: torch.Tensor,
-                          scale: float, extent=None, layer=None,
-                          out_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
-    """Plain version of ``flash_decode_hs``: dense masked softmax in fp32
-    over the slots below the extent."""
-    if layer is not None:
-        kt, vt = kt[int(layer)], vt[int(layer)]
+class _SplitLaunch:
+    """The split-K arguments of one decode launch: the plan ``split`` =
+    (n_split, chunk), or ``decode_split_plan``'s, checked; for n_split > 1
+    the fp32 partials' workspace (held here until the launch is queued) and
+    the stream's ticket counters. ``args`` = (chunk, n_split, ws_acc,
+    ws_ml, counters), null pointers unsplit."""
+
+    def __init__(self, device, stream, B, Hkv, S, G, D, split, what):
+        n_split, chunk = split or decode_split_plan(B, Hkv, S,
+                                                    sm_count(device))
+        if (chunk <= 0 or chunk % DECODE_TILE or n_split < 1
+                or n_split * chunk < S):
+            raise ValueError(f"{what}: split {(n_split, chunk)} does not "
+                             f"cover {S} slots in chunks of 64-slot tiles")
+        self.ws = None
+        self.args = (chunk, n_split, None, None, None)
+        if n_split > 1:
+            parts = B * Hkv * n_split * G
+            self.ws = torch.empty(parts * (D + 2), dtype=torch.float32,
+                                  device=device)
+            c = _arrival_counters(device, stream)
+            if B * Hkv > c.numel():
+                raise ValueError(f"{what}: a split over {B} x {Hkv} rows x "
+                                 f"kv-heads needs more than the {c.numel()} "
+                                 "ticket counters (one per SM)")
+            self.args = (chunk, n_split, self.ws.data_ptr(),
+                         self.ws[parts * D:].data_ptr(), c.data_ptr())
+
+
+def _decode_scores(q, k, key_valid, scale, extent, ks=None):
+    """(B, Hkv, G, S) fp32 scores of a single-query decode as the kernels
+    form them, (q . k) * scale, or over an int8 cache (q . kq) *
+    (ks * scale); -inf at the slots that are not valid or lie at or past
+    the extent."""
     B, _, H, D = q.shape
-    Hkv, S = kt.shape[1], kt.shape[2]
-    G = H // Hkv
-    qg = q[:, 0].float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, kt.float()) * scale
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q[:, 0].float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
+    s = s * scale if ks is None else s * (ks.float() * scale)[:, :, None, :]
     mask = key_valid
     ext = _extent_mask(extent, B, S, q.device)
     if ext is not None:
         mask = mask & ext
-    out = _masked_softmax_pv(s, mask[:, None, None, :], vt.float(),
-                             "bhgs,bhsd->bhgd")
-    return out.reshape(B, 1, H, D).to(out_dtype or q.dtype)
+    return s.masked_fill(~mask[:, None, None, :], float("-inf"))
+
+
+def _softmax_sums(s, v, vscale, p_dtype):
+    """Max m, denominator l = sum e^(s - m) and unnormalised sum acc =
+    sum_s p_s v_s (P as ``_p_for_pv`` makes it) of masked decode scores s
+    (B, Hkv, G, S') over v (B, Hkv, S', D); m = NEG_INF, l = 0 when no
+    score is valid."""
+    m = s.amax(dim=-1).clamp_min(_NEG_INF)          # finite when empty
+    p = torch.exp(s - m[..., None])                 # masked -> 0
+    acc = torch.einsum("bhgs,bhsd->bhgd", _p_for_pv(p, vscale, p_dtype),
+                       v.float())
+    return m, p.sum(dim=-1), acc
+
+
+def _decode_dense(q, k, v, ks, vs, key_valid, scale, extent, p_dtype,
+                  out_dtype):
+    s = _decode_scores(q, k, key_valid, scale, extent, ks)
+    vscale = None if vs is None else vs.float()[:, :, None, :]
+    _, l, acc = _softmax_sums(s, v, vscale, p_dtype)
+    out = acc / l.clamp_min(_L_FLOOR)[..., None]
+    return out.reshape(q.shape).to(out_dtype or q.dtype)
+
+
+def _decode_split(q, k, v, ks, vs, key_valid, scale, extent, n_split, chunk,
+                  p_dtype, out_dtype):
+    """The split-K kernel's arithmetic (see flash_decode_hs_split_plain),
+    over a cache of q's type (ks = vs = None) or an int8 one."""
+    S = k.shape[2]
+    if chunk is None:
+        tiles = -(-S // DECODE_TILE)
+        chunk = -(-tiles // n_split) * DECODE_TILE
+    s = _decode_scores(q, k, key_valid, scale, extent, ks)
+    vscale = None if vs is None else vs.float()[:, :, None, :]
+    ms, ls, accs = [], [], []
+    # a chunk past the capacity is empty: weight 0 in the merge, left out
+    for c0 in range(0, min(n_split * chunk, S), chunk):
+        sl = slice(c0, c0 + chunk)
+        m, l, acc = _softmax_sums(s[..., sl], v[:, :, sl],
+                                  None if vscale is None else vscale[..., sl],
+                                  p_dtype)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m_s, l_s, acc_s = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = l_s > 0
+    m = torch.where(live, m_s, _NEG_INF).amax(dim=0)
+    w = torch.where(live, torch.exp(m_s - m), 0.0)
+    l = (w * l_s).sum(dim=0).clamp_min(_L_FLOOR)
+    out = (w[..., None] * acc_s).sum(dim=0) / l[..., None]
+    return out.reshape(q.shape).to(out_dtype or q.dtype)
+
+
+def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
+                          vt: torch.Tensor, key_valid: torch.Tensor,
+                          scale: float, extent=None, layer=None,
+                          out_dtype: Optional[torch.dtype] = None,
+                          p_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Plain version of ``flash_decode_hs``: dense masked softmax in fp32
+    over the slots below the extent. ``p_dtype`` rounds the probabilities
+    to that dtype before the P.V product (the denominator sums them in
+    fp32), as the bf16 kernel and the TPU kernel's ``p.astype(v.dtype)``
+    do; None keeps them fp32."""
+    if layer is not None:
+        kt, vt = kt[int(layer)], vt[int(layer)]
+    return _decode_dense(q, kt, vt, None, None, key_valid, scale, extent,
+                         p_dtype, out_dtype)
 
 
 def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
@@ -366,51 +469,22 @@ def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
                                 scale: float, extent=None, layer=None,
                                 n_split: int = 1,
                                 chunk: Optional[int] = None,
-                                out_dtype: Optional[torch.dtype] = None
+                                out_dtype: Optional[torch.dtype] = None,
+                                p_dtype: Optional[torch.dtype] = None
                                 ) -> torch.Tensor:
     """The split-K arithmetic of the ``flash_decode_hs`` kernel in plain
     torch (for the tests and the card's checks): per chunk of ``chunk``
     slots (default: the 64-slot tiles dealt evenly over ``n_split``) the
-    running max m, denominator l and unnormalised sum acc, an empty chunk
-    (m = NEG_INF, l = 0) past the extent or with no valid key; then the
-    kernel's merge, out = sum e^(m_s - m) acc_s / max(sum e^(m_s - m) l_s,
-    1e-30) with m the max over non-empty chunks."""
+    running max m, denominator l and unnormalised sum acc (P rounded to
+    ``p_dtype`` as in ``flash_decode_hs_plain``, against the chunk's max),
+    an empty chunk (m = NEG_INF, l = 0) past the extent or with no valid
+    key; then the kernel's merge, out = sum e^(m_s - m) acc_s /
+    max(sum e^(m_s - m) l_s, 1e-30) with m the max over non-empty
+    chunks."""
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
-    B, _, H, D = q.shape
-    Hkv, S = kt.shape[1], kt.shape[2]
-    G = H // Hkv
-    if chunk is None:
-        tiles = -(-S // DECODE_TILE)
-        chunk = -(-tiles // n_split) * DECODE_TILE
-    qg = q[:, 0].float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, kt.float()) * scale
-    mask = key_valid
-    ext = _extent_mask(extent, B, S, q.device)
-    if ext is not None:
-        mask = mask & ext
-    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-    ms, ls, accs = [], [], []
-    for c0 in range(0, n_split * chunk, chunk):
-        sc = s[..., c0:c0 + chunk]
-        if sc.shape[-1] == 0:                       # past the capacity
-            ms.append(torch.full(s.shape[:-1], _NEG_INF, device=q.device))
-            ls.append(torch.zeros(s.shape[:-1], device=q.device))
-            accs.append(torch.zeros((B, Hkv, G, D), device=q.device))
-            continue
-        m = sc.amax(dim=-1).clamp_min(_NEG_INF)
-        p = torch.exp(sc - m[..., None])            # masked -> 0
-        ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bhgs,bhsd->bhgd", p,
-                                 vt[:, :, c0:c0 + chunk].float()))
-    m_s, l_s, acc_s = torch.stack(ms), torch.stack(ls), torch.stack(accs)
-    live = l_s > 0
-    m = torch.where(live, m_s, _NEG_INF).amax(dim=0)
-    w = torch.where(live, torch.exp(m_s - m), 0.0)
-    l = (w * l_s).sum(dim=0).clamp_min(_L_FLOOR)
-    out = (w[..., None] * acc_s).sum(dim=0) / l[..., None]
-    return out.reshape(B, 1, H, D).to(out_dtype or q.dtype)
+    return _decode_split(q, kt, vt, None, None, key_valid, scale, extent,
+                         n_split, chunk, p_dtype, out_dtype)
 
 
 def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
@@ -429,15 +503,17 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     the cache into ``split`` = (n_split, chunk), by default
     ``decode_split_plan``'s; the fp32 partials go to a workspace allocated
     here, and the last block of each (row, kv-head) merges them in the same
-    launch. On the CPU a given ``split`` runs the plain split arithmetic."""
+    launch. On the CPU a given ``split`` runs the plain split arithmetic.
+    P is rounded to q's type before P.V, on the card and on the CPU."""
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
     if q.device.type != "cuda":
         if split is not None:
-            return flash_decode_hs_split_plain(q, kt, vt, key_valid, scale,
-                                               extent, n_split=split[0],
-                                               chunk=split[1])
-        return flash_decode_hs_plain(q, kt, vt, key_valid, scale, extent)
+            return flash_decode_hs_split_plain(
+                q, kt, vt, key_valid, scale, extent, n_split=split[0],
+                chunk=split[1], p_dtype=q.dtype)
+        return flash_decode_hs_plain(q, kt, vt, key_valid, scale, extent,
+                                     p_dtype=q.dtype)
     B, one, H, D = q.shape
     Hkv, S = kt.shape[1], kt.shape[2]
     if (one != 1 or kt.shape != (B, Hkv, S, D) or vt.shape != kt.shape
@@ -453,30 +529,15 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S,
                                       "flash_decode_hs")
     G = H // Hkv
-    n_split, chunk = split or decode_split_plan(B, Hkv, S, sm_count(q.device))
-    if chunk <= 0 or chunk % DECODE_TILE or n_split < 1 or n_split * chunk < S:
-        raise ValueError(f"flash_decode_hs: split {(n_split, chunk)} does not "
-                         f"cover {S} slots in chunks of 64-slot tiles")
     lib = build_kernels()["flash_decode"]
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ws_acc = ws_ml = counters = None
-    if n_split > 1:
-        parts = B * Hkv * n_split * G
-        ws = torch.empty(parts * (D + 2), dtype=torch.float32,
-                         device=q.device)
-        ws_acc, ws_ml = ws.data_ptr(), ws[parts * D:].data_ptr()
-        c = _arrival_counters(q.device, stream)
-        if B * Hkv > c.numel():
-            raise ValueError(f"flash_decode_hs: a split over {B} x {Hkv} rows "
-                             f"x kv-heads needs more than the {c.numel()} "
-                             "ticket counters (one per SM)")
-        counters = c.data_ptr()
+    sp = _SplitLaunch(q.device, stream, B, Hkv, S, G, D, split,
+                      "flash_decode_hs")
     rc = lib.moss_flash_decode(
         _DTYPE_CODE[q.dtype], q.data_ptr(), kt.data_ptr(), vt.data_ptr(),
         key_valid.data_ptr(), ext_ptr, ext_scalar, out.data_ptr(),
-        B, Hkv, G, S, D, float(scale), chunk, n_split, ws_acc, ws_ml,
-        counters, q.stride(0), q.stride(2),
+        B, Hkv, G, S, D, float(scale), *sp.args, q.stride(0), q.stride(2),
         kt.stride(0), kt.stride(1), kt.stride(2),
         vt.stride(0), vt.stride(1), vt.stride(2), key_valid.stride(0),
         out.stride(0), out.stride(2), stream)
@@ -492,37 +553,67 @@ def flash_decode_int8_hs_plain(q: torch.Tensor, kq: torch.Tensor,
                                ks: torch.Tensor, vq: torch.Tensor,
                                vs: torch.Tensor, key_valid: torch.Tensor,
                                scale: float, extent=None, layer=None,
-                               out_dtype: Optional[torch.dtype] = None
+                               out_dtype: Optional[torch.dtype] = None,
+                               p_dtype: Optional[torch.dtype] = None
                                ) -> torch.Tensor:
-    """Plain version of ``flash_decode_int8_hs``: dequantize in fp32, then
-    the dense masked softmax of ``flash_decode_hs_plain``."""
+    """Plain version of ``flash_decode_int8_hs``: the dense masked softmax
+    of ``flash_decode_hs_plain`` in fp32 with the scales folded around the
+    two products as the kernel folds them: scores (q . kq) * (ks * scale),
+    then P.V over the int8 rows with p * vs, rounded to ``p_dtype`` when
+    given (the TPU kernel's ``(p * vs).astype(q.dtype)``)."""
     if layer is not None:
         kq, ks, vq, vs = (t[int(layer)] for t in (kq, ks, vq, vs))
-    k = kq.float() * ks.float()[..., None]
-    v = vq.float() * vs.float()[..., None]
-    return flash_decode_hs_plain(q, k, v, key_valid, scale, extent,
-                                 out_dtype=out_dtype or q.dtype)
+    return _decode_dense(q, kq, vq, ks, vs, key_valid, scale, extent,
+                         p_dtype, out_dtype)
+
+
+def flash_decode_int8_hs_split_plain(q: torch.Tensor, kq: torch.Tensor,
+                                     ks: torch.Tensor, vq: torch.Tensor,
+                                     vs: torch.Tensor,
+                                     key_valid: torch.Tensor, scale: float,
+                                     extent=None, layer=None,
+                                     n_split: int = 1,
+                                     chunk: Optional[int] = None,
+                                     out_dtype: Optional[torch.dtype] = None,
+                                     p_dtype: Optional[torch.dtype] = None
+                                     ) -> torch.Tensor:
+    """The split-K arithmetic of the ``flash_decode_int8_hs`` kernel in
+    plain torch: ``flash_decode_hs_split_plain``'s chunks and merge, with
+    the scores and P.V of ``flash_decode_int8_hs_plain``."""
+    if layer is not None:
+        kq, ks, vq, vs = (t[int(layer)] for t in (kq, ks, vq, vs))
+    return _decode_split(q, kq, vq, ks, vs, key_valid, scale, extent,
+                         n_split, chunk, p_dtype, out_dtype)
 
 
 def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                          vq: torch.Tensor, vs: torch.Tensor,
                          key_valid: torch.Tensor, scale: float,
                          extent: Union[None, int, torch.Tensor] = None,
-                         layer: Optional[int] = None) -> torch.Tensor:
+                         layer: Optional[int] = None,
+                         split: Optional[Tuple[int, int]] = None
+                         ) -> torch.Tensor:
     """Single-query GQA decode attention over an int8 KV cache.
 
     q (B, 1, H, D) fp32/bf16; kq/vq (B, Hkv, S, D) int8 and ks/vs
     (B, Hkv, S) fp32 per-head-per-token scales (k ~ kq * ks[..., None]), or
     the full (L, ...) stacks with ``layer`` (free views, never copied);
     key_valid (B, S) bool; ``extent`` as in ``flash_decode_hs``. The k scale
-    multiplies the score column and the v scale the probability row, so the
-    kernel reads the int8 rows as they are. Returns (B, 1, H, D) in
-    q.dtype."""
+    multiplies the score column and the v scale the probability row (p * vs
+    rounded to q's type before P.V), so the kernel reads the int8 rows as
+    they are. Returns (B, 1, H, D) in q.dtype. On the card the kernel is
+    split-K over the cache as ``flash_decode_hs``'s (``split``, by default
+    ``decode_split_plan``'s); on the CPU a given ``split`` runs the plain
+    split arithmetic."""
     if layer is not None:
         kq, ks, vq, vs = (t[int(layer)] for t in (kq, ks, vq, vs))
     if q.device.type != "cuda":
+        if split is not None:
+            return flash_decode_int8_hs_split_plain(
+                q, kq, ks, vq, vs, key_valid, scale, extent,
+                n_split=split[0], chunk=split[1], p_dtype=q.dtype)
         return flash_decode_int8_hs_plain(q, kq, ks, vq, vs, key_valid, scale,
-                                          extent)
+                                          extent, p_dtype=q.dtype)
     what = "flash_decode_int8_hs"
     B, one, H, D = q.shape
     Hkv, S = kq.shape[1], kq.shape[2]
@@ -543,13 +634,15 @@ def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     for name, t in (("kq", kq), ("vq", vq)):
         _check_rows_16b(t, what, name)
     ext_ptr, ext_scalar = _extent_arg(extent, B, q.device, S, what)
+    G = H // Hkv
     lib = build_kernels()["flash_decode_int8"]
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    sp = _SplitLaunch(q.device, stream, B, Hkv, S, G, D, split, what)
     rc = lib.moss_flash_decode_int8(
         _DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), key_valid.data_ptr(), ext_ptr,
-        ext_scalar, out.data_ptr(), B, Hkv, H // Hkv, S, D, float(scale),
+        ext_scalar, out.data_ptr(), B, Hkv, G, S, D, float(scale), *sp.args,
         q.stride(0), q.stride(2), kq.stride(0), kq.stride(1), kq.stride(2),
         ks.stride(0), ks.stride(1), vq.stride(0), vq.stride(1), vq.stride(2),
         vs.stride(0), vs.stride(1), key_valid.stride(0), out.stride(0),

@@ -210,15 +210,15 @@ def test_decode_kernel_at_every_split(cuda, dtype):
             fa.flash_decode_hs(q, kt, vt, valid, D ** -0.5, split=bad)
 
 
-def test_decode_split_on_two_streams_at_once(cuda):
-    """Split decodes running on two streams at the same time each take the
-    tickets of their own stream, so both merge only their own partials.
-    Only the first chunk lies below the extent: it walks its tiles while
-    the other chunks take their tickets at once, so tickets shared across
-    streams would let a block merge before the first chunk's partial is
-    written. Each stream first spins the card for ~50 ms, so that all the
-    launches are queued before either stream runs."""
-    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(
+def _two_streams_at_once(gen, int8):
+    """Split decodes (B2, or B3 with ``int8``) running on two streams at
+    the same time, each held to its plain version. Only the first chunk
+    lies below the extent: it walks its tiles while the other chunks take
+    their tickets at once, so tickets shared across streams would let a
+    block merge before the first chunk's partial is written. Each stream
+    first spins the card for ~50 ms, so that all the launches are queued
+    before either stream runs."""
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
         torch.bfloat16)
     B, S, H, Hkv, D = 1, 16384, 16, 8, 128
     n_split, chunk = fa.decode_split_plan(B, Hkv, S,
@@ -226,10 +226,16 @@ def test_decode_split_on_two_streams_at_once(cuda):
     assert n_split > 1 and chunk > 64
     valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
     valid[:, :chunk] = True
-    inputs = [(rn(B, 1, H, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D))
-              for _ in range(2)]
+    if int8:
+        inputs = [(rn(B, 1, H, D), *_int8_cache(gen, (B, Hkv, S, D)),
+                   *_int8_cache(gen, (B, Hkv, S, D))) for _ in range(2)]
+        kern, plain = fa.flash_decode_int8_hs, fa.flash_decode_int8_hs_plain
+    else:
+        inputs = [(rn(B, 1, H, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D))
+                  for _ in range(2)]
+        kern, plain = fa.flash_decode_hs, fa.flash_decode_hs_plain
     streams = [torch.cuda.Stream() for _ in range(2)]
-    fa.flash_decode_hs(*inputs[0], valid, D ** -0.5, extent=chunk)  # build
+    kern(*inputs[0], valid, D ** -0.5, extent=chunk)            # build
     for s in streams:
         s.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(s):
@@ -238,14 +244,26 @@ def test_decode_split_on_two_streams_at_once(cuda):
     for _ in range(20):
         for i, s in enumerate(streams):
             with torch.cuda.stream(s):
-                outs[i].append(fa.flash_decode_hs(*inputs[i], valid,
-                                                  D ** -0.5, extent=chunk))
+                outs[i].append(kern(*inputs[i], valid, D ** -0.5,
+                                    extent=chunk))
     torch.cuda.synchronize()
     for i in range(2):
-        ref = fa.flash_decode_hs_plain(*inputs[i], valid, D ** -0.5,
-                                       extent=chunk, out_dtype=torch.float32)
+        ref = plain(*inputs[i], valid, D ** -0.5, extent=chunk,
+                    out_dtype=torch.float32)
         for out in outs[i]:
             _close(out, ref, "bfloat16")
+
+
+def test_decode_split_on_two_streams_at_once(cuda):
+    """Split decodes on two streams at once each take the tickets of their
+    own stream, so both merge only their own partials."""
+    _two_streams_at_once(cuda, int8=False)
+
+
+def test_int8_decode_split_on_two_streams_at_once(cuda):
+    """The same for B3, which takes its tickets from the same per-stream
+    counters as B2."""
+    _two_streams_at_once(cuda, int8=True)
 
 
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
@@ -277,19 +295,140 @@ def test_int8_decode_kernel_matches_plain(cuda, dtype, Hkv):
     valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
     valid[0, :200] = True
     valid[1, 30:150] = True
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
     fa.reset_launch_counts()
     for ext in (200, torch.tensor([200, 150], dtype=torch.int32,
                                   device="cuda"), None, 1):
         out = fa.flash_decode_int8_hs(q, kq, ks, vq, vs, valid, D ** -0.5,
                                       extent=ext, layer=2)
-        ref = fa.flash_decode_int8_hs_plain(q, kq, ks, vq, vs, valid,
-                                            D ** -0.5, extent=ext, layer=2,
-                                            out_dtype=torch.float32)
-        _close(out, ref, dtype)
-    assert fa.launch_counts()["flash_decode_int8_hs"] == 4
+        args = (q, kq, ks, vq, vs, valid, D ** -0.5)
+        kw = dict(extent=ext, layer=2, out_dtype=torch.float32, p_dtype=dt)
+        _close(out, fa.flash_decode_int8_hs_plain(*args, **kw), dtype)
+        _close(out, fa.flash_decode_int8_hs_split_plain(
+            *args, n_split=n_split, chunk=chunk, **kw), dtype)
+    assert fa.launch_counts()["flash_decode_int8_hs"] == 4   # one a call
     empty = torch.zeros_like(valid)                  # no valid key at all
-    out = fa.flash_decode_int8_hs(q, kq[0], ks[0], vq[0], vs[0], empty,
-                                  D ** -0.5, extent=S)
+    for split in (None, (1, 384)):
+        out = fa.flash_decode_int8_hs(q, kq[0], ks[0], vq[0], vs[0], empty,
+                                      D ** -0.5, extent=S, split=split)
+        assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_decode_kernel_at_every_split(cuda, dtype):
+    """B3 at splits other than its plan (n_split 1 writes the output
+    directly; 2, 3 and one tile a chunk merge), extents on and off the
+    chunk boundaries, a chunk inside the extent with no valid key, against
+    the plain split arithmetic at the same split and the plain version; a
+    split that leaves slots uncovered raises."""
+    dt = getattr(torch, dtype)
+    B, S, H, Hkv, D = 2, 200, 16, 8, 128
+    q = torch.randn(B, 1, H, D, generator=cuda, device="cuda").to(dt)
+    kq, ks = _int8_cache(cuda, (B, Hkv, S, D))
+    vq, vs = _int8_cache(cuda, (B, Hkv, S, D))
+    valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    valid[0, :170] = True
+    valid[1, 130:180] = True
+    for split in ((1, 256), (2, 128), (3, 128), (4, 64)):
+        for extent in (None, 192, 128, [150, 1], [64, 190]):
+            ext = (torch.tensor(extent, dtype=torch.int32, device="cuda")
+                   if isinstance(extent, list) else extent)
+            vm = valid.clone()                   # none past the extent
+            if extent is not None:
+                e = torch.as_tensor(extent, device="cuda").expand(B)
+                vm &= torch.arange(S, device="cuda")[None] < e[:, None]
+            args = (q, kq, ks, vq, vs, vm, D ** -0.5)
+            kw = dict(extent=ext, out_dtype=torch.float32, p_dtype=dt)
+            out = fa.flash_decode_int8_hs(*args, extent=ext, split=split)
+            _close(out, fa.flash_decode_int8_hs_split_plain(
+                *args, n_split=split[0], chunk=split[1], **kw), dtype)
+            _close(out, fa.flash_decode_int8_hs_plain(*args, **kw), dtype)
+    for bad in ((3, 64), (2, 100), (0, 256)):
+        with pytest.raises(ValueError, match="split"):
+            fa.flash_decode_int8_hs(q, kq, ks, vq, vs, valid, D ** -0.5,
+                                    split=bad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_decode_split_boundaries(cuda, dtype):
+    """B3 at its plan's chunk boundaries: S 4096 and the long form's 1557,
+    extents exactly at and one past a chunk edge, a whole in-extent chunk
+    with no valid key, a row with no valid key, batch 8, a layer view of
+    the stack — against the plain version and the plain split arithmetic
+    at the kernel's plan."""
+    dt = getattr(torch, dtype)
+    H, Hkv, D = 16, 8, 128
+    sms = fa.sm_count(torch.device("cuda"))
+    for B, S in ((2, 4096), (1, 1557), (8, 633)):
+        n_split, chunk = fa.decode_split_plan(B, Hkv, S, sms)
+        assert n_split > 1 and B * Hkv * n_split >= sms
+        q = torch.randn(B, 1, H, D, generator=cuda, device="cuda").to(dt)
+        kq, ks = _int8_cache(cuda, (3, B, Hkv, S, D))
+        vq, vs = _int8_cache(cuda, (3, B, Hkv, S, D))
+        for lo, hi in ((0, chunk), (0, chunk + 1), (2 * chunk + 3, S - 7),
+                       (0, S), (0, 0)):
+            valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+            valid[0, lo:hi] = True
+            valid[1:, :max(hi, 1)] = True
+            ext = torch.full((B,), max(hi, 1), dtype=torch.int32,
+                             device="cuda")
+            args = (q, kq, ks, vq, vs, valid, D ** -0.5)
+            kw = dict(extent=ext, layer=2, out_dtype=torch.float32,
+                      p_dtype=dt)
+            out = fa.flash_decode_int8_hs(*args, extent=ext, layer=2)
+            _close(out, fa.flash_decode_int8_hs_plain(*args, **kw), dtype)
+            _close(out, fa.flash_decode_int8_hs_split_plain(
+                *args, n_split=n_split, chunk=chunk, **kw), dtype)
+            if hi == 0:
+                assert bool((out[0] == 0).all())
+
+
+def _decode_p_rounding_inputs(gen, B, S, H, Hkv, D):
+    """The decode form of ``_p_rounding_inputs`` (scores the row max on
+    even keys, 2^-10 below it on odd ones; v = +c / -c, c in [32, 64)), as
+    a bf16 cache (q, kt, vt) and as an int8 one (kq = kt, ks = 1, vq = 2 vt,
+    vs = 1/2: powers of two, so p * vs rounds as p does). With as many
+    valid even keys as odd, every row is exactly 0 with bf16 P and
+    ~c 2^-11 (>= 0.0156) with fp32 P."""
+    q = torch.zeros((B, 1, H, D), device="cuda")
+    q[..., 0], q[..., 1] = 1.0, 2.0 ** -10
+    kt = torch.zeros((B, Hkv, S, D), device="cuda")
+    kt[..., 0] = 1.0
+    kt[:, :, 1::2, 1] = -1.0
+    c = torch.randint(64, 128, (B, Hkv, 1, D), generator=gen, device="cuda")
+    c = c * (2 * torch.randint(0, 2, c.shape, generator=gen, device="cuda")
+             - 1)
+    vq = (c * (1 - 2 * (torch.arange(S, device="cuda") % 2))[:, None]
+          ).to(torch.int8)
+    ones = torch.ones((B, Hkv, S), device="cuda")
+    bf = torch.bfloat16
+    return {"hs": (q.to(bf), kt.to(bf), (vq.float() / 2).to(bf)),
+            "int8": (q.to(bf), kt.to(torch.int8), ones, vq, ones / 2)}
+
+
+@pytest.mark.parametrize("kind", ["hs", "int8"])
+def test_decode_bf16_rounds_p_like_the_tpu_kernel(cuda, kind):
+    """B2 rounds P, and B3 p * vs, to bf16 before P.V, as the TPU kernels
+    do: within 1e-3 + 2^-8 |ref| of the bf16-P plain version on inputs
+    where the rounding moves every row by >= 0.0156, which the fp32-P
+    plain version therefore misses."""
+    B, S = 2, 1557
+    args = _decode_p_rounding_inputs(cuda, B, S, 16, 8, 128)[kind]
+    valid = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    valid[:, 800:] = False                   # as many even keys as odd
+    valid[1, :6] = False
+    kern, plain = ((fa.flash_decode_hs, fa.flash_decode_hs_plain)
+                   if kind == "hs" else
+                   (fa.flash_decode_int8_hs, fa.flash_decode_int8_hs_plain))
+    out = kern(*args, valid, 1.0, extent=800).float()
+    excess = {}
+    for p_dtype in (torch.bfloat16, None):
+        ref = plain(*args, valid, 1.0, extent=800, out_dtype=torch.float32,
+                    p_dtype=p_dtype)
+        excess[p_dtype] = float(((out - ref).abs()
+                                 - 2.0 ** -8 * ref.abs()).max())
+    assert excess[torch.bfloat16] <= 1e-3 < excess[None]
     assert bool((out == 0).all())
 
 

@@ -264,6 +264,130 @@ def test_prefill_bf16_p_rounding_matches_jax_kernel_bf16():
     np.testing.assert_array_equal(ref[:, 1::2], 0.0)
 
 
+def decode_p_rounding_inputs(rng, B, S, H, Hkv, D):
+    """Decode inputs (for scale 1) on which rounding P before P.V decides
+    the output, as ``p_rounding_inputs``: scores are the row max (even
+    keys) or 2^-10 below it (odd keys); v is +c on even keys and -c on odd
+    ones, c in [32, 64). Returned as a bf16 cache (q, kt, vt) and as an int8
+    one (kq = kt, ks = 1; vq = 2 vt, vs = 1/2: powers of two, so the scales
+    blur nothing and p * vs rounds as p does). With as many valid even
+    keys as odd, every row is exactly 0 with bf16 P and c (1 - e^(-2^-10))
+    / (1 + e^(-2^-10)) ~ c 2^-11, at least 0.0156, with fp32 P."""
+    q = np.zeros((B, 1, H, D), np.float32)
+    q[..., 0], q[..., 1] = 1.0, 2.0 ** -10
+    kt = np.zeros((B, Hkv, S, D), np.float32)
+    kt[..., 0] = 1.0
+    kt[:, :, 1::2, 1] = -1.0
+    c = rng.integers(64, 128, (B, Hkv, 1, D)) * rng.choice([-1, 1],
+                                                          (B, Hkv, 1, D))
+    sign = np.where(np.arange(S) % 2 == 0, 1, -1)[None, None, :, None]
+    vq = (c * sign).astype(np.int8)
+    ones = np.ones((B, Hkv, S), np.float32)
+    return {"hs": (q, kt, vq.astype(np.float32) / 2),
+            "int8": (q, kt.astype(np.int8), ones, vq, ones / 2)}
+
+
+def _decode_kernels(kind, args, valid, scale, p_dtype):
+    """(the Pallas kernel in interpret mode at args' dtypes, the port's
+    plain version with ``p_dtype``) of the B2 ("hs") or B3 ("int8")
+    decode, both fp32 out."""
+    if kind == "hs":
+        q, kt, vt = args
+        bq, bk, bv = (T_(x).to(torch.bfloat16) for x in (q, kt, vt))
+        ref = jpa.flash_decode_hs(*(jnp.asarray(x, jnp.bfloat16)
+                                    for x in (q, kt, vt)),
+                                  jnp.asarray(valid), scale, block_k=32,
+                                  interpret=True)
+        out = fa.flash_decode_hs_plain(bq, bk, bv, T_(valid), scale,
+                                       out_dtype=torch.float32,
+                                       p_dtype=p_dtype)
+    else:
+        q, kq, ks, vq, vs = args
+        ref = jpa.flash_decode_int8_hs(
+            jnp.asarray(q, jnp.bfloat16), *(jnp.asarray(x) for x in
+                                            (kq, ks, vq, vs)),
+            jnp.asarray(valid), scale, block_k=32, interpret=True)
+        out = fa.flash_decode_int8_hs_plain(
+            T_(q).to(torch.bfloat16), T_(kq), T_(ks), T_(vq), T_(vs),
+            T_(valid), scale, out_dtype=torch.float32, p_dtype=p_dtype)
+    return np.asarray(ref.astype(jnp.float32)), out.numpy()
+
+
+@pytest.mark.parametrize("kind", ["hs", "int8"])
+def test_decode_bf16_p_plain_matches_jax_kernel_bf16(kind):
+    """The bf16-P decode plain versions (P, or p * vs over the int8 cache,
+    rounded to bf16 before P.V; the fp32 P summed into l) against the
+    Pallas decode kernels run in bf16 in interpret mode, on random inputs,
+    within 1e-2 + 2^-8 |ref|: the Pallas output is rounded to bf16 (half an
+    ulp, 2^-9 relative), and the two round P against different maxima (the
+    Pallas kernel its running max over 32-key blocks, the plain version the
+    row's), each within 2^-9 of p."""
+    rng = np.random.default_rng(41)
+    B, S, H, Hkv, D = 2, 96, 4, 2, 64
+    q, k, v = make_qkv(rng, B, 1, S, H, Hkv, D)
+    kt, vt = np.moveaxis(k, 2, 1).copy(), np.moveaxis(v, 2, 1).copy()
+    valid = np.ones((B, S), bool)
+    valid[1, :20] = False
+    if kind == "hs":
+        args = (q, kt, vt)
+    else:
+        kq, ks = (np.array(a) for a in jpa.quantize_kv(jnp.asarray(kt)))
+        vq, vs = (np.array(a) for a in jpa.quantize_kv(jnp.asarray(vt)))
+        args = (q, kq, ks, vq, vs)
+    ref, out = _decode_kernels(kind, args, valid, D ** -0.5, torch.bfloat16)
+    assert (np.abs(out - ref) - 2.0 ** -8 * np.abs(ref)).max() <= 1e-2
+
+
+@pytest.mark.parametrize("kind", ["hs", "int8"])
+def test_decode_bf16_p_rounding_matches_jax_kernel_bf16(kind):
+    """Where rounding P (p * vs over the int8 cache) to bf16 moves the
+    output (every row by >= 0.0156), the bf16-P decode plain versions agree
+    with the Pallas decode kernels run in bf16 within 1e-3 + 2^-8 |ref|, and
+    the fp32-P ones miss that tolerance."""
+    rng = np.random.default_rng(43)
+    B, S, H, Hkv, D = 2, 128, 4, 2, 64
+    args = decode_p_rounding_inputs(rng, B, S, H, Hkv, D)[kind]
+    valid = np.ones((B, S), bool)
+    valid[1, :6] = False                   # as many even keys as odd left
+    excess = {}
+    for p_dtype in (torch.bfloat16, None):
+        ref, out = _decode_kernels(kind, args, valid, 1.0, p_dtype)
+        excess[p_dtype] = (np.abs(out - ref) - 2.0 ** -8 * np.abs(ref)).max()
+    assert excess[torch.bfloat16] <= 1e-3 < excess[None]
+    np.testing.assert_array_equal(ref, 0.0)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "hs", "int8"])
+def test_cpu_wrappers_round_p_to_bf16(kind):
+    """On the CPU a bf16 call of each wrapper runs its plain version with
+    P rounded to bf16 (what the card's kernel and the TPU kernel compute),
+    and an fp32 call the fp32-P version."""
+    rng = np.random.default_rng(47)
+    B, S, H, Hkv, D = 2, 128, 4, 2, 64
+    q, kt, vt = decode_p_rounding_inputs(rng, B, S, H, Hkv, D)["hs"]
+    _, kq, ks, vq, vs = decode_p_rounding_inputs(rng, B, S, H, Hkv, D)["int8"]
+    valid = T_(np.ones((B, S), bool))
+    for dt in (torch.bfloat16, torch.float32):
+        tq, tk, tv = (T_(x).to(dt) for x in (q, kt, vt))
+        if kind == "prefill":
+            qp = tq.expand(B, S, H, D)
+            kp, vp = tk.transpose(1, 2), tv.transpose(1, 2)
+            out = fa.flash_prefill(qp, kp, vp, valid, 1.0)
+            ref = fa.flash_prefill_plain(qp, kp, vp, valid, 1.0, p_dtype=dt)
+        elif kind == "hs":
+            out = fa.flash_decode_hs(tq, tk, tv, valid, 1.0)
+            ref = fa.flash_decode_hs_plain(tq, tk, tv, valid, 1.0,
+                                           p_dtype=dt)
+        else:
+            i8 = (T_(kq), T_(ks), T_(vq), T_(vs))
+            out = fa.flash_decode_int8_hs(tq, *i8, valid, 1.0)
+            ref = fa.flash_decode_int8_hs_plain(tq, *i8, valid, 1.0,
+                                                p_dtype=dt)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        if kind != "prefill":              # every decode row: 0 with bf16 P
+            assert bool((out == 0).all()) == (dt == torch.bfloat16)
+
+
 def test_decode_wrapper_split_on_cpu_runs_split_plain():
     """On a CPU tensor, flash_decode_hs with a split runs the plain split
     arithmetic at that split."""

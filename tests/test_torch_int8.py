@@ -105,6 +105,69 @@ def test_int8_decode_plain_matches_jax_kernel(S, spans, extent, layer):
     np.testing.assert_array_equal(out[~rows], 0.0)
 
 
+SPLIT_S = 200        # 4 tiles of 64: chunk boundaries at 64, 128, 192
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, -(-SPLIT_S // 64)])
+def test_int8_decode_split_plain_matches_jax_kernel(n_split):
+    """The split-K arithmetic of the int8 decode kernel (per-chunk m, l,
+    acc with the scales folded around the two products, then the kernel's
+    merge) against the Pallas kernel in interpret mode, fp32, atol 2e-5:
+    scalar extents on and off chunk boundaries, per-row extents with one
+    row at 1, a chunk inside the extent with no valid key (row 1's keys
+    start at 130) and layer views of the (L, ...) stacks."""
+    rng = np.random.default_rng(19)
+    L, B, S, H, Hkv, D = 3, 2, SPLIT_S, 8, 4, 16
+    q, kq, ks, vq, vs = _int8_cache(rng, B, S, H, Hkv, D, L)
+    base = np.zeros((B, S), bool)
+    base[0, :170] = True
+    base[1, 130:180] = True
+    scale = D ** -0.5
+    pos = np.arange(S)
+    for extent in (None, 192, 128, 150, [150, 1], [64, 190]):
+        ext = np.full(B, S) if extent is None else np.broadcast_to(extent, B)
+        valid = base & (pos[None, :] < ext[:, None])   # none past the extent
+        if extent == [150, 1]:
+            valid[1, 0] = True
+        for lay in (0, 2):
+            kw = {} if extent is None else dict(
+                extent=jnp.asarray(extent, jnp.int32))
+            ref = np.asarray(jpa.flash_decode_int8_hs(
+                jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks),
+                jnp.asarray(vq), jnp.asarray(vs), jnp.asarray(valid), scale,
+                block_k=40, interpret=True, layer=jnp.int32(lay), **kw))
+            pext = (torch.tensor(extent, dtype=torch.int32)
+                    if isinstance(extent, list) else extent)
+            out = fa.flash_decode_int8_hs_split_plain(
+                T_(q), T_(kq), T_(ks), T_(vq), T_(vs), T_(valid), scale,
+                extent=pext, layer=lay, n_split=n_split).numpy()
+            # a row with no valid key: unspecified in the TPU kernel, 0 here
+            live = valid.any(axis=1)
+            np.testing.assert_allclose(out[live], ref[live], atol=2e-5)
+            np.testing.assert_array_equal(out[~live], 0.0)
+
+
+def test_int8_decode_wrapper_split_on_cpu_runs_split_plain():
+    """On a CPU tensor, flash_decode_int8_hs with a split runs the plain
+    split arithmetic at that split, which agrees with the dense plain
+    version to fp32 rounding."""
+    rng = np.random.default_rng(37)
+    q, kq, ks, vq, vs = _int8_cache(rng, 2, 150, 8, 4, 16)
+    valid = np.ones((2, 150), bool)
+    valid[:, 140:] = False
+    valid[1, :70] = False
+    args = tuple(T_(x) for x in (q, kq, ks, vq, vs, valid)) + (0.25,)
+    for n_split, chunk in ((1, 192), (2, 128), (3, 64)):
+        out = fa.flash_decode_int8_hs(*args, extent=140,
+                                      split=(n_split, chunk))
+        ref = fa.flash_decode_int8_hs_split_plain(*args, extent=140,
+                                                  n_split=n_split,
+                                                  chunk=chunk)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        np.testing.assert_allclose(out.numpy(), fa.flash_decode_int8_hs(
+            *args, extent=140).numpy(), atol=2e-6)
+
+
 # ---------------------------------------------------------------------------
 # The quantized LM
 # ---------------------------------------------------------------------------
