@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
   3. kernels vs plain — every kernel against its plain PyTorch version on
      the same inputs: the main path's and the long-form run's shapes, the
      edge cases (left padding, fully masked rows, ragged T and S, per-row
-     extents, extent 1, layer views, G 2 and 4), the bf16 prefill's
+     extents, extent 1, layer views, G 2 and 4), the voice-cloning run's
+     prefill (T 512, left pads 54 / 79 / 140) and decode (batch 3,
+     capacity 761: chunks of two tiles, first, mid-run and last extents),
+     the bf16 prefill's
      tensor-core tile edges, the bf16 rounding of P in the prefill and of
      P (p * vs over the int8 cache) in both decodes (held to the bf16-P
      plain version at a tolerance the fp32-P one misses), both split-K
@@ -18,20 +21,31 @@ Phases, each printing one JSON line:
      shapes (fp32, head_dim 16); which prefill kernel each dtype launches
      (the library's launch counts); quantize_kv on the card vs the CPU;
      reference — small fp32 models on the card vs the same on the CPU (LM
-     hidden states, greedy tokens of the bf16 and int8 engines, codec wav);
+     hidden states, greedy tokens of the bf16 and int8 engines, codec wav,
+     codec encode latents and codes);
   4. main path — TTSPipeline.process_batch at the full MOSS-TTSD-v0.5 width
      (LMConfig(), CodecConfig(), random weights from a seeded generator,
      bf16 LM and codec) over examples/examples_only_text.jsonl with
      max_new_tokens=256; launch counts must be 28 x prefills and 28 x steps;
   5. logits   — fp32-output vs bf16-rounded tied-head logits (time, error);
-  6. int8     — int8 serving at the same width, the weights quantized inside
+  6. clone    — voice cloning at the same width: TTSPipeline.process_batch
+     over the two voice items of examples/ (a two-speaker prompt, a
+     single-reference one) and a third whose prompt is a stereo 24 kHz
+     (wav, sr) tuple, so the native resampler runs; one batched codec
+     encode, prefill and decode launch counts, the native audio library
+     built and used, and a repeated single-voice batch served from the
+     prompt-encode LRU (its batch-1 codes against the voice's row of the
+     batched encode);
+  7. int8     — int8 serving at the same width, the weights quantized inside
      the engine: TTSPipeline(quant="int8"); the same with the restricted text
      head and its audit; the long-form engine (quant and kv_quant "int8",
      batch 1, 1500 steps) whose every decode step runs flash_decode_int8_hs;
-  7. cli      — the --tiny CLI on the card writes wavs (as it is, and with
-     --quant int8 --restricted_text_head);
-then the ``kernels`` line (times, bounds, launches; with ``--phases
-...,sweep`` also both decodes at other splits, ``split_sweep_ms``) and, last,
+  8. cli      — the --tiny CLIs on the card write wavs: inference as it is,
+     with --quant int8 --restricted_text_head, and cloning the voices of
+     examples/examples.jsonl; the codec round trip over examples/;
+then the ``kernels`` line (times, bounds, launches; flash_prefill and
+flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep`` also both decodes at
+other splits, ``split_sweep_ms``) and, last,
 the result line {"ok": true, "device": {...}}. Any failing phase exits
 non-zero with no result line. Without a CUDA device it exits 1 at once.
 """
@@ -48,7 +62,9 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-JSONL = os.path.join(ROOT, "examples", "examples_only_text.jsonl")
+EXAMPLES = os.path.join(ROOT, "examples")
+JSONL = os.path.join(EXAMPLES, "examples_only_text.jsonl")
+CLONE_JSONLS = ("examples.jsonl", "examples_single_reference.jsonl")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 2e-5}
@@ -360,6 +376,14 @@ def kernel_checks():
         # the two example items left-padded by 92 and 177 slots
         prefill_case(gen, "main", 2, 377, 16, 8, 128, bf, (92, 177)),
         prefill_case(gen, "main_fp32", 2, 377, 16, 8, 128, f32, (92, 177)),
+        # the voice-cloning run: the bucketed prompt of 512 rows (eight
+        # 64-row tiles) with the two voice items left-padded by 54 and 79
+        # slots, and the run's own prefill: batch 3, T = base 505 (the
+        # bucket less C - 1), the third item's 140 pads (two whole tiles)
+        prefill_case(gen, "clone", 2, 512, 16, 8, 128, bf, (54, 79)),
+        prefill_case(gen, "clone_fp32", 2, 512, 16, 8, 128, f32, (54, 79)),
+        prefill_case(gen, "clone_B3_T505", 3, 505, 16, 8, 128, bf,
+                     (54, 79, 140)),
         # ragged T (never a tile multiple), left padding, fully masked rows
         prefill_case(gen, "T1", 2, 1, 16, 8, 128, bf, (0, 1)),
         prefill_case(gen, "T7", 2, 7, 16, 8, 128, bf, (0, 3)),
@@ -422,6 +446,21 @@ def kernel_checks():
                     layer=27),
         decode_case(gen, "split_fp32_S4096", 2, 4096, 16, 8, 128, f32,
                     [(0, 3001), (1000, 3001)], 3001),
+        # the voice-cloning run: batch 3, capacity 761 (base 505 + 256
+        # steps; 6 chunks of two tiles), the three items left-padded by
+        # 54, 79 and 140 slots, layer views of the 28-layer stack; the
+        # first decode step's extent, the mid-run one, the last step's,
+        # and per-row extents
+        decode_case(gen, "clone", 3, 761, 16, 8, 128, bf,
+                    [(54, 633), (79, 633), (140, 633)], 633, layers=28,
+                    layer=27),
+        decode_case(gen, "clone_first_step", 3, 761, 16, 8, 128, bf,
+                    [(54, 506), (79, 506), (140, 506)], 506, layers=28,
+                    layer=0),
+        decode_case(gen, "clone_last_step", 3, 761, 16, 8, 128, bf,
+                    [(54, 761), (79, 761), (140, 761)], 761),
+        decode_case(gen, "clone_per_row_extent", 3, 761, 16, 8, 128, bf,
+                    [(54, 633), (79, 700), (140, 761)], [633, 700, 761]),
         # P rounded to bf16 before P.V, as the TPU kernel does
         decode_p_rounding_case(gen, "bf16_p_rounding", "flash_decode_hs", 2,
                                633, 16, 8, 128, 506),
@@ -579,15 +618,21 @@ def engine_state(eng, ids, mask, buf_steps: int):
     return eng, st, base, gen
 
 
-def decode_state(pipe, items):
-    """engine_state of the pipeline's batch of ``items``."""
+def decode_inputs(pipe, items):
+    """(engine, prompt ids, mask) of the pipeline's batch of text-only
+    ``items``."""
     from moss_ttsd_torch.pipeline import prompt as pp
     from moss_ttsd_torch.pipeline.batch import SYSTEM_PROMPT
     shifted = [pipe._assemble(pipe._prepare_text(it, False)[0], None,
                               SYSTEM_PROMPT) for it in items]
     batch, mask = pp.left_pad_batch(shifted, pipe.tokenizer.pad_token_id,
                                     pipe.lm_cfg.speech_pad_token)
-    return engine_state(pipe.engine, batch, mask, 256)
+    return pipe.engine, batch, mask
+
+
+def decode_state(pipe, items):
+    """engine_state of the pipeline's batch of text-only ``items``."""
+    return engine_state(*decode_inputs(pipe, items), 256)
 
 
 def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
@@ -607,6 +652,37 @@ def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
         torch.cuda.set_sync_debug_mode("default")
     n = sum("synchroniz" in str(x.message) for x in w)
     return n / max(st.step - start, 1)
+
+
+def in_path_prefill(eng, ids, mask, buf_steps: int = 256):
+    """engine_state of a (B, L, C) prompt, with every flash_prefill launch
+    of its prefill bracketed by CUDA events: the in-path device ms of each
+    call, at the path's own layouts and cache state. A spin kernel of about
+    1 ms runs before each bracket, so the device is still busy when the
+    host enqueues the start event, the kernel and the end event: the host's
+    launch gaps between them are not counted. Returns (engine_state,
+    {"median", "min", "max"} of the ms per call)."""
+    import torch
+    from moss_ttsd_torch.models import lm
+    orig, spans = lm.flash_prefill, []
+
+    def bracketed(*a, **kw):
+        torch.cuda._sleep(2_000_000)          # ~1 ms of device work
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    lm.flash_prefill = bracketed
+    try:
+        state = engine_state(eng, ids, mask, buf_steps)
+    finally:
+        lm.flash_prefill = orig
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in spans)
+    return state, {"median": ms[len(ms) // 2], "min": ms[0], "max": ms[-1]}
 
 
 def profile_decode(run, eng, st, base, gen, steps: int = 16):
@@ -712,12 +788,57 @@ def reference_check():
     wa = spt_cpu.decode(codes)["syn_wav_list"]
     wb = spt_gpu.decode(codes)["syn_wav_list"]
     codec_err = max(float(np.abs(a - b).max()) for a, b in zip(wa, wb))
-    ok = lm_err <= 1e-4 and codec_err <= 1e-4
+    enc = encode_reference(spt_cpu, spt_gpu)
+    ok = (lm_err <= 1e-4 and codec_err <= 1e-4 and enc["latent_max_abs_err"]
+          <= 1e-4 and enc["code_agreement"] >= 0.99)
     emit({"phase": "reference", "lm_hidden_max_abs_err": lm_err,
           "lm_tol": 1e-4, "greedy_token_match": tok_match,
-          "codec_wav_max_abs_err": codec_err, "codec_tol": 1e-4, "ok": ok})
+          "codec_wav_max_abs_err": codec_err, "codec_tol": 1e-4,
+          "codec_encode": enc, "ok": ok})
     if not ok:
         raise SystemExit("card vs CPU reference check failed")
+
+
+def prompt_voices():
+    """The examples' prompt voices as 16 kHz mono: voice_s1 + voice_s2
+    (the two-speaker prompt, 6 s) and voice_both (4 s)."""
+    import numpy as np
+    from moss_ttsd_torch.pipeline.jsonl import load_audio_data
+    return [load_audio_data({"speaker1": os.path.join(EXAMPLES, "voice_s1.wav"),
+                             "speaker2": os.path.join(EXAMPLES, "voice_s2.wav")}),
+            np.asarray(load_audio_data(os.path.join(EXAMPLES,
+                                                    "voice_both.wav")))]
+
+
+def encode_reference(spt_cpu, spt_gpu):
+    """The tiny fp32 codec encode of the examples' voices on the card vs the
+    CPU (TF32 off): the pre-RVQ latents of one padded window within 1e-4;
+    the codes identical, or at least 99 % equal, with the differing codes
+    (flips on near ties of the codebook distances) counted."""
+    import numpy as np
+    import torch
+    wavs = prompt_voices()
+    x = np.zeros((len(wavs), spt_cpu.chunk_samples), np.float32)
+    for b, w in enumerate(wavs):
+        x[b, :len(w)] = w
+    lens = np.array([len(w) for w in wavs])
+    with torch.no_grad():
+        lat = [spt.module._encode_latents(
+            torch.as_tensor(x, device=spt.device),
+            torch.as_tensor(lens, device=spt.device))[0].cpu()
+            for spt in (spt_cpu, spt_gpu)]
+    ca = spt_cpu.encode(wavs)["codes_list"]
+    cb = spt_gpu.encode(wavs)["codes_list"]
+    same = [a.shape == b.shape for a, b in zip(ca, cb)]
+    n_diff = sum(int((a != b).sum()) for a, b in zip(ca, cb)) \
+        if all(same) else None
+    n_all = sum(a.size for a in ca)
+    return {"latent_max_abs_err": float((lat[0] - lat[1]).abs().max()),
+            "latent_tol": 1e-4,
+            "code_shapes": [list(a.shape) for a in cb],
+            "codes_identical": n_diff == 0,
+            "codes_differing": n_diff,
+            "code_agreement": 0.0 if n_diff is None else 1 - n_diff / n_all}
 
 
 def main_path():
@@ -741,7 +862,8 @@ def main_path():
     if st["steps"] != 256:
         problems.append(f"decode ran {st['steps']} of 256 steps")
 
-    syncs = count_syncs_per_step(*decode_state(pipe, items))
+    state, prefill_ms = in_path_prefill(*decode_inputs(pipe, items))
+    syncs = count_syncs_per_step(*state)
     tm = pipe.timings
     line = {"phase": "main_path", "layers": L, "batch": st["batch"],
             "base": st["base"], "buf_steps": st["buf_steps"],
@@ -753,6 +875,7 @@ def main_path():
             "audio_s": audio_s, "rtf": audio_s / e2e_s,
             "wav_samples": wav_lens, "peak_mem_gib": peak / 2 ** 30,
             "host_syncs_per_step": syncs, "launches": counts,
+            "prefill_in_path_ms": prefill_ms,
             "ok": not problems, "problems": problems}
     emit(line)
     if problems:
@@ -761,7 +884,142 @@ def main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 6: int8 serving at the full width
+# phase 6: voice cloning at the full width
+# ---------------------------------------------------------------------------
+
+def clone_items():
+    """The two voice items of examples/ (a two-speaker prompt of voice_s1 +
+    voice_s2, a single-reference voice_both) and a third whose prompt is
+    voice_s1 as a stereo 24 kHz (wav, sr) tuple (channel 2 at half gain),
+    which the prompt loader resamples to 16 kHz."""
+    import numpy as np
+    from moss_ttsd_torch.ops.dsp import resample
+    from moss_ttsd_torch.utils.audio_io import read_wav
+    items = []
+    for name in CLONE_JSONLS:
+        with open(os.path.join(EXAMPLES, name)) as f:
+            items += [json.loads(line) for line in f if line.strip()]
+    w, sr = read_wav(os.path.join(EXAMPLES, "voice_s1.wav"))
+    w24 = resample(w[0], sr, 24000)
+    items.append({"text": items[0]["text"],
+                  "prompt_audio": (np.stack([w24, 0.5 * w24]), 24000),
+                  "prompt_text": "[S1]This is the first speaker reference "
+                                 "voice."})
+    return items
+
+
+def _spy(obj, name, record):
+    """Wrap ``obj.name`` so that each call appends (args, result) to
+    ``record``."""
+    orig = getattr(obj, name)
+
+    def call(*a, **kw):
+        out = orig(*a, **kw)
+        record.append((a, out))
+        return out
+
+    setattr(obj, name, call)
+
+
+def clone_phase():
+    """Voice cloning at the LMConfig() / CodecConfig() width (bf16 LM and
+    codec, seed 0, 256 steps): the three items of ``clone_items`` through
+    TTSPipeline.process_batch, counted as the main path is; then a repeated
+    single-voice batch, which must be served from the prompt-encode LRU."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils import native
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+
+    cfg, model, spt, sampling = full_width_parts()
+    pipe = TTSPipeline(MockTokenizer(), cfg, model, spt, sampling,
+                       bucket=128, device="cuda")
+    del model
+    encodes, generates = [], []
+    _spy(pipe.spt, "encode", encodes)
+    _spy(pipe.engine, "generate", generates)
+    items = clone_items()
+    native.reset_calls()
+    texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items)
+    L, C, steps = cfg.num_hidden_layers, cfg.channels, st["steps"]
+    problems, wav_lens, audio_s = audio_problems(texts, audio, steps, C)
+    codes = encodes[-1][1]["codes_list"]
+    want_shapes = [[8, 75], [8, 50], [8, 37]]
+    if [list(c.shape) for c in codes] != want_shapes:
+        problems.append(f"prompt codes {[c.shape for c in codes]}")
+    if not all(c.min() >= 0 and c.max() < spt.cfg.quantizer.codebook_size
+               for c in codes):
+        problems.append("prompt codes out of [0, codebook_size)")
+    prompt_s = sum(len(w) for w in encodes[-1][0][0]) / spt.input_sample_rate
+    want = {"flash_prefill": L, "flash_decode_hs": L * steps,
+            "flash_decode_int8_hs": 0}
+    if counts != want:
+        problems.append(f"launches {counts} != {want}")
+    if steps != 256:
+        problems.append(f"decode ran {steps} of 256 steps")
+    tm = pipe.timings.as_dict()
+    if not tm["tokenize_s"] > 0:
+        problems.append("tokenize_s is 0")
+    native_calls = dict(native.calls)
+    if not (native.available() and native.LIB_PATH.exists()
+            and native_calls["read_wav"] >= 3 and native_calls["resample"]):
+        problems.append(f"native library not built or not used: "
+                        f"{native.build_info} {native_calls}")
+
+    ids, mask = generates[-1][0][:2]
+    state, prefill_ms = in_path_prefill(pipe.engine, ids, mask)
+    syncs = count_syncs_per_step(*state)
+    del state
+
+    # a repeated single-voice batch: the first encodes (batch 1) and fills
+    # the LRU, the second takes its codes from it
+    single = items[1:2]
+    n_enc, n_gen = len(encodes), len(generates)
+    pipe.process_batch(single, max_new_tokens=8)
+    pipe.process_batch(single, max_new_tokens=8)
+    solo = encodes[n_enc][1]["codes_list"][0]
+    lru = {"encodes": [len(a[0]) for a, _ in encodes[n_enc:]],
+           "same_ids": bool(np.array_equal(generates[n_gen][0][0],
+                                           generates[n_gen + 1][0][0])),
+           "cached_voices": len(pipe._encode_cache)}
+    # the LRU's batch-1 codes against the same voice's row of the batch-3
+    # encode: bf16 GEMMs of another shape may flip codes on near ties
+    if solo.shape == codes[1].shape:
+        lru["solo_vs_batched_code_agreement"] = float(np.mean(solo == codes[1]))
+        lru["solo_vs_batched_first_stage"] = float(np.mean(solo[0]
+                                                           == codes[1][0]))
+    if lru["encodes"] != [1] or not lru["same_ids"]:
+        problems.append(f"prompt-encode LRU: {lru}")
+    if not lru.get("solo_vs_batched_code_agreement", 0.0) >= 0.85:
+        problems.append(f"solo vs batched encode of voice_both: {lru}")
+
+    line = {"phase": "clone", "layers": L, "batch": st["batch"],
+            "base": st["base"], "buf_steps": st["buf_steps"],
+            "left_pad": st["left_pad"], "steps": steps,
+            "prompt_codes": [list(c.shape) for c in codes],
+            "prompt_audio_s": prompt_s, "tokenize_s": tm["tokenize_s"],
+            "encode_rtf": prompt_s / tm["tokenize_s"],
+            "prefill_ms": st["prefill_s"] * 1e3,
+            "prefill_in_path_ms": prefill_ms,
+            "decode_s": st["decode_s"],
+            "decode_steps_per_s": steps / st["decode_s"],
+            "vocode_s": tm["vocode_s"], "e2e_s": e2e_s, "audio_s": audio_s,
+            "rtf": audio_s / e2e_s, "wav_samples": wav_lens,
+            "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": syncs,
+            "launches": counts, "native": {"lib": str(native.LIB_PATH),
+                                           "build": {k: native.build_info.get(k)
+                                                     for k in ("ok", "seconds")},
+                                           "calls": native_calls},
+            "lru": lru, "ok": not problems, "problems": problems}
+    emit(line)
+    if problems:
+        raise SystemExit(f"clone phase failed: {problems}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 7: int8 serving at the full width
 # ---------------------------------------------------------------------------
 
 def int8_pipeline_run(name, pipe, items):
@@ -920,95 +1178,175 @@ def logits_check(pipe):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the --tiny CLI on the card
+# phase 8: the --tiny CLIs on the card
 # ---------------------------------------------------------------------------
 
 def cli_check():
-    """The --tiny CLI on the card, as it is and with int8 serving."""
+    """The --tiny CLIs on the card: inference as it is, with int8 serving,
+    and cloning the voices of examples/examples.jsonl (one item, one wav);
+    the codec round trip over examples/ (three wavs and their metrics)."""
     out_dir = os.path.join(ROOT, "build", "chip_smoke_cli")
-    for extra in ([], ["--quant", "int8", "--restricted_text_head"]):
+    infer = [sys.executable, "-m", "moss_ttsd_torch.cli.inference", "--tiny",
+             "--max_new_tokens", "32", "--output_dir", out_dir]
+    runs = [
+        ("text", infer + ["--jsonl", JSONL], ["output_0.wav", "output_1.wav"]),
+        ("text_int8", infer + ["--jsonl", JSONL, "--quant", "int8",
+                               "--restricted_text_head"],
+         ["output_0.wav", "output_1.wav"]),
+        ("voice_clone", infer + ["--jsonl", os.path.join(EXAMPLES,
+                                                         "examples.jsonl")],
+         ["output_0.wav"]),
+        ("codec_roundtrip",
+         [sys.executable, "-m", "moss_ttsd_torch.cli.codec_roundtrip",
+          "--tiny", "--input_dir", EXAMPLES, "--output_dir", out_dir,
+          "--metrics", os.path.join(out_dir, "metrics.json")],
+         ["voice_both_recon.wav", "voice_s1_recon.wav",
+          "voice_s2_recon.wav"]),
+    ]
+    for name, cmd, want in runs:
         shutil.rmtree(out_dir, ignore_errors=True)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "moss_ttsd_torch.cli.inference",
-             "--jsonl", JSONL, "--tiny", "--max_new_tokens", "32",
-             "--output_dir", out_dir, *extra],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        wavs = sorted(f for f in os.listdir(out_dir) if f.endswith(".wav")) \
-            if os.path.isdir(out_dir) else []
-        ok = proc.returncode == 0 and len(wavs) == 2
-        emit({"phase": "cli", "flags": extra, "rc": proc.returncode,
-              "wavs": wavs, "seconds": time.perf_counter() - t0, "ok": ok,
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        wavs = [f for f in files if f.endswith(".wav")]
+        ok = proc.returncode == 0 and wavs == want
+        if name == "codec_roundtrip":
+            ok = ok and "metrics.json" in files
+        emit({"phase": "cli", "run": name, "flags": cmd[3:],
+              "rc": proc.returncode, "wavs": wavs,
+              "seconds": time.perf_counter() - t0, "ok": ok,
               "tail": proc.stdout.strip().splitlines()[-2:]})
         shutil.rmtree(out_dir, ignore_errors=True)
         if not ok:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            raise SystemExit(f"tiny CLI {extra} failed")
+            raise SystemExit(f"tiny CLI run {name} failed")
 
 
 # ---------------------------------------------------------------------------
 # kernels line: times at the main path's shapes, bounds, launches
 # ---------------------------------------------------------------------------
 
-def kernel_table(main, longform, checks, sweep=False):
-    """Times at the shapes of the runs that launch each kernel: the main
-    path's for flash_prefill and flash_decode_hs, the long-form run's for
-    flash_decode_int8_hs. Each timing rotates over ``SETS`` distinct input
-    sets (one per layer, as the decode step reads 28 layer caches in turn),
-    ~90-170 MB in all, so inputs come from HBM, not L2. Bounds count only
-    what the function must move and compute: the rows and slots that are
-    valid in the run's padding, below the extent. ``sweep``: the decode
-    also at other splits than its plan (``split_sweep_ms``)."""
+def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
+    """flash_prefill at (B, base, H, Hkv, D) bf16 with the run's left
+    padding: kernel, plain and SDPA ms over SETS rotated input sets, and
+    the bound. The left-padded query rows are 0 by contract and their keys
+    are masked, so the bound counts the valid rows and causal pairs only."""
     import torch
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
-    B, base, steps = main["batch"], main["base"], main["steps"]
-    S = base + main["buf_steps"]
-    H, Hkv, D, L = 16, 8, 128, main["layers"]
-    SETS = L
     bf = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(5)
     scale = D ** -0.5
-    pads = main["left_pad"]
-    rows = []
-
-    # prefill at (B, base, 16, 8, 128) with the run's left padding; the
-    # left-padded query rows are 0 by contract and their keys are masked
     ps = [tuple(_rand(gen, (B, base, n, D), bf) for n in (H, Hkv, Hkv))
           for _ in range(SETS)]
     valid = _left_pad_valid(B, base, pads)
     nv = int(valid.sum())
     pairs = sum((base - p) * (base - p + 1) // 2 for p in pads)
-    p_bytes = 2 * (B * base * H * D + nv * H * D + 2 * nv * Hkv * D) \
+    nbytes = 2 * (B * base * H * D + nv * H * D + 2 * nv * Hkv * D) \
         + valid.numel()
-    p_flops = 4 * D * H * pairs
+    flops = 4 * D * H * pairs
     mask = (torch.tril(torch.ones(base, base, dtype=torch.bool,
                                   device="cuda"))[None] & valid[:, None, :])
     psh = [tuple(x.transpose(1, 2) for x in t) for t in ps]
     lib = lambda i: F.scaled_dot_product_attention(
         *psh[i % SETS], attn_mask=mask[:, None], scale=scale,
         enable_gqa=True)
+    return {"ms": cuda_ms(lambda i: fa.flash_prefill(*ps[i % SETS], valid,
+                                                     scale), 2 * SETS),
+            "plain_ms": cuda_ms(lambda i: fa.flash_prefill_plain(
+                *ps[i % SETS], valid, scale), SETS),
+            "library_ms": cuda_ms(lib, 2 * SETS),
+            **_bound(nbytes, flops), "bytes": nbytes, "flops": flops}
+
+
+def kernel_table(main, longform, checks, clone=None, sweep=False):
+    """Times at the shapes of the runs that launch each kernel: the main
+    path's for flash_prefill and flash_decode_hs (and the clone run's,
+    when it ran), the long-form run's for flash_decode_int8_hs. Each
+    timing rotates over ``SETS`` distinct input sets (one per layer, as the
+    decode step reads 28 layer caches in turn), ~90-170 MB in all, so
+    inputs come from HBM, not L2. Bounds count only what the function must
+    move and compute: the rows and slots that are valid in the run's
+    padding, below the extent. ``sweep``: the decode also at other splits
+    than its plan (``split_sweep_ms``)."""
+    import torch
+    B, base, steps = main["batch"], main["base"], main["steps"]
+    H, Hkv, D, L = 16, 8, 128, main["layers"]
+    SETS = L
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pads = main["left_pad"]
+    rows = []
+
+    pt = prefill_times(gen, B, base, pads, H, Hkv, D, SETS)
+    extra = {"shape": [B, base, H, Hkv, D], "dtype": "bfloat16",
+             "left_pad": pads, "input_sets": SETS,
+             "in_path_ms": main["prefill_in_path_ms"]["median"],
+             "design": "wgmma m64n64k16 tensor-core tiles (S = Q K^T from "
+                       "shared memory, O += P V with bf16 P from registers), "
+                       "cp.async double-buffered K/V, one warpgroup per "
+                       "(64-query tile, q-head, row)",
+             "blocks": -(-base // 64) * H * B}
+    if clone is not None:
+        ct = prefill_times(gen, clone["batch"], clone["base"],
+                           clone["left_pad"], H, Hkv, D, SETS)
+        extra["clone"] = {
+            "shape": [clone["batch"], clone["base"], H, Hkv, D],
+            "left_pad": clone["left_pad"],
+            "launches": clone["launches"]["flash_prefill"],
+            "max_abs_err": checks["flash_prefill:clone_B3_T505"][
+                "max_abs_err"],
+            "in_path_ms": clone["prefill_in_path_ms"]["median"],
+            "blocks": -(-clone["base"] // 64) * H * clone["batch"], **ct}
     rows.append(_row(
         "flash_prefill", "moss_ttsd_torch/csrc/flash_prefill.cu",
         "moss_ttsd_tpu/ops/pallas_attention.py:426 (flash_prefill / "
         "_prefill_kernel)", main["launches"]["flash_prefill"],
-        checks["flash_prefill:main"],
-        cuda_ms(lambda i: fa.flash_prefill(*ps[i % SETS], valid, scale),
-                2 * SETS),
-        cuda_ms(lambda i: fa.flash_prefill_plain(*ps[i % SETS], valid,
-                                                 scale), SETS),
-        cuda_ms(lib, 2 * SETS), p_bytes, p_flops,
-        {"shape": [B, base, H, Hkv, D], "dtype": "bfloat16",
-         "left_pad": pads, "input_sets": SETS,
-         "design": "wgmma m64n64k16 tensor-core tiles (S = Q K^T from "
-                   "shared memory, O += P V with bf16 P from registers), "
-                   "cp.async double-buffered K/V, one warpgroup per "
-                   "(64-query tile, q-head, row)",
-         "blocks": -(-base // 64) * H * B}))
-    del ps, psh
+        checks["flash_prefill:main"], pt["ms"], pt["plain_ms"],
+        pt["library_ms"], pt["bytes"], pt["flops"], extra))
 
-    # decode at the mid-run extent over the full-capacity cache; only the
-    # valid slots below the extent are read by contract
+    dt = decode_times(gen, B, base, main["buf_steps"], steps, pads, H, Hkv,
+                      D, SETS, sweep)
+    if clone is not None:
+        ct = decode_times(gen, clone["batch"], clone["base"],
+                          clone["buf_steps"], clone["steps"],
+                          clone["left_pad"], H, Hkv, D, SETS, sweep)
+        dt["extra"]["clone"] = {
+            "launches": clone["launches"]["flash_decode_hs"],
+            "max_abs_err": checks["flash_decode_hs:clone"]["max_abs_err"],
+            "ms": ct["ms"], "plain_ms": ct["plain_ms"],
+            "library_ms": ct["library_ms"], **_bound(ct["bytes"], ct["flops"]),
+            "bytes": ct["bytes"], "flops": ct["flops"], **ct["extra"]}
+    rows.append(_row(
+        "flash_decode_hs", "moss_ttsd_torch/csrc/flash_decode.cu",
+        "moss_ttsd_tpu/ops/pallas_attention.py:203 (flash_decode_hs / "
+        "_decode_kernel)", main["launches"]["flash_decode_hs"],
+        checks["flash_decode_hs:main"], dt["ms"], dt["plain_ms"],
+        dt["library_ms"], dt["bytes"], dt["flops"],
+        {**dt["extra"], "design":
+         "split-K: the capacity cut into n_split chunks of whole 64-slot "
+         "tiles (decode_split_plan), one block per (chunk, kv-head, row), "
+         "cp.async "
+         "double-buffered tiles, the last block of each (kv-head, row) "
+         "merges the fp32 partials in the same launch"}))
+    if longform is not None:
+        rows.append(int8_decode_row(longform, checks, SETS, sweep))
+    emit({"kernels": rows})
+    return rows
+
+
+def decode_times(gen, B, base, buf_steps, steps, pads, H, Hkv, D, SETS,
+                 sweep=False):
+    """flash_decode_hs at a run's shapes: the full-capacity cache S = base +
+    buf_steps, the mid-run extent, the run's left padding; kernel, plain
+    and SDPA ms over SETS rotated input sets, the bytes and flops of the
+    valid slots below the extent (all the function must read), and the
+    kernel's plan. ``sweep``: also at other splits (``split_sweep_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from moss_ttsd_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    scale = D ** -0.5
+    S = base + buf_steps
     ext = base + (steps + 1) // 2
     n_split, chunk = fa.decode_split_plan(B, Hkv, S,
                                           fa.sm_count(torch.device("cuda")))
@@ -1019,39 +1357,25 @@ def kernel_table(main, longform, checks, sweep=False):
     for b, p in enumerate(pads):
         vd[b, p:ext] = True
     nvd = int(vd.sum())
-    d_bytes = 2 * (2 * qd.numel() + 2 * Hkv * D * nvd) + B * ext
-    d_flops = 4 * D * H * nvd
     qdh = qd.transpose(1, 2)
-    lib_d = lambda i: F.scaled_dot_product_attention(
+    lib = lambda i: F.scaled_dot_product_attention(
         qdh, ds[i % SETS][0][:, :, :ext], ds[i % SETS][1][:, :, :ext],
         attn_mask=vd[:, None, None, :ext], scale=scale, enable_gqa=True)
     decode = lambda split: lambda i: fa.flash_decode_hs(
         qd, *ds[i % SETS], vd, scale, extent=ext, split=split)
     extra = {"shape": [B, S, H, Hkv, D], "dtype": "bfloat16", "extent": ext,
-             "input_sets": SETS,
-             "design": "split-K: the capacity cut into n_split chunks of "
-                       "64-slot tiles (decode_split_plan), one block per "
-                       "(chunk, kv-head, row), cp.async double-buffered "
-                       "tiles, the last block of each (kv-head, row) merges "
-                       "the fp32 partials in the same launch",
-             "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split}
+             "left_pad": list(pads), "input_sets": SETS, "n_split": n_split,
+             "chunk": chunk, "blocks": B * Hkv * n_split}
     if sweep:
         extra["split_sweep_ms"] = {"%dx%d" % split: cuda_ms(decode(split),
                                                             2 * SETS)
                                    for split in _split_sweep(S)}
-    rows.append(_row(
-        "flash_decode_hs", "moss_ttsd_torch/csrc/flash_decode.cu",
-        "moss_ttsd_tpu/ops/pallas_attention.py:203 (flash_decode_hs / "
-        "_decode_kernel)", main["launches"]["flash_decode_hs"],
-        checks["flash_decode_hs:main"], cuda_ms(decode(None), 2 * SETS),
-        cuda_ms(lambda i: fa.flash_decode_hs_plain(
-            qd, *ds[i % SETS], vd, scale, extent=ext, p_dtype=bf), SETS),
-        cuda_ms(lib_d, 2 * SETS), d_bytes, d_flops, extra))
-    del ds
-    if longform is not None:
-        rows.append(int8_decode_row(longform, checks, SETS, sweep))
-    emit({"kernels": rows})
-    return rows
+    return {"ms": cuda_ms(decode(None), 2 * SETS),
+            "plain_ms": cuda_ms(lambda i: fa.flash_decode_hs_plain(
+                qd, *ds[i % SETS], vd, scale, extent=ext, p_dtype=bf), SETS),
+            "library_ms": cuda_ms(lib, 2 * SETS),
+            "bytes": 2 * (2 * qd.numel() + 2 * Hkv * D * nvd) + B * ext,
+            "flops": 4 * D * H * nvd, "extra": extra}
 
 
 def _split_sweep(S):
@@ -1140,17 +1464,23 @@ def int8_decode_row(lf, checks, SETS, sweep=False):
         None, nbytes, flops, extra)
 
 
-def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
-         nbytes, flops, extra):
+def _bound(nbytes, flops):
+    """bound_ms and bound_by of a function that must move ``nbytes`` and do
+    ``flops`` bf16 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
+         nbytes, flops, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": check["max_abs_err"],
             "tolerance": check["tolerance"], "pass": check["ok"],
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **_bound(nbytes, flops),
             "library_ms": library_ms, "bytes": nbytes, "flops": flops,
             **extra}
 
@@ -1160,8 +1490,8 @@ def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of kernels,reference,main,logits,int8,"
-                         "cli,profile,sweep "
+                    help="comma list of kernels,reference,main,logits,"
+                         "clone,int8,cli,profile,sweep "
                          "(default all = every phase but profile and sweep)")
     args = ap.parse_args(argv)
     import torch
@@ -1169,7 +1499,8 @@ def main(argv=None) -> int:
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 1
     from moss_ttsd_torch.ops import flash_attention as fa
-    phases = ({"kernels", "reference", "main", "logits", "int8", "cli"}
+    phases = ({"kernels", "reference", "main", "logits", "clone", "int8",
+               "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -1199,7 +1530,7 @@ def main(argv=None) -> int:
     checks = kernel_checks() if "kernels" in phases else {}
     if "reference" in phases:
         reference_check()
-    main_line = longform = None
+    main_line = longform = clone_line = None
     if "main" in phases:
         pipe, main_line = main_path()
         if "logits" in phases:
@@ -1208,11 +1539,15 @@ def main(argv=None) -> int:
             profile_decode("main_path", *decode_state(pipe, load_items()))
         del pipe
         torch.cuda.empty_cache()
+    if "clone" in phases:
+        clone_line = clone_phase()
+        torch.cuda.empty_cache()
     if "int8" in phases:
         longform = int8_phase("profile" in phases)[-1]
         torch.cuda.empty_cache()
     if "kernels" in phases and main_line is not None:
-        kernel_table(main_line, longform, checks, "sweep" in phases)
+        kernel_table(main_line, longform, checks, clone_line,
+                     "sweep" in phases)
         torch.cuda.empty_cache()
     if "cli" in phases:
         cli_check()

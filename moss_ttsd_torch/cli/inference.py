@@ -4,9 +4,10 @@ Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
 --platform --quant --restricted_text_head). Runs on the CUDA card unless
 ``--platform cpu``. ``--tiny`` runs tiny random-weight models (no checkpoint
-needed).
+needed). Items with prompt audio clone their voices: the prompt wavs are
+encoded by the codec into the prompt's speech codes.
 
-    python -m moss_ttsd_torch.cli.inference --jsonl examples/examples_only_text.jsonl \\
+    python -m moss_ttsd_torch.cli.inference --jsonl examples/examples.jsonl \\
         --tiny --platform cpu --output_dir outputs --max_new_tokens 32
 """
 

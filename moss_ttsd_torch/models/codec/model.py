@@ -1,13 +1,14 @@
-"""XYTokenizer, decode side: PyTorch port of
-``moss_ttsd_tpu/models/codec/model.py`` (codes -> 24 kHz wav).
+"""XYTokenizer, the dual-channel neural audio codec: PyTorch port of
+``moss_ttsd_tpu/models/codec/model.py``.
 
-codes -> ResidualVQ.decode (fp32) -> post-RVQ adapter -> x4 upsample ->
-acoustic decoder (100 Hz) -> Vocos -> 24 kHz wav. Long outputs are
-vocoded in 30 s windows with an overlap (the reference's chunking
-contract), each window one batched call on static shapes; a partial final
-window runs through the smallest quarter-window bucket that holds it.
-
-The encode side (wav -> codes) belongs to the voice-cloning slice.
+Encode: 16 kHz wav -> log-mel (100 Hz, fp32) -> [semantic encoder +
+adapter | acoustic encoder] -> concat -> pre-RVQ adapter (50 Hz) -> x4
+gated downsample (12.5 Hz) -> ResidualVQ (fp32) -> codes. Decode: codes ->
+ResidualVQ.decode (fp32) -> post-RVQ adapter -> x4 upsample -> acoustic
+decoder (100 Hz) -> Vocos -> 24 kHz wav. Both run in 30 s windows with an
+overlap (the reference's chunking contract), each window one batched call
+on static shapes; a partial final decode window runs through the smallest
+quarter-window bucket that holds it.
 """
 
 from __future__ import annotations
@@ -21,23 +22,57 @@ from torch import nn
 
 from ...core.config import CodecConfig
 from ...core.device import DeviceLike, resolve_device, torch_dtype
+from ...ops.dsp import log_mel_spectrogram
 from .rvq import ResidualVQ
-from .transformer import AdapterTransformer, AudioDecoder, Upsample
+from .transformer import (AdapterTransformer, AudioDecoder, AudioEncoder,
+                          GatedDownsample, Upsample)
 from .vocos import Vocos
 
 
 class XYTokenizerModule(nn.Module):
-    """The decode half of the codec network."""
+    """The codec network: ``tokenize`` (wav -> codes) and ``detokenize``
+    (codes -> wav), each on one window's static shapes."""
 
     def __init__(self, cfg: CodecConfig):
         super().__init__()
         c = cfg
         self.cfg = cfg
+        self.semantic_encoder = AudioEncoder(c.semantic_encoder)
+        self.semantic_encoder_adapter = AdapterTransformer(
+            c.semantic_encoder_adapter)
+        self.acoustic_encoder = AudioEncoder(c.acoustic_encoder)
+        self.pre_rvq_adapter = AdapterTransformer(c.pre_rvq_adapter)
+        self.downsample = GatedDownsample(c.downsample_d_model,
+                                          c.downsample_factor)
         self.quantizer = ResidualVQ(c.quantizer)
         self.post_rvq_adapter = AdapterTransformer(c.post_rvq_adapter)
         self.upsample = Upsample(c.upsample_d_model, c.upsample_stride)
         self.acoustic_decoder = AudioDecoder(c.acoustic_decoder)
         self.vocos = Vocos(c.vocos)
+
+    def _encode_latents(self, wav: torch.Tensor, lengths: torch.Tensor):
+        """wav (B, samples) 16 kHz + valid lengths -> (down (B, T', D * r),
+        down_len): the fp32 log-mel, cast to the compute dtype at the stack
+        boundary, through both encoders, the adapters and the downsample."""
+        fe = self.cfg.feature_extractor
+        mel = log_mel_spectrogram(wav, n_fft=fe.n_fft, hop=fe.hop_length,
+                                  num_mels=fe.feature_size,
+                                  sampling_rate=fe.sampling_rate)
+        mel = mel.transpose(1, 2).to(torch_dtype(self.cfg.dtype))  # (B, T, M)
+        mel_lengths = -(-lengths // fe.hop_length)
+        sem, sem_len = self.semantic_encoder(mel, mel_lengths)     # 100 -> 50 Hz
+        sem, sem_len = self.semantic_encoder_adapter(sem, sem_len)
+        aco, aco_len = self.acoustic_encoder(mel, mel_lengths)
+        mixed = torch.cat([sem, aco], dim=-1)                      # (B, T, 2D)
+        mixed, mix_len = self.pre_rvq_adapter(mixed, aco_len)
+        return self.downsample(mixed, mix_len)                     # 50 -> 12.5 Hz
+
+    def tokenize(self, wav: torch.Tensor, lengths: torch.Tensor):
+        """wav (B, samples) + lengths -> dict(zq (B, T', D), codes (nq, B,
+        T'), codes_lengths (B,)); the quantizer runs in fp32."""
+        down, down_len = self._encode_latents(wav, lengths)
+        zq, codes, q_len = self.quantizer(down.to(torch.float32), down_len)
+        return {"zq": zq, "codes": codes, "codes_lengths": q_len}
 
     def detokenize(self, codes: torch.Tensor, codes_lengths: torch.Tensor):
         """codes (nq, B, T') -> dict(wav (B, T' * upsample), wav_lengths)."""
@@ -92,15 +127,19 @@ def _init_random(module: XYTokenizerModule, seed: int, device) -> None:
 
 
 class XYTokenizer:
-    """User-facing codec decode with the reference's chunked API.
+    """User-facing codec with the reference's chunked encode/decode API.
 
     ``params``: an ``XYTokenizerModule`` or a state dict for one (fp32
     master weights). ``dtype="bfloat16"`` runs the forward in bf16 with the
     reference's fp32 islands (RVQ, position adds, softmax, LayerNorm
-    statistics, the ISTFT). TF32: the serving configuration runs the codec
-    in bf16, where TF32 does not apply; an fp32 codec on the card follows
-    PyTorch's flags (by default cuDNN convolutions in TF32, matmuls in full
-    fp32), which a caller that needs full fp32 turns off, as
+    statistics, the log-mel, the ISTFT). TF32: the quantizer's codebook
+    distances are fp32 matmuls whose argmin picks each code, so the encode's
+    codes depend on them running in true fp32 on the card, PyTorch's default
+    for matmuls; a caller's global ``torch.backends.cuda.matmul.allow_tf32``
+    changes codes on near ties. Otherwise the serving configuration runs the
+    codec in bf16, where TF32 does not apply; an fp32 codec on the card
+    follows PyTorch's flags (by default cuDNN convolutions in TF32, matmuls
+    in full fp32), which a caller that needs full fp32 turns off, as
     ``chip_smoke.py`` does."""
 
     def __init__(self, cfg: CodecConfig,
@@ -142,6 +181,56 @@ class XYTokenizer:
         module = module.to(dev)              # the position tables too
         _init_random(module, seed, dev)
         return cls(cfg, module, dtype=dtype, device=dev)
+
+    @torch.no_grad()
+    def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10):
+        """wav_list: B * (T,) 16 kHz float arrays (any length) ->
+        {"codes_list": B * (nq, T // 1280) int32}.
+
+        The reference's chunking contract: 30 s windows with a stride of
+        (30 - overlap) s, the leading stride's codes kept per window,
+        concatenated and trimmed to len // 1280 per item. Every window is
+        dispatched before any is read back, so the card computes window
+        i + 1 while window i's codes are copied to the host."""
+        sr = self.input_sample_rate
+        duration = self.chunk_samples - overlap_seconds * sr      # stride
+        code_duration = duration // self.encoder_downsample_rate
+
+        B = len(wav_list)
+        lengths = np.array([len(w) for w in wav_list], np.int64)
+        max_chunks = max(1, -(-int(lengths.max()) // duration))
+        pending = []
+        for ci in range(max_chunks):
+            start = ci * duration
+            chunk = np.zeros((B, self.chunk_samples), np.float32)
+            chunk_lens = np.clip(lengths - start, 0, self.chunk_samples)
+            for b, w in enumerate(wav_list):
+                seg = np.asarray(w, np.float32)[start:start + self.chunk_samples]
+                chunk[b, :len(seg)] = seg
+            if chunk_lens.max() == 0:
+                continue
+            pending.append(self.module.tokenize(
+                torch.as_tensor(chunk, device=self.device),
+                torch.as_tensor(chunk_lens, device=self.device)))
+
+        chunks_codes = []
+        for out in pending:
+            codes = out["codes"].cpu().numpy().astype(np.int32)   # (nq, B, T')
+            code_lens = np.clip(out["codes_lengths"].cpu().numpy(), 0,
+                                code_duration)
+            valid = np.zeros((self.nq, B, code_duration), np.int32)
+            for b in range(B):
+                n = int(code_lens[b])
+                if n > 0:
+                    valid[:, b, :n] = codes[:, b, :n]
+            chunks_codes.append(valid)
+        if not chunks_codes:
+            return {"codes_list": [np.zeros((self.nq, 0), np.int32)
+                                   for _ in range(B)]}
+        all_codes = np.concatenate(chunks_codes, axis=-1)
+        return {"codes_list": [
+            all_codes[:, b, :int(lengths[b] // self.encoder_downsample_rate)]
+            for b in range(B)]}
 
     @torch.no_grad()
     def _detokenize(self, codes: np.ndarray, lens: np.ndarray, pcm16: bool):

@@ -1,9 +1,10 @@
-"""Codec transformer stack, decoder side: PyTorch port of
+"""Codec transformer stack: PyTorch port of
 ``moss_ttsd_tpu/models/codec/transformer.py`` (sinusoid positions, masked
-self-attention, the pre-LN layer, ``AdapterTransformer``, ``Upsample`` and
-``AudioDecoder``). The encoder side belongs to the voice-cloning slice.
+self-attention, the pre-LN layer, ``AudioEncoder``, ``AdapterTransformer``,
+``GatedDownsample``, ``Upsample`` and ``AudioDecoder``).
 
-(B, T, D) layout end to end, as in the JAX package. LayerNorm eps is 1e-6
+(B, T, D) layout end to end, as in the JAX package; the convolutions
+transpose to torch's (B, C, T) around each call. LayerNorm eps is 1e-6
 (flax's default, not torch's 1e-5); GELU is the exact erf form. fp32 islands
 in bf16 mode: the positional-embedding add, the softmax and the LayerNorm
 statistics.
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.config import AdapterTransformerConfig, AudioDecoderConfig
+from ...core.config import (AdapterTransformerConfig, AudioDecoderConfig,
+                            AudioEncoderConfig)
 
 LN_EPS = 1e-6
 
@@ -127,6 +129,28 @@ class _Stack(nn.Module):
                                                             device=x.device))
 
 
+class AudioEncoder(_Stack):
+    """Mel -> hidden states at half rate: conv(k3, p1) + GELU, conv(k3, s2,
+    p1) + GELU, positions (fp32 add), N layers, final LN, zeroed padding.
+    Input (B, T_mel, n_mels) -> (B, T_mel // 2, d_model), lengths // 2."""
+
+    def __init__(self, cfg: AudioEncoderConfig):
+        super().__init__(cfg.encoder_layers, cfg.d_model,
+                         cfg.encoder_attention_heads, cfg.encoder_ffn_dim,
+                         cfg.max_source_positions)
+        self.cfg = cfg
+        self.conv1 = nn.Conv1d(cfg.num_mel_bins, cfg.d_model,
+                               cfg.kernel_size, padding=1)
+        self.conv2 = nn.Conv1d(cfg.d_model, cfg.d_model, cfg.kernel_size,
+                               stride=cfg.stride_size, padding=1)
+
+    def forward(self, mel: torch.Tensor, lengths: torch.Tensor):
+        x = F.gelu(self.conv1(mel.transpose(1, 2)))
+        x = F.gelu(self.conv2(x)).transpose(1, 2)
+        out_lengths = lengths // self.cfg.stride_size
+        return self.run(x, out_lengths), out_lengths
+
+
 class AdapterTransformer(_Stack):
     """Projection + transformer adapter (reference Transformer)."""
 
@@ -172,6 +196,36 @@ class AudioDecoder(_Stack):
         x = F.gelu(self.deconv2(x))                          # (B, M, 2T+3)
         x = x.transpose(1, 2)[:, :T * c.stride_size]
         return x, lengths * c.stride_size
+
+
+class GatedDownsample(nn.Module):
+    """x factor gated downsample: T right-padded to a multiple of r, then
+    LN(down_proj(silu(gate_proj(x)) * up_proj(x)) + x reshaped), the two
+    projections convs with kernel = stride = r, no biases.
+    (B, T, d_model) -> (B, T // r, d_model * r), lengths // r."""
+
+    def __init__(self, d_model: int, factor: int = 4):
+        super().__init__()
+        self.factor = factor
+        inter = d_model * factor
+        self.gate_proj = nn.Conv1d(d_model, inter, factor, factor, bias=False)
+        self.up_proj = nn.Conv1d(d_model, inter, factor, factor, bias=False)
+        self.down_proj = nn.Linear(inter, inter, bias=False)
+        self.ln = nn.LayerNorm(inter, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        r = self.factor
+        B, T, D = x.shape
+        if T % r:
+            x = F.pad(x, (0, 0, 0, r - T % r))
+            T = x.shape[1]
+        xc = x.transpose(1, 2)
+        g = self.gate_proj(xc).transpose(1, 2)
+        u = self.up_proj(xc).transpose(1, 2)
+        # the residual regroups r consecutive frames in (B, T, D) layout
+        res = x.reshape(B, T // r, D * r)
+        out = layer_norm(self.down_proj(F.silu(g) * u) + res, self.ln)
+        return out, lengths // r
 
 
 class Upsample(nn.Module):

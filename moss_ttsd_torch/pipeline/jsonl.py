@@ -1,16 +1,21 @@
-"""JSONL item parsing, port of ``moss_ttsd_tpu/pipeline/jsonl.py``.
+"""JSONL item parsing and prompt-audio loading, port of
+``moss_ttsd_tpu/pipeline/jsonl.py``.
 
 Supports the three input formats of the reference examples/: full
 (text + prompt_audio_speaker1/2 + prompt_text_speaker1/2), single-reference
-(text + prompt_audio + prompt_text) and text-only. Loading and resampling
-prompt audio belongs to the voice-cloning slice: ``load_audio_data`` raises
-"not yet ported", which the pipeline's per-item isolation turns into an
-``error`` entry.
+(text + prompt_audio + prompt_text) and text-only. A prompt voice is a wav
+path or a ``(wav (channels, T) or (T,), sample_rate)`` tuple; it is loaded
+as mono 16 kHz, and two speakers are concatenated in time.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
+
+import numpy as np
+
+from ..utils.audio_io import read_wav, to_mono_16k
 
 
 def process_jsonl_item(item: dict) -> dict:
@@ -53,9 +58,30 @@ def process_jsonl_item(item: dict) -> dict:
     return {"text": text, "prompt_text": prompt_text, "prompt_audio": prompt_audio}
 
 
-def load_audio_data(prompt_audio, target_sample_rate: int = 16000):
-    """Prompt-audio loading (voice cloning): not yet ported."""
+def _load_single(audio) -> tuple:
+    """Path or (wav (channels, T) float32, sr) tuple -> (wav, sr)."""
+    if isinstance(audio, tuple) and len(audio) == 2:
+        wav, sr = audio
+        wav = np.asarray(wav, np.float32)
+        if wav.ndim == 1:
+            wav = wav[None, :]
+        return wav, int(sr)
+    if isinstance(audio, str):
+        return read_wav(audio)
+    raise ValueError(f"Unsupported audio input: {type(audio)}")
+
+
+def load_audio_data(prompt_audio,
+                    target_sample_rate: int = 16000) -> Optional[np.ndarray]:
+    """Load + resample + mono; a two-speaker dict is concatenated in time
+    (the reference's merge_speaker_audios). Returns (T,) float32 or None."""
     if prompt_audio is None:
         return None
-    raise NotImplementedError(
-        "prompt audio (voice cloning) is not yet ported to moss_ttsd_torch")
+    if isinstance(prompt_audio, dict) and "speaker1" in prompt_audio:
+        w1, sr1 = _load_single(prompt_audio["speaker1"])
+        w2, sr2 = _load_single(prompt_audio["speaker2"])
+        m1 = to_mono_16k(w1, sr1, target_sample_rate)
+        m2 = to_mono_16k(w2, sr2, target_sample_rate)
+        return np.concatenate([m1, m2])
+    wav, sr = _load_single(prompt_audio)
+    return to_mono_16k(wav, sr, target_sample_rate)

@@ -7,8 +7,8 @@
   * ``load_reference_lm_state_dict``: the reference checkpoint's names
     (``model.embedding_list.{i}``, ``model.language_model.layers.{l}.*``;
     the layout of ``moss_ttsd_tpu/utils/convert_lm.py``) -> ``AsteroidLM``.
-  * ``codec_state_from_jax``: the decode side of the JAX ``XYTokenizerModule``
-    tree -> ``XYTokenizerModule``. Flax ``Conv`` kernels are (k, in, out)
+  * ``codec_state_from_jax``: the JAX ``XYTokenizerModule`` tree (encode
+    and decode sides) -> ``XYTokenizerModule``. Flax ``Conv`` kernels are (k, in, out)
     -> torch (out, in, k); flax ``ConvTranspose`` kernels (k, in, out) are a
     correlation without the kernel flip torch's transposed conv applies, so
     they are flipped along k -> torch (in, out, k).
@@ -154,19 +154,38 @@ def _stack(sd: StateDict, pre: str, tree: Mapping, num_layers: int) -> None:
     _ln(sd, pre + ".final_ln", tree["final_ln"])
 
 
+def _adapter(sd: StateDict, pre: str, tree: Mapping, num_layers: int) -> None:
+    """An ``AdapterTransformer``: its stack and optional in/out projections."""
+    _stack(sd, pre, tree, num_layers)
+    for n in ("in_proj", "out_proj"):
+        if n in tree:
+            _dense(sd, f"{pre}.{n}", tree[n])
+
+
 def codec_state_from_jax(params_np: Mapping, cfg: CodecConfig) -> StateDict:
     p = params_np["params"] if "params" in params_np else params_np
     sd: StateDict = {}
+    for name in ("semantic_encoder", "acoustic_encoder"):
+        e = p[name]
+        _conv(sd, name + ".conv1", e["conv1"])
+        _conv(sd, name + ".conv2", e["conv2"])
+        _stack(sd, name, e, getattr(cfg, name).encoder_layers)
+    for name in ("semantic_encoder_adapter", "pre_rvq_adapter"):
+        _adapter(sd, name, p[name], getattr(cfg, name).encoder_layers)
+    ds = p["downsample"]
+    _conv(sd, "downsample.gate_proj", ds["gate_proj"])
+    _conv(sd, "downsample.up_proj", ds["up_proj"])
+    _dense(sd, "downsample.down_proj", ds["down_proj"])
+    _ln(sd, "downsample.ln", ds["ln"])
+
     q = p["quantizer"]
     sd["quantizer.codebook"] = _t(q["codebook"])
-    if cfg.quantizer.rvq_dim != cfg.quantizer.output_dim:
-        _dense(sd, "quantizer.output_proj", q["output_proj"])
+    for n in ("input_proj", "output_proj"):
+        if n in q:
+            _dense(sd, f"quantizer.{n}", q[n])
 
-    a = p["post_rvq_adapter"]
-    _stack(sd, "post_rvq_adapter", a, cfg.post_rvq_adapter.encoder_layers)
-    for n in ("in_proj", "out_proj"):
-        if n in a:
-            _dense(sd, f"post_rvq_adapter.{n}", a[n])
+    _adapter(sd, "post_rvq_adapter", p["post_rvq_adapter"],
+             cfg.post_rvq_adapter.encoder_layers)
     _deconv(sd, "upsample.up_conv", p["upsample"]["up_conv"])
 
     d = p["acoustic_decoder"]

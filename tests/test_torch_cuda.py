@@ -1,7 +1,8 @@
 """The port on a CUDA card: each Hopper kernel against its plain version,
 ``quantize_kv`` on the card against the CPU, and the tiny LM engine (bf16
 path and int8 serving) on the card (kernels) against the same engine on the
-CPU (plain versions). Imports no JAX, so it runs on a machine with the card
+CPU (plain versions), and the tiny codec encode on the card against the
+CPU. Imports no JAX, so it runs on a machine with the card
 and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -39,7 +40,8 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,pads", [(121, (0, 30)), (7, (3, 0)), (1, (0, 1))])
+@pytest.mark.parametrize("T,pads", [(121, (0, 30)), (7, (3, 0)), (1, (0, 1)),
+                                    (512, (54, 79))])
 def test_prefill_kernel_matches_plain(cuda, dtype, T, pads):
     dt = getattr(torch, dtype)
     rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dt)
@@ -144,22 +146,25 @@ def test_decode_split_boundaries(cuda, dtype):
     """The split-K decode at its chunk boundaries: extents exactly at and
     one past a boundary, a long cache, a whole in-extent chunk with no valid
     key, a row with no valid key at all, a layer view — against the plain
-    version and the plain split arithmetic at the kernel's plan."""
+    version and the plain split arithmetic at the kernel's plan. Batch 3 at
+    capacity 761 is the voice-cloning run's decode, whose plan has chunks
+    of two tiles (a tile edge inside each chunk)."""
     dt = getattr(torch, dtype)
     rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dt)
-    B, H, Hkv, D = 2, 16, 8, 128
-    for S in (633, 4096):
+    H, Hkv, D = 16, 8, 128
+    for B, S in ((2, 633), (2, 4096), (3, 761)):
         n_split, chunk = fa.decode_split_plan(B, Hkv, S,
                                               fa.sm_count(torch.device("cuda")))
         assert n_split > 1 and B * Hkv * n_split >= 132
         q, kt, vt = rn(B, 1, H, D), rn(3, B, Hkv, S, D), rn(3, B, Hkv, S, D)
         for lo, hi in ((0, chunk), (0, chunk + 1), (2 * chunk + 3, S - 7),
-                       (0, S), (0, 0)):
+                       (0, S), (0, 0), (0, 65)):
             valid = torch.zeros(B, S, dtype=torch.bool, device="cuda")
             valid[0, lo:hi] = True
-            valid[1, :max(hi, 1)] = True
-            ext = torch.tensor([max(hi, 1), max(hi, 1)], dtype=torch.int32,
-                               device="cuda")
+            valid[1:, :max(hi, 1)] = True
+            valid[2:, :140] = False
+            ext = torch.full((B,), max(hi, 1), dtype=torch.int32,
+                             device="cuda")
             out = fa.flash_decode_hs(q, kt, vt, valid, D ** -0.5, extent=ext,
                                      layer=2)
             ref = fa.flash_decode_hs_plain(q, kt, vt, valid, D ** -0.5,
@@ -466,3 +471,34 @@ def test_tiny_engine_on_card_matches_cpu(cuda, policy):
                                **policy)
         toks.append(eng.generate(prompt, mask, 12).tokens)
     np.testing.assert_array_equal(toks[1], toks[0])
+
+
+def test_codec_encode_on_card_matches_cpu(cuda):
+    """The tiny fp32 codec encode (log-mel, both encoders, RVQ) of the
+    examples' voices on the card against the same weights on the CPU, TF32
+    off: the pre-RVQ latents within 1e-4, the codes identical."""
+    import pathlib
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.utils.audio_io import read_wav
+    ex = pathlib.Path(__file__).resolve().parents[1] / "examples"
+    wavs = [np.concatenate([read_wav(str(ex / n))[0][0]
+                            for n in ("voice_s1.wav", "voice_s2.wav")]),
+            read_wav(str(ex / "voice_both.wav"))[0][0]]
+    cfg = CodecConfig().tiny()
+    cpu = XYTokenizer.init_random(cfg, seed=0, device="cpu")
+    gpu = XYTokenizer(cfg, {k: v.clone() for k, v in
+                            cpu.module.state_dict().items()}, device="cuda")
+    x = np.zeros((2, cpu.chunk_samples), np.float32)
+    for b, w in enumerate(wavs):
+        x[b, :len(w)] = w
+    lens = np.array([len(w) for w in wavs])
+    with torch.no_grad():
+        lat = [spt.module._encode_latents(
+            torch.as_tensor(x, device=spt.device),
+            torch.as_tensor(lens, device=spt.device))[0].cpu()
+            for spt in (cpu, gpu)]
+    assert float((lat[0] - lat[1]).abs().max()) <= 1e-4
+    for a, b in zip(cpu.encode(wavs)["codes_list"],
+                    gpu.encode(wavs)["codes_list"]):
+        np.testing.assert_array_equal(a, b)

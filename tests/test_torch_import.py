@@ -126,6 +126,24 @@ def test_cli_unported_flags_fail_loudly(tmp_path):
         main(["--platform", "cpu", "--output_dir", str(tmp_path)])
 
 
+def test_codec_roundtrip_cli_refuses_unported_flags(tmp_path):
+    from moss_ttsd_torch.cli.codec_roundtrip import main
+    base = ["--input_dir", str(ROOT / "examples"), "--output_dir",
+            str(tmp_path)]
+    for extra in (["--config", "c.yaml", "--checkpoint", "c.ckpt"],
+                  ["--tiny", "--debug", "1"], ["--tiny", "--debug"]):
+        with pytest.raises(SystemExit):
+            main([*base, "--platform", "cpu", *extra])
+    assert not list(tmp_path.iterdir())
+
+
+def test_codec_roundtrip_cli_without_cuda_raises(no_cuda, tmp_path):
+    from moss_ttsd_torch.cli.codec_roundtrip import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--input_dir", str(ROOT / "examples"), "--output_dir",
+              str(tmp_path), "--tiny"])
+
+
 def test_cli_tiny_cpu_writes_wavs(tmp_path):
     from moss_ttsd_torch.cli.inference import main
     rc = main(["--jsonl", str(ROOT / "examples" / "examples_only_text.jsonl"),

@@ -1,7 +1,10 @@
 """The port's TTSPipeline against the JAX TTSPipeline on the same weights
-(tiny LM + codec, fp32, greedy, CPU) over examples/examples_only_text.jsonl:
-identical codes, wavs within one int16 step; a prompt-audio item becomes
-an error entry and the rest of the batch still generates."""
+(tiny LM + codec, fp32, greedy, CPU): over examples/examples_only_text.jsonl
+and over a voice-cloning batch (examples.jsonl, examples_single_reference
+.jsonl and a text-only item), identical prompt ids and codes, wavs within
+one int16 step; the prompt-encode LRU; an item whose prompt wav is missing
+becomes an error entry and the rest of the batch still generates; both
+CLIs on the CPU."""
 import json
 import pathlib
 
@@ -30,16 +33,26 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 LSB = 1.0 / 32768
 
 
-def _spy(engine):
+def _spy(engine, inputs=None):
+    """Record every GenerateResult of ``engine.generate`` (and, into
+    ``inputs``, its prompt ids)."""
     seen = []
     orig = engine.generate
 
     def generate(*a, **kw):
+        if inputs is not None:
+            inputs.append(np.asarray(a[0]))
         seen.append(orig(*a, **kw))
         return seen[-1]
 
     engine.generate = generate
     return seen
+
+
+def _items(*names):
+    return [json.loads(l) for n in names
+            for l in (ROOT / "examples" / n).read_text().splitlines()
+            if l.strip()]
 
 
 @pytest.fixture(scope="module")
@@ -80,14 +93,89 @@ def test_process_batch_matches_jax(pipes):
                                    atol=LSB * 1.01)
 
 
-def test_prompt_audio_item_is_isolated(pipes):
+def test_voice_clone_batch_matches_jax(pipes):
+    """Both voice formats and a text-only item in one batch: one batched
+    codec encode of the two prompt voices, then greedy decode."""
+    jpipe, pipe = pipes
+    items = _items("examples.jsonl", "examples_single_reference.jsonl")
+    items.append({"text": "[S1]no voice here[S2]none at all"})
+    jin, pin = [], []
+    js, ps = _spy(jpipe.engine, jin), _spy(pipe.engine, pin)
+    jt, ja = jpipe.process_batch(items, max_new_tokens=20)
+    pt, pa = pipe.process_batch(items, max_new_tokens=20)
+    np.testing.assert_array_equal(pin[-1], jin[-1])
+    np.testing.assert_array_equal(ps[-1].tokens, js[-1].tokens)
+    assert ps[-1].steps == js[-1].steps
+    assert [t["final_text"] for t in pt] == [t["final_text"] for t in jt]
+    assert pipe.timings.tokenize_s > 0
+    assert all(r is not None for r in pa)
+    for a, b in zip(pa, ja):
+        assert a["index"] == b["index"]
+        assert a["audio_data"].shape == b["audio_data"].shape
+        np.testing.assert_allclose(a["audio_data"], b["audio_data"],
+                                   atol=LSB * 1.01)
+
+
+def test_single_voice_batch_uses_the_encode_lru(pipes, monkeypatch):
+    """A repeated single-voice batch takes its codes from the LRU: no second
+    codec encode, the same prompt ids."""
     _, pipe = pipes
+    pipe._encode_cache.clear()
+    calls = []
+    orig = pipe.spt.encode
+    monkeypatch.setattr(pipe.spt, "encode",
+                        lambda wavs, *a, **kw: calls.append(len(wavs))
+                        or orig(wavs, *a, **kw))
+    items = _items("examples_single_reference.jsonl")
+    ids = []
+    _spy(pipe.engine, ids)
+    for _ in range(2):
+        pipe.process_batch(items, max_new_tokens=8)
+    assert calls == [1]
+    np.testing.assert_array_equal(ids[0], ids[1])
+    assert len(pipe._encode_cache) == 1
+    # the per-request path shares the cache: no encode, the same prompt
+    shifted, meta = pipe.prepare_item(items[0])
+    assert calls == [1] and "error" not in meta
+    np.testing.assert_array_equal(shifted, ids[0][0])
+
+
+def test_prompt_audio_item_is_isolated(pipes):
+    """An item whose prompt wav does not exist becomes an error entry that
+    names the path; the other items, voiced or not, still produce audio."""
+    _, pipe = pipes
+    missing = str(ROOT / "examples" / "no_such_voice.wav")
     items = [{"text": "[S1]good item[S2]fine"},
-             {"text": "[S1]cloned", "prompt_audio": "voice.wav",
+             {"text": "[S1]cloned", "prompt_audio": missing,
               "prompt_text": "[S1]hi"},
+             *_items("examples_single_reference.jsonl"),
              {"text": "[S1]also good[S2]yes"}]
     texts, audio = pipe.process_batch(items, max_new_tokens=8)
-    assert "error" in texts[1] and "not yet ported" in texts[1]["error"]
+    assert "error" in texts[1] and "no_such_voice.wav" in texts[1]["error"]
     assert audio[1] is None
-    assert audio[0] is not None and audio[2] is not None
-    assert [t["index"] for t in texts] == [0, 1, 2]
+    assert all(audio[i] is not None for i in (0, 2, 3))
+    assert [t["index"] for t in texts] == [0, 1, 2, 3]
+
+
+def test_cli_voice_clone_tiny_cpu_writes_a_wav(tmp_path):
+    from moss_ttsd_torch.cli.inference import main
+    rc = main(["--jsonl", str(ROOT / "examples" / "examples.jsonl"),
+               "--tiny", "--platform", "cpu", "--max_new_tokens", "16",
+               "--output_dir", str(tmp_path)])
+    assert rc == 0
+    assert [p.name for p in tmp_path.glob("*.wav")] == ["output_0.wav"]
+
+
+def test_cli_codec_roundtrip_tiny_cpu(tmp_path):
+    from moss_ttsd_torch.cli.codec_roundtrip import main
+    out = tmp_path / "recon"
+    rc = main(["--input_dir", str(ROOT / "examples"), "--output_dir",
+               str(out), "--tiny", "--platform", "cpu", "--metrics",
+               str(tmp_path / "metrics.json")])
+    assert rc == 0
+    assert sorted(p.name for p in out.glob("*.wav")) == [
+        "voice_both_recon.wav", "voice_s1_recon.wav", "voice_s2_recon.wav"]
+    summary = json.loads((tmp_path / "metrics.json").read_text())
+    assert len(summary["files"]) == 3
+    assert all(np.isfinite(m["mel_l1"]) and np.isfinite(m["si_snr_db"])
+               for m in summary["files"])
