@@ -40,19 +40,40 @@ Phases, each printing one JSON line:
      the engine: TTSPipeline(quant="int8"); the same with the restricted text
      head and its audit; the long-form engine (quant and kv_quant "int8",
      batch 1, 1500 steps) whose every decode step runs flash_decode_int8_hs;
-  8. cli      — the --tiny CLIs on the card write wavs: inference as it is,
-     with --quant int8 --restricted_text_head, and cloning the voices of
+  8. stream   — TTSPipeline.stream_item over item 0 of
+     examples_only_text.jsonl at the main path's width (batch 1, 256 steps,
+     chunks of 25 steps after a first one of 12): time to first audio,
+     chunks, launch counts, host syncs per step; the streamed tokens equal
+     engine.generate's on the same row and seed, the samples equal
+     frames x 1920, every chunk finite;
+  9. overlap  — process_batch over the two items at 400 steps (393
+     decodable frames, more than one 375-code codec window) with
+     overlap_vocode off and on: the overlap branch ran (two segments, the
+     first ending at step 382), identical tokens, byte-identical wavs, the
+     same vocode calls;
+ 10. server   — the window-scheduler SpeechServer over the same pipeline on
+     127.0.0.1: /health, three concurrent wav requests in one batch, a
+     voice-cloning request (a base64 reference wav), a streamed request
+     (PCM16), the port's API client, /v1/metrics; a lone request equals
+     process_batch within one int16 step;
+ 11. cli      — the --tiny CLIs on the card write wavs: inference as it is,
+     with --profile_dir (a torch.profiler trace), with --quant int8
+     --restricted_text_head, and cloning the voices of
      examples/examples.jsonl; the codec round trip over examples/;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
-flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep`` also both decodes at
-other splits, ``split_sweep_ms``) and, last,
-the result line {"ok": true, "device": {...}}. Any failing phase exits
-non-zero with no result line. Without a CUDA device it exits 1 at once.
+flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
+also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
+so at (8, 633), longer caches at B 1, 3 and 8 and the stream's capacity,
+``shape_sweep``) and,
+last, the result line {"ok": true, "device": {...}}. Any failing phase
+exits non-zero with no result line. Without a CUDA device it exits 1 at
+once.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -461,6 +482,15 @@ def kernel_checks():
                     [(54, 761), (79, 761), (140, 761)], 761),
         decode_case(gen, "clone_per_row_extent", 3, 761, 16, 8, 128, bf,
                     [(54, 633), (79, 700), (140, 761)], [633, 700, 761]),
+        # the stream (batch 1, item 0 alone: base 377, 92 left pads,
+        # capacity 633) and a long batch-1 cache (capacity 4096), a layer
+        # view of the 28-layer stack at the stream's last step
+        decode_case(gen, "stream_B1", 1, 633, 16, 8, 128, bf, [(92, 505)],
+                    505, layers=28, layer=27),
+        decode_case(gen, "stream_B1_last_step", 1, 633, 16, 8, 128, bf,
+                    [(92, 633)], 633),
+        decode_case(gen, "split_B1_S4096", 1, 4096, 16, 8, 128, bf,
+                    [(0, 4000)], 4000),
         # P rounded to bf16 before P.V, as the TPU kernel does
         decode_p_rounding_case(gen, "bf16_p_rounding", "flash_decode_hs", 2,
                                633, 16, 8, 128, 506),
@@ -499,6 +529,8 @@ def kernel_checks():
                           (64, 65), (300, 505), (0, 0)], 505),
         int8_decode_case(gen, "split_longform_first_step", 1, 1557, 16, 8,
                          128, bf, [(0, 58)], 58, layers=28, layer=0),
+        int8_decode_case(gen, "split_B1_S4096", 1, 4096, 16, 8, 128, bf,
+                         [(0, 4000)], 4000),
         int8_decode_case(gen, "split_fp32_S4096", 2, 4096, 16, 8, 128, f32,
                          [(0, 3001), (1000, 3001)], 3001),
         int8_decode_case(gen, "split_D64_G4", 2, 700, 16, 4, 64, bf,
@@ -711,7 +743,10 @@ def profile_decode(run, eng, st, base, gen, steps: int = 16):
             kern.append((e.key, t, e.count))
     busy_us = sum(t for _, t, _ in kern)
     kern.sort(key=lambda x: -x[1])
+    split = [(t, c) for k, t, c in kern if "split_kernel" in k]
     emit({"phase": "profile", "run": run, "steps": steps,
+          "decode_split_kernel_ms_per_call":
+              sum(t for t, _ in split) / 1e3 / max(1, sum(c for _, c in split)),
           "host_ms_per_step": wall / steps * 1e3,
           "device_busy_ms_per_step": busy_us / 1e3 / steps,
           "device_idle_share": 1.0 - busy_us / (wall * 1e6),
@@ -921,11 +956,13 @@ def _spy(obj, name, record):
     setattr(obj, name, call)
 
 
-def clone_phase():
+def clone_phase(profile: bool = False):
     """Voice cloning at the LMConfig() / CodecConfig() width (bf16 LM and
     codec, seed 0, 256 steps): the three items of ``clone_items`` through
     TTSPipeline.process_batch, counted as the main path is; then a repeated
-    single-voice batch, which must be served from the prompt-encode LRU."""
+    single-voice batch, which must be served from the prompt-encode LRU.
+    ``profile``: a decode profile of the run's batch besides (B2 in the
+    path at the clone shape)."""
     import numpy as np
     import torch
     from moss_ttsd_torch.pipeline.batch import TTSPipeline
@@ -971,6 +1008,8 @@ def clone_phase():
     state, prefill_ms = in_path_prefill(pipe.engine, ids, mask)
     syncs = count_syncs_per_step(*state)
     del state
+    if profile:
+        profile_decode("clone", *engine_state(pipe.engine, ids, mask, 256))
 
     # a repeated single-voice batch: the first encodes (batch 1) and fills
     # the LRU, the second takes its codes from it
@@ -1178,8 +1217,406 @@ def logits_check(pipe):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the --tiny CLIs on the card
+# phases 8-10: streaming, the decode/vocode overlap, the speech server
 # ---------------------------------------------------------------------------
+
+def _spy_stream(engine, record):
+    """Wrap engine.generate_stream so that each run appends (its args, the
+    list of results it yielded, the host clock at each yield) to
+    ``record``."""
+    orig = engine.generate_stream
+
+    def generate_stream(*a, **kw):
+        seen, times = [], []
+        record.append((a, kw, seen, times))
+        for r in orig(*a, **kw):
+            seen.append(r)
+            times.append(time.perf_counter())
+            yield r
+
+    engine.generate_stream = generate_stream
+    return orig
+
+
+def _b2_plan(B, S):
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    n_split, chunk = fa.decode_split_plan(B, 8, S,
+                                          fa.sm_count(torch.device("cuda")))
+    return {"n_split": n_split, "chunk": chunk, "blocks": B * 8 * n_split}
+
+
+def _launch_problems(counts, L, prefills, steps):
+    want = {"flash_prefill": L * prefills, "flash_decode_hs": L * steps,
+            "flash_decode_int8_hs": 0}
+    return [] if counts == want else [f"launches {counts} != {want}"]
+
+
+def stream_phase(pipe, steps: int = 256):
+    """TTSPipeline.stream_item over item 0 of examples_only_text.jsonl
+    (batch 1), chunks of 25 steps after a first of 12, seed 0: the time to
+    first audio (wall seconds from the call to the first chunk), chunks,
+    samples, steps/s, launch counts, host syncs per step; the streamed
+    tokens against engine.generate on the same row and seed, the samples
+    against frames x 1920, every chunk finite; the max |diff| against the
+    serial process_batch wav is information (a sliding window with 25
+    frames of context is not the serial 30 s window). The TTFA splits into
+    the first segment (prefill and 12 steps) and the first chunk's vocode;
+    the host seconds spent in StreamVocoder.feed / finish, and the engine's
+    steps/s with no vocoder between its segments, say what slows the
+    streamed step."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline.batch import StreamVocoder
+    item = load_items()[0]
+    kw = dict(max_new_tokens=steps, chunk_steps=25, first_chunk_steps=12,
+              seed=0)
+    eng = pipe.engine
+    L, C = pipe.lm_cfg.num_hidden_layers, pipe.lm_cfg.channels
+    for _ in pipe.stream_item(item, **{**kw, "max_new_tokens": 30}):
+        pass                                               # warm-up
+    torch.cuda.synchronize()
+    runs, vocoder_s = [], [0.0]
+    orig = _spy_stream(eng, runs)
+    orig_feed, orig_finish = StreamVocoder.feed, StreamVocoder.finish
+
+    def timed(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                vocoder_s[0] += time.perf_counter() - t
+        return call
+
+    StreamVocoder.feed, StreamVocoder.finish = (timed(orig_feed),
+                                                timed(orig_finish))
+    pipe.timings.__init__()
+    fa.reset_launch_counts()
+    chunks, t_first = [], None
+    t0 = time.perf_counter()
+    try:
+        for chunk, sr in pipe.stream_item(item, **kw):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            chunks.append(chunk)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+    finally:
+        eng.generate_stream = orig
+        StreamVocoder.feed, StreamVocoder.finish = orig_feed, orig_finish
+    counts, st = fa.launch_counts(), dict(eng.last_stats)
+    (args, skw, results, yield_t), = runs
+    last = results[-1]
+    problems = _launch_problems(counts, L, 1, last.steps)
+    if last.steps != steps:
+        problems.append(f"stream ran {last.steps} of {steps} steps")
+    full = eng.generate(*args, seed=skw["seed"])
+    if not np.array_equal(full.tokens, last.tokens):
+        problems.append("streamed tokens != engine.generate's")
+    _, ends = pipe.unshift_end(last.tokens, last.base)
+    frames = int(ends[0])
+    samples = sum(len(c) for c in chunks)
+    if samples != frames * 1920:
+        problems.append(f"{samples} samples for {frames} frames")
+    if not all(np.isfinite(c).all() for c in chunks):
+        problems.append("non-finite chunk")
+    _, audio = pipe.process_batch([item], max_new_tokens=steps, seed=0)
+    serial = audio[0]["audio_data"][0]
+    streamed = np.concatenate(chunks)
+    # host syncs of the engine's segmented loop alone
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            segs = list(eng.generate_stream(*args, **skw))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(x.message) for x in w)
+    alone_s = eng.last_stats["decode_s"]
+    line = {"phase": "stream", "layers": L, "batch": 1, "base": last.base,
+            "buf_steps": st["buf_steps"], "left_pad": st["left_pad"],
+            "steps": last.steps,
+            "boundaries": skw["boundaries"][:4] + ["..."],
+            "segments": len(results), "chunks": len(chunks),
+            "chunk_samples_first": [len(c) for c in chunks[:4]],
+            "ttfa_s": t_first, "first_segment_s": yield_t[0] - t0,
+            "first_vocode_s": t_first - (yield_t[0] - t0), "e2e_s": e2e_s,
+            "prefill_ms": st["prefill_s"] * 1e3,
+            "decode_loop_s": st["decode_s"],
+            "decode_steps_per_s": last.steps / st["decode_s"],
+            "frames": frames, "samples": samples,
+            "audio_s": samples / pipe.spt.output_sample_rate,
+            "rtf": samples / pipe.spt.output_sample_rate / e2e_s,
+            "vocode_readback_s": pipe.timings.vocode_s,
+            "vocoder_host_s": vocoder_s[0],
+            "engine_alone_steps_per_s": segs[-1].steps / alone_s,
+            "launches": counts,
+            "host_syncs_per_step": syncs / max(segs[-1].steps, 1),
+            "host_syncs": syncs,
+            "b2_plan": _b2_plan(1, last.base + st["buf_steps"]),
+            "tokens_equal_generate": "streamed tokens != engine.generate's"
+                                     not in problems,
+            "vs_serial_wav_max_abs_diff":
+                float(np.abs(streamed - serial).max())
+                if streamed.shape == serial.shape else None,
+            "ok": not problems, "problems": problems}
+    emit(line)
+    if problems:
+        raise SystemExit(f"stream phase failed: {problems}")
+    return line
+
+
+def overlap_phase(pipe, steps: int = 400):
+    """process_batch over the two items of examples_only_text.jsonl at 400
+    steps, overlap_vocode off, then on: 393 decodable frames exceed the
+    375-code codec window, so the overlap branch runs two segments (the
+    first ends at step 382, where window 0 completes) and vocodes window 0
+    while the second decodes. Tokens identical, wavs byte-identical, the
+    same vocode calls (shapes) in both branches."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    items = load_items()
+    eng, spt = pipe.engine, pipe.spt
+    L = pipe.lm_cfg.num_hidden_layers
+    gens, streams, vocodes = [], [], []
+    orig_gen, orig_det = eng.generate, spt._detokenize
+    _spy(eng, "generate", gens)
+    orig_stream = _spy_stream(eng, streams)
+
+    def detokenize(codes, lens, pcm16):
+        vocodes.append((list(codes.shape), [int(x) for x in lens]))
+        return orig_det(codes, lens, pcm16)
+
+    spt._detokenize = detokenize
+    out = {}
+    try:
+        for overlap in (False, True):
+            pipe.overlap_vocode = overlap
+            pipe.process_batch(items, max_new_tokens=24, seed=1)  # warm-up
+            torch.cuda.synchronize()
+            n_voc = len(vocodes)
+            pipe.timings.__init__()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, audio = pipe.process_batch(items, max_new_tokens=steps,
+                                          seed=0)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
+            out[overlap] = {"audio": audio, "e2e_s": e2e,
+                            "tokens": (streams[-1][2][-1] if overlap
+                                       else gens[-1][1]).tokens,
+                            "launches": fa.launch_counts(),
+                            "timings": pipe.timings.as_dict(),
+                            "vocode_calls": vocodes[n_voc:]}
+    finally:
+        eng.generate, eng.generate_stream = orig_gen, orig_stream
+        spt._detokenize = orig_det
+        pipe.overlap_vocode = True
+    serial, ovl = out[False], out[True]
+    seg_steps = [r.steps for r in streams[-1][2]]
+    problems = []
+    if seg_steps != [382, steps]:
+        problems.append(f"overlap segments {seg_steps} != [382, {steps}]")
+    if not np.array_equal(serial["tokens"], ovl["tokens"]):
+        problems.append("tokens differ between the branches")
+    same = [a is not None and b is not None
+            and np.array_equal(a["audio_data"], b["audio_data"])
+            for a, b in zip(serial["audio"], ovl["audio"])]
+    if not all(same):
+        diffs = [float(np.abs(a["audio_data"] - b["audio_data"]).max())
+                 if a["audio_data"].shape == b["audio_data"].shape else None
+                 for a, b in zip(serial["audio"], ovl["audio"])]
+        problems.append(f"wavs differ: max |diff| {diffs}")
+    if serial["vocode_calls"] != ovl["vocode_calls"]:
+        problems.append("vocode calls differ")
+    for o in (serial, ovl):
+        problems += _launch_problems(o["launches"], L, 1, steps)
+    audio_s = sum(a["audio_data"].shape[-1] for a in ovl["audio"]
+                  if a is not None) / spt.output_sample_rate
+    line = {"phase": "overlap", "batch": len(items), "steps": steps,
+            "segments": seg_steps, "vocode_calls": ovl["vocode_calls"],
+            "wav_samples": [a["audio_data"].shape[-1] for a in ovl["audio"]],
+            "byte_identical": all(same), "audio_s": audio_s,
+            "serial": {"e2e_s": serial["e2e_s"],
+                       "rtf": audio_s / serial["e2e_s"],
+                       **serial["timings"]},
+            "overlap": {"e2e_s": ovl["e2e_s"], "rtf": audio_s / ovl["e2e_s"],
+                        **ovl["timings"]},
+            "launches": ovl["launches"], "ok": not problems,
+            "problems": problems}
+    emit(line)
+    if problems:
+        raise SystemExit(f"overlap phase failed: {problems}")
+    return line
+
+
+def server_phase(pipe, max_tokens: int = 128):
+    """The window-scheduler SpeechServer over the full-width pipeline on
+    127.0.0.1 (max_batch 4, a 0.2 s window): /health; three concurrent wav
+    requests, which must share one batch (launches 28 prefill, 28 x steps
+    decode); a request cloning a voice from a base64 wav of examples/; a
+    streamed request read to its end (its PCM16 equal in length, and
+    within one int16 step, to stream_item's on the same pipeline); the
+    port's API client; /v1/metrics; and a lone request after the others
+    (a batch of one) against process_batch within one int16 step."""
+    import base64
+    import http.client
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.serve.api_client import (SpeechAPIClient,
+                                                  wav_bytes_to_array)
+    from moss_ttsd_torch.serve.server import SpeechServer
+    from moss_ttsd_torch.utils.profiling import metrics
+
+    L = pipe.lm_cfg.num_hidden_layers
+    srv = SpeechServer(pipe, "127.0.0.1", 0, max_batch=4, batch_window_s=0.2)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    problems, line = [], {"phase": "server", "max_tokens": max_tokens}
+
+    def post(payload):
+        req = urllib.request.Request(f"{base}/v1/audio/speech",
+                                     json.dumps(payload).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    texts = [it["text"] for it in load_items()] + [
+        "[S1]A third request joins the batch.[S2]It does."]
+    try:
+        line["health"] = urllib.request.urlopen(f"{base}/health",
+                                                timeout=60).read().decode()
+        srv.warmup(max_tokens=16)
+        metrics.reset()
+        fa.reset_launch_counts()
+        bodies = [None] * 3
+
+        def work(i):
+            bodies[i] = post({"input": texts[i], "max_tokens": max_tokens,
+                              "seed": 0})
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(3)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        line["concurrent_s"] = time.perf_counter() - t0
+        line["concurrent_launches"] = fa.launch_counts()
+        st = pipe.engine.last_stats
+        line["concurrent_b2_plan"] = _b2_plan(st["batch"],
+                                              st["base"] + st["buf_steps"])
+        snap = metrics.snapshot()
+        line["batches"] = [snap.get("server_batches"),
+                           snap.get("server_batched_requests")]
+        if line["batches"] != [1, 3]:
+            problems.append(f"3 concurrent requests: batches/requests "
+                            f"{line['batches']} != [1, 3]")
+        problems += _launch_problems(line["concurrent_launches"], L, 1,
+                                     max_tokens)
+        wavs = [wav_bytes_to_array(b)[0] for b in bodies]
+        line["concurrent_samples"] = [len(w) for w in wavs]
+        if not all(len(w) and np.isfinite(w).all() for w in wavs):
+            problems.append("a concurrent wav is empty or not finite")
+
+        with open(os.path.join(EXAMPLES, "voice_both.wav"), "rb") as f:
+            ref = base64.b64encode(f.read()).decode()
+        w, sr = wav_bytes_to_array(post({
+            "input": texts[0], "max_tokens": max_tokens, "seed": 0,
+            "references": [{"audio": ref, "text": "[S1]This is the first "
+                            "speaker reference voice."}]}))
+        line["clone_samples"] = len(w)
+        if not (len(w) and np.isfinite(w).all() and sr == 24000):
+            problems.append("the voice-cloning request gave no audio")
+
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech", json.dumps(
+            {"input": texts[0], "stream": True, "max_tokens": max_tokens,
+             "seed": 0}), {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        reads, first_s = [], None
+        while True:
+            b = r.read1(65536)
+            if not b:
+                break
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            reads.append(b)
+        conn.close()
+        pcm = b"".join(reads)
+        ref_chunks = [c for c, _ in pipe.stream_item(
+            {"text": texts[0]}, max_new_tokens=max_tokens, seed=0)]
+        ref_wav = np.concatenate(ref_chunks)
+        got = np.frombuffer(pcm, "<i2").astype(np.float32) / 32768.0
+        line["stream"] = {"status": r.status, "bytes": len(pcm),
+                          "samples": len(ref_wav),
+                          "client_first_bytes_s": first_s,
+                          "content_type": r.headers["Content-Type"]}
+        if r.status != 200 or len(pcm) != 2 * len(ref_wav):
+            problems.append(f"stream: {line['stream']}")
+        elif float(np.abs(got - ref_wav).max()) > 1.01 / 32768:
+            problems.append("streamed PCM != stream_item's")
+
+        client = SpeechAPIClient(f"{base}/v1", model="moss-ttsd",
+                                 max_retries=1)
+        w, _ = wav_bytes_to_array(client.generate_speech(
+            texts[1], extra={"max_tokens": max_tokens, "seed": 0}))
+        line["client_samples"] = len(w)
+        if not len(w):
+            problems.append("the API client got no audio")
+
+        item = {"text": texts[2]}
+        w, _ = wav_bytes_to_array(post({"input": item["text"],
+                                        "max_tokens": max_tokens, "seed": 7}))
+        _, audio = pipe.process_batch([item], max_new_tokens=max_tokens,
+                                      seed=7)
+        ref = audio[0]["audio_data"][0]
+        line["lone_vs_process_batch_max_abs_diff"] = (
+            float(np.abs(w - ref).max()) if w.shape == ref.shape else None)
+        if w.shape != ref.shape or float(np.abs(w - ref).max()) \
+                > 1.01 / 32768:
+            problems.append("the lone request != process_batch")
+
+        m = json.loads(urllib.request.urlopen(f"{base}/v1/metrics",
+                                              timeout=60).read())
+        line["metrics"] = {k: m.get(k) for k in (
+            "server_request_latency_s_p50", "server_request_latency_s_p95",
+            "server_request_latency_s_observed", "server_ttfa_s_p50",
+            "server_batches", "server_batched_requests", "vocode_s",
+            "prefill_decode_s", "generated_steps", "tokenize_s",
+            "server_queue_depth")}
+        if not (m.get("server_ttfa_s_observed") == 1
+                and m.get("server_request_latency_s_observed") == 6
+                and m.get("vocode_s", 0) > 0
+                and m.get("prefill_decode_s", 0) > 0):
+            problems.append(f"metrics: {line['metrics']}")
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"server phase failed: {problems}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the --tiny CLIs on the card
+# ---------------------------------------------------------------------------
+
+def _trace_kernel_events(path) -> int:
+    """Kernel events in a Chrome trace written by torch.profiler."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(e.get("cat") == "kernel" for e in events)
+
 
 def cli_check():
     """The --tiny CLIs on the card: inference as it is, with int8 serving,
@@ -1190,6 +1627,9 @@ def cli_check():
              "--max_new_tokens", "32", "--output_dir", out_dir]
     runs = [
         ("text", infer + ["--jsonl", JSONL], ["output_0.wav", "output_1.wav"]),
+        ("text_profile_dir", infer + ["--jsonl", JSONL, "--profile_dir",
+                                      os.path.join(out_dir, "trace")],
+         ["output_0.wav", "output_1.wav"]),
         ("text_int8", infer + ["--jsonl", JSONL, "--quant", "int8",
                                "--restricted_text_head"],
          ["output_0.wav", "output_1.wav"]),
@@ -1204,6 +1644,7 @@ def cli_check():
           "voice_s2_recon.wav"]),
     ]
     for name, cmd, want in runs:
+        kernel_events = None
         shutil.rmtree(out_dir, ignore_errors=True)
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -1213,9 +1654,22 @@ def cli_check():
         ok = proc.returncode == 0 and wavs == want
         if name == "codec_roundtrip":
             ok = ok and "metrics.json" in files
+        if name == "text_profile_dir":
+            trace_dir = os.path.join(out_dir, "trace")
+            traces = (os.listdir(trace_dir) if os.path.isdir(trace_dir)
+                      else [])
+            # the trace must exist and parse; its kernel events are
+            # reported, not checked (the card's profiler may drop a short
+            # capture's device events)
+            kernel_events = (_trace_kernel_events(
+                os.path.join(trace_dir, traces[0])) if len(traces) == 1
+                else None)
+            ok = ok and kernel_events is not None
         emit({"phase": "cli", "run": name, "flags": cmd[3:],
               "rc": proc.returncode, "wavs": wavs,
               "seconds": time.perf_counter() - t0, "ok": ok,
+              **({"trace_kernel_events": kernel_events}
+                 if name == "text_profile_dir" else {}),
               "tail": proc.stdout.strip().splitlines()[-2:]})
         shutil.rmtree(out_dir, ignore_errors=True)
         if not ok:
@@ -1259,7 +1713,8 @@ def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
             **_bound(nbytes, flops), "bytes": nbytes, "flops": flops}
 
 
-def kernel_table(main, longform, checks, clone=None, sweep=False):
+def kernel_table(main, longform, checks, clone=None, stream=None,
+                 sweep=False):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs (and the clone run's,
     when it ran), the long-form run's for flash_decode_int8_hs. Each
@@ -1268,7 +1723,8 @@ def kernel_table(main, longform, checks, clone=None, sweep=False):
     inputs come from HBM, not L2. Bounds count only what the function must
     move and compute: the rows and slots that are valid in the run's
     padding, below the extent. ``sweep``: the decode also at other splits
-    than its plan (``split_sweep_ms``)."""
+    than its plan (``split_sweep_ms``), and flash_decode_hs so at
+    SWEEP_SHAPES and the stream run's cache (``shape_sweep``)."""
     import torch
     B, base, steps = main["batch"], main["base"], main["steps"]
     H, Hkv, D, L = 16, 8, 128, main["layers"]
@@ -1304,11 +1760,12 @@ def kernel_table(main, longform, checks, clone=None, sweep=False):
         checks["flash_prefill:main"], pt["ms"], pt["plain_ms"],
         pt["library_ms"], pt["bytes"], pt["flops"], extra))
 
-    dt = decode_times(gen, B, base, main["buf_steps"], steps, pads, H, Hkv,
-                      D, SETS, sweep)
+    dt = decode_times(gen, B, base + main["buf_steps"],
+                      base + (steps + 1) // 2, pads, H, Hkv, D, SETS, sweep)
     if clone is not None:
-        ct = decode_times(gen, clone["batch"], clone["base"],
-                          clone["buf_steps"], clone["steps"],
+        ct = decode_times(gen, clone["batch"],
+                          clone["base"] + clone["buf_steps"],
+                          clone["base"] + (clone["steps"] + 1) // 2,
                           clone["left_pad"], H, Hkv, D, SETS, sweep)
         dt["extra"]["clone"] = {
             "launches": clone["launches"]["flash_decode_hs"],
@@ -1316,6 +1773,22 @@ def kernel_table(main, longform, checks, clone=None, sweep=False):
             "ms": ct["ms"], "plain_ms": ct["plain_ms"],
             "library_ms": ct["library_ms"], **_bound(ct["bytes"], ct["flops"]),
             "bytes": ct["bytes"], "flops": ct["flops"], **ct["extra"]}
+    if sweep:
+        # caches the split plan was decided on: the JAX headline batch, longer
+        # caches at B 1, 3 and 8, and the stream's own capacity
+        shapes = list(SWEEP_SHAPES)
+        if stream is not None:
+            S = stream["base"] + stream["buf_steps"]
+            shapes.append(("stream", 1, S, stream["base"] + (
+                stream["steps"] + 1) // 2, stream["left_pad"]))
+        dt["extra"]["shape_sweep"] = []
+        for name, b, S, ext, pd in shapes:
+            t = decode_times(gen, b, S, ext, pd, H, Hkv, D, SETS, True)
+            dt["extra"]["shape_sweep"].append({
+                "name": name, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "library_ms": t["library_ms"], **_bound(t["bytes"], t["flops"]),
+                **t["extra"]})
+            torch.cuda.empty_cache()
     rows.append(_row(
         "flash_decode_hs", "moss_ttsd_torch/csrc/flash_decode.cu",
         "moss_ttsd_tpu/ops/pallas_attention.py:203 (flash_decode_hs / "
@@ -1334,20 +1807,18 @@ def kernel_table(main, longform, checks, clone=None, sweep=False):
     return rows
 
 
-def decode_times(gen, B, base, buf_steps, steps, pads, H, Hkv, D, SETS,
-                 sweep=False):
-    """flash_decode_hs at a run's shapes: the full-capacity cache S = base +
-    buf_steps, the mid-run extent, the run's left padding; kernel, plain
-    and SDPA ms over SETS rotated input sets, the bytes and flops of the
-    valid slots below the extent (all the function must read), and the
-    kernel's plan. ``sweep``: also at other splits (``split_sweep_ms``)."""
+def decode_times(gen, B, S, ext, pads, H, Hkv, D, SETS, sweep=False):
+    """flash_decode_hs at a run's shapes: a cache of capacity S, the extent
+    ``ext``, the run's left padding; kernel, plain and SDPA ms over SETS
+    rotated input sets, the bytes and flops of the valid slots below the
+    extent (all the function must read), and the kernel's plan
+    (decode_split_plan). ``sweep``: also at other splits
+    (``split_sweep_ms``)."""
     import torch
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
     bf = torch.bfloat16
     scale = D ** -0.5
-    S = base + buf_steps
-    ext = base + (steps + 1) // 2
     n_split, chunk = fa.decode_split_plan(B, Hkv, S,
                                           fa.sm_count(torch.device("cuda")))
     qd = _rand(gen, (B, 1, H, D), bf)
@@ -1376,6 +1847,17 @@ def decode_times(gen, B, base, buf_steps, steps, pads, H, Hkv, D, SETS,
             "library_ms": cuda_ms(lib, 2 * SETS),
             "bytes": 2 * (2 * qd.numel() + 2 * Hkv * D * nvd) + B * ext,
             "flops": 4 * D * H * nvd, "extra": extra}
+
+
+# (name, B, capacity, extent, left pads) of flash_decode_hs's shape sweep
+SWEEP_SHAPES = (("B8_main", 8, 633, 505, [92, 177] * 4),
+                ("B3_S1024", 3, 1024, 900, [0, 54, 140]),
+                ("B3_S1557", 3, 1557, 1400, [0, 54, 140]),
+                ("B3_S2048", 3, 2048, 1900, [0, 54, 140]),
+                ("B8_S1557", 8, 1557, 1400, [0, 92] * 4),
+                ("B1_S2560", 1, 2560, 2400, [0]),
+                ("B1_S3072", 1, 3072, 2900, [0]),
+                ("B1_S4096", 1, 4096, 4000, [0]))
 
 
 def _split_sweep(S):
@@ -1487,11 +1969,21 @@ def _row(name, source, replaces, launches, check, ms, plain_ms, library_ms,
 
 # ---------------------------------------------------------------------------
 
+def _release() -> None:
+    """Free what the phase before left: its spies leave bound methods on its
+    pipeline (a reference cycle), which only a collection frees, so that
+    the next phase's peak memory counts its own pipeline alone."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "clone,int8,cli,profile,sweep "
+                         "stream,overlap,server,clone,int8,cli,profile,"
+                         "sweep "
                          "(default all = every phase but profile and sweep)")
     args = ap.parse_args(argv)
     import torch
@@ -1499,8 +1991,8 @@ def main(argv=None) -> int:
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 1
     from moss_ttsd_torch.ops import flash_attention as fa
-    phases = ({"kernels", "reference", "main", "logits", "clone", "int8",
-               "cli"}
+    phases = ({"kernels", "reference", "main", "logits", "stream",
+               "overlap", "server", "clone", "int8", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -1530,23 +2022,34 @@ def main(argv=None) -> int:
     checks = kernel_checks() if "kernels" in phases else {}
     if "reference" in phases:
         reference_check()
-    main_line = longform = clone_line = None
+    main_line = longform = clone_line = stream_line = None
+    pipe = None
     if "main" in phases:
         pipe, main_line = main_path()
         if "logits" in phases:
             logits_check(pipe)
         if "profile" in phases:
             profile_decode("main_path", *decode_state(pipe, load_items()))
-        del pipe
-        torch.cuda.empty_cache()
+    # streaming, the overlap and the server run the main path's pipeline
+    if phases & {"stream", "overlap", "server"}:
+        if pipe is None:
+            pipe = build_full_pipeline()[0]
+        if "stream" in phases:
+            stream_line = stream_phase(pipe)
+        if "overlap" in phases:
+            overlap_phase(pipe)
+        if "server" in phases:
+            server_phase(pipe)
+    del pipe
+    _release()
     if "clone" in phases:
-        clone_line = clone_phase()
-        torch.cuda.empty_cache()
+        clone_line = clone_phase("profile" in phases)
+        _release()
     if "int8" in phases:
         longform = int8_phase("profile" in phases)[-1]
         torch.cuda.empty_cache()
     if "kernels" in phases and main_line is not None:
-        kernel_table(main_line, longform, checks, clone_line,
+        kernel_table(main_line, longform, checks, clone_line, stream_line,
                      "sweep" in phases)
         torch.cuda.empty_cache()
     if "cli" in phases:

@@ -2,8 +2,8 @@
 
 Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
---platform --quant --restricted_text_head). Runs on the CUDA card unless
-``--platform cpu``. ``--tiny`` runs tiny random-weight models (no checkpoint
+--platform --quant --restricted_text_head --profile_dir). Runs on the CUDA
+card unless ``--platform cpu``. ``--tiny`` runs tiny random-weight models (no checkpoint
 needed). Items with prompt audio clone their voices: the prompt wavs are
 encoded by the codec into the prompt's speech codes.
 
@@ -14,6 +14,7 @@ encoded by the codec into the prompt's speech codes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -24,7 +25,8 @@ SPT_CHECKPOINT_PATH = "XY_Tokenizer/weights/xy_tokenizer.ckpt"
 
 
 def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
-                        quant=None, restricted_text_head: bool = False):
+                        quant=None, restricted_text_head: bool = False,
+                        restricted_audit_every=None):
     """Random tiny LM + codec + mock tokenizer wired into the real pipeline
     (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
     from ..core.config import (ChannelSamplingConfig, CodecConfig, LMConfig,
@@ -52,6 +54,7 @@ def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
     return TTSPipeline(tokenizer, lm_cfg, model, spt, sampling, bucket=bucket,
                        quant=quant,
                        restricted_text_head=restricted_text_head or None,
+                       restricted_audit_every=restricted_audit_every,
                        device=dev)
 
 
@@ -81,21 +84,31 @@ def main(argv=None):
                         help="weight-only int8 serving (w8a16)")
     parser.add_argument("--restricted_text_head", action="store_true",
                         help="channel-0 logits over the speech window only")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the batch "
+                             "(Chrome trace JSON) into this directory")
+    parser.add_argument("--profiler_port", type=int, default=None,
+                        help="a live profiler server: no PyTorch "
+                             "counterpart, refused")
     # flags of the JAX CLI that this port does not implement yet: accepted
     # so they fail loudly instead of being silently ignored
     parser.add_argument("--mesh", default=None)
     parser.add_argument("--lora_adapter", action="append", default=[])
     parser.add_argument("--attn_impl", default=None)
-    parser.add_argument("--profile_dir", default=None)
     args = parser.parse_args(argv)
 
     for flag, val in (("--mesh", args.mesh),
-                      ("--lora_adapter", args.lora_adapter),
-                      ("--profile_dir", args.profile_dir)):
+                      ("--lora_adapter", args.lora_adapter)):
         if val:
             _not_yet(parser, flag)
     if args.attn_impl not in (None, "mixed", "pallas"):
         _not_yet(parser, f"--attn_impl {args.attn_impl}")
+    from ..utils import profiling
+    if args.profiler_port:
+        try:
+            profiling.start_profiler_server(args.profiler_port)
+        except NotImplementedError as e:
+            parser.error(str(e))
 
     device = "cpu" if args.platform == "cpu" else "cuda"
     if args.tiny:
@@ -113,9 +126,14 @@ def main(argv=None):
     with open(args.jsonl) as f:
         items = [json.loads(line) for line in f if line.strip()]
     print(f"Loaded {len(items)} items from {args.jsonl}")
-    texts_data, audio_results = pipe.process_batch(
-        items, use_normalize=args.use_normalize,
-        max_new_tokens=args.max_new_tokens, seed=args.seed or 0)
+    prof = (profiling.trace(args.profile_dir) if args.profile_dir
+            else contextlib.nullcontext())
+    with prof:
+        texts_data, audio_results = pipe.process_batch(
+            items, use_normalize=args.use_normalize,
+            max_new_tokens=args.max_new_tokens, seed=args.seed or 0)
+    if args.profile_dir:
+        print(f"Saved profiler trace to {args.profile_dir}")
 
     if args.summary_file:
         with open(args.summary_file, "w", encoding="utf-8") as f:

@@ -19,7 +19,8 @@ Shapes stay static: the prompt bucket, ``buf_steps`` (the token buffer and
 the full-capacity KV cache) and a per-step decode extent ``cur_len + 1``
 passed to the extent-clamped decode kernel. Each decode step makes exactly
 one host sync, the ``unfinished.any()`` loop test (counted on the card by
-``chip_smoke.py``).
+``chip_smoke.py``). ``generate_stream`` runs the same loop in segments over
+one decode state and one generator, so its tokens are ``generate``'s.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ class GenerateResult(NamedTuple):
     tokens: np.ndarray       # (B, base + steps, C) — prompt-minus-tail + generated
     steps: int               # decode steps actually run
     base: int                # index of the first generated row (bucketed L - C + 1)
+    unfinished: Optional[np.ndarray] = None   # (B,) bool, rows still
+    #                          decoding (generate_stream; None from generate)
     audit: Optional[Tuple[int, int]] = None   # restricted-head audit
     #                          (rows_audited, rows_flagged); None when off
 
@@ -353,12 +356,14 @@ class GenerationEngine:
             self._step(st, base, gen)
         return st
 
-    def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
-                 max_new_tokens: Optional[int] = None,
-                 seed: int = 0) -> GenerateResult:
-        """input_ids: (B, L, C) delay-shifted prompt, left-padded;
-        attention_mask: (B, L). Returns the prompt-minus-tail plus the
-        generated rows, sliced on the host."""
+    def _start(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+               max_new_tokens: Optional[int], seed: int, adapter):
+        """Budget, bucketed prompt, seeded generator and prefilled state of
+        one request -> (state, base, max_steps, buf_steps, gen, bucketed
+        ids, bucketed mask, prefill seconds)."""
+        if adapter is not None:
+            raise ValueError(f"adapter={adapter!r}: LoRA adapters are not "
+                             "ported to moss_ttsd_torch yet (ROADMAP A10b)")
         max_steps, buf_steps = self._step_budget(max_new_tokens,
                                                  input_ids.shape[1])
         input_ids, attention_mask, base = self._bucket_prompt(input_ids,
@@ -371,17 +376,97 @@ class GenerationEngine:
                           base, buf_steps)
         if dev.type == "cuda":      # the loop's first any() test syncs anyway
             torch.cuda.synchronize(dev)
+        return (st, base, max_steps, buf_steps, gen, input_ids,
+                attention_mask, time.perf_counter() - t0)
+
+    def _audit_on(self) -> bool:
+        return (self.cfg.restricted_text_head
+                and self.cfg.restricted_audit_every > 0)
+
+    def _stats(self, prefill_s, t1, st, base, buf_steps, ids, mask,
+               audit) -> None:
+        self.last_stats = {
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t1,
+            "steps": st.step, "base": base, "buf_steps": buf_steps,
+            "batch": int(ids.shape[0]), "audit": audit,
+            "left_pad": (mask[:, :base] == 0).sum(axis=1).tolist()}
+
+    def generate(self, input_ids: np.ndarray, attention_mask: np.ndarray,
+                 max_new_tokens: Optional[int] = None, seed: int = 0,
+                 adapter=None) -> GenerateResult:
+        """input_ids: (B, L, C) delay-shifted prompt, left-padded;
+        attention_mask: (B, L). Returns the prompt-minus-tail plus the
+        generated rows, sliced on the host. ``adapter`` (a LoRA voice) is
+        not ported: anything but None raises ValueError."""
+        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s = \
+            self._start(input_ids, attention_mask, max_new_tokens, seed,
+                        adapter)
         t1 = time.perf_counter()
         st = self.run(st, base, max_steps, gen)
         tokens = st.tokens.cpu().numpy()
         audit = None
-        if self.cfg.restricted_text_head and self.cfg.restricted_audit_every > 0:
+        if self._audit_on():
             audit = tuple(int(v) for v in
                           torch.stack([st.audit_rows, st.audit_flagged]).cpu())
-        self.last_stats = {
-            "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
-            "steps": st.step, "base": base, "buf_steps": buf_steps,
-            "batch": int(input_ids.shape[0]), "audit": audit,
-            "left_pad": (attention_mask[:, :base] == 0).sum(axis=1).tolist()}
+        self._stats(prefill_s, t1, st, base, buf_steps, ids, mask, audit)
         return GenerateResult(tokens=tokens[:, :base + st.step],
                               steps=st.step, base=base, audit=audit)
+
+    def generate_stream(self, input_ids: np.ndarray,
+                        attention_mask: np.ndarray,
+                        max_new_tokens: Optional[int] = None, seed: int = 0,
+                        chunk_steps: int = 25,
+                        boundaries: Optional[List[int]] = None,
+                        adapter=None):
+        """Incremental generation: yields a GenerateResult after every
+        ``chunk_steps`` decode steps, or at the sorted absolute
+        ``boundaries`` inside (0, max_steps) and then at max_steps.
+
+        Each result holds ALL rows generated so far plus the per-row
+        ``unfinished`` flags. One prefill, one decode state and one
+        generator serve every segment, so the tokens are exactly those of
+        ``generate`` with the same seed. A host mirror of the token buffer
+        receives only each segment's new rows; those rows, the finish flags
+        and (when on) the audit counters come back in one readback per
+        segment. A budget of 0 steps yields one prompt-only result."""
+        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s = \
+            self._start(input_ids, attention_mask, max_new_tokens, seed,
+                        adapter)
+        B, L, C = ids.shape
+        host = np.zeros((B, base + buf_steps, C), np.int64)
+        host[:, :L] = ids                 # decode overwrites rows >= base
+        if max_steps == 0:
+            yield GenerateResult(tokens=host[:, :base].copy(), steps=0,
+                                 base=base, unfinished=np.zeros(B, bool))
+            return
+        bounds = (sorted(b for b in boundaries if 0 < b < max_steps)
+                  if boundaries else None)
+        audit_on = self._audit_on()
+        t1 = time.perf_counter()
+        done, audit = 0, None
+        while done < max_steps:
+            if bounds is not None:
+                upto = next((b for b in bounds if b > done), max_steps)
+            else:
+                upto = min(done + chunk_steps, max_steps)
+            st = self.run(st, base, upto, gen)
+            steps = st.step
+            parts = [st.tokens[:, base + done:base + steps].reshape(-1),
+                     st.unfinished.to(torch.int64)]
+            if audit_on:
+                parts += [st.audit_rows.reshape(1),
+                          st.audit_flagged.reshape(1)]
+            vals = torch.cat(parts).cpu().numpy()
+            n_new = B * (steps - done) * C
+            host[:, base + done:base + steps] = vals[:n_new].reshape(
+                B, steps - done, C)
+            unfin = vals[n_new:n_new + B].astype(bool)
+            if audit_on:
+                audit = (int(vals[-2]), int(vals[-1]))
+            yield GenerateResult(tokens=host[:, :base + steps].copy(),
+                                 steps=steps, base=base, unfinished=unfin,
+                                 audit=audit)
+            if steps < upto or not unfin.any():
+                break
+            done = steps
+        self._stats(prefill_s, t1, st, base, buf_steps, ids, mask, audit)

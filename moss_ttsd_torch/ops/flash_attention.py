@@ -55,6 +55,7 @@ SOURCES = {"flash_prefill": "flash_prefill.cu",
 HEAD_DIMS = (16, 32, 64, 128)
 PREFILL_BF16_HEAD_DIMS = (64, 128)   # the wgmma kernel's 128-byte panels
 DECODE_TILE = 64                     # flash_decode.cu key slots per tile
+DECODE_MAX_SPLIT = 32                # most partials a split decode merges
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _L_FLOOR = 1e-30
@@ -311,12 +312,19 @@ def decode_split_plan(B: int, Hkv: int, S: int, sm_count: int
 
     A pure function of the shapes: the extent never enters, so a tensor
     extent or a captured step needs no host read. ``chunk`` is a multiple
-    of the 64-slot tile and n_split * chunk >= S; B * Hkv * n_split blocks
-    reach ``sm_count`` wherever the cache has enough tiles for it (else
-    one tile per chunk). It splits only when B * Hkv < sm_count."""
+    of the 64-slot tile and n_split * chunk >= S. It splits only when
+    B * Hkv < sm_count, and then cuts chunks of as few tiles as keep the
+    merge at most ``DECODE_MAX_SPLIT`` partials: a block's tiles are a
+    chain of dependent loads, so one tile a chunk is the fastest plan on
+    the H100 until the merge of many partials costs more (PERF.md §6).
+    B * Hkv * n_split reaches ``sm_count`` wherever the cache has enough
+    tiles for it."""
     tiles = max(1, -(-S // DECODE_TILE))
-    want = -(-sm_count // max(1, B * Hkv))      # chunks per (row, kv-head)
-    per = max(1, tiles // max(1, want))         # tiles per chunk
+    if B * Hkv >= sm_count:
+        return 1, tiles * DECODE_TILE
+    want = -(-sm_count // (B * Hkv))            # chunks per (row, kv-head)
+    per = min(max(1, tiles // want),            # tiles per chunk
+              -(-tiles // DECODE_MAX_SPLIT))
     return -(-tiles // per), per * DECODE_TILE
 
 

@@ -4,10 +4,16 @@
 JSONL items -> normalized text + prompt audio (mono 16 kHz) -> one batched
 ``XYTokenizer.encode`` of the prompt voices -> prompt assembly -> delay
 shift -> left-pad -> ``GenerationEngine.generate`` -> un-shift ->
-``XYTokenizer.decode`` -> per-item audio. This port always takes the serial
-generate-then-vocode branch; the JAX package's decode/vocode overlap branch
-(byte-identical to the serial one) and streaming wait for the streaming
-slice.
+``XYTokenizer.decode`` -> per-item audio.
+
+When the step budget spans more than one 30 s codec window,
+``process_batch`` overlaps decode and vocode (``overlap_vocode``): the
+engine runs in segments that end where a codec window completes, and each
+completed window is vocoded while the LM decodes the next segment; the
+audio is byte-identical to the serial generate-then-vocode branch.
+``stream_item`` streams one item as PCM chunks through ``StreamVocoder``.
+Phase times go to ``PhaseTimings`` and to the process-wide ``metrics``
+registry (``utils/profiling.py``), which the server exports.
 """
 
 from __future__ import annotations
@@ -18,14 +24,16 @@ import threading
 import time
 import traceback
 from collections import OrderedDict
-from typing import List, Optional
+from typing import ClassVar, List, Optional
 
 import numpy as np
 
 from ..core.config import LMConfig, SamplingConfig
 from ..core.device import DeviceLike, resolve_device
 from ..decode.engine import GenerationEngine
-from ..models.codec.model import XYTokenizer
+from ..models.codec.model import (XYTokenizer, chunk_stride_codes,
+                                  quarter_window_buckets)
+from ..utils.profiling import metrics
 from . import prompt as pp
 from .jsonl import load_audio_data, process_jsonl_item
 from .text import normalize_text, rewrite_speaker_tags
@@ -44,9 +52,129 @@ class PhaseTimings:
     prefill_decode_s: float = 0.0
     vocode_s: float = 0.0
     generated_steps: int = 0
+    # the server's batch worker and its stream thread update one pipeline's
+    # timings at the same time
+    _lock: ClassVar[threading.Lock] = threading.Lock()
+
+    def add(self, phase: str, value) -> None:
+        """Accumulate ``value`` into ``phase`` under the lock."""
+        with self._lock:
+            setattr(self, phase, getattr(self, phase) + value)
 
     def as_dict(self):
         return dataclasses.asdict(self)
+
+
+class StreamVocoder:
+    """Sliding-window incremental vocoder for ONE growing token stream.
+
+    Turns an unshifted speech-id stream whose prefix only grows into PCM
+    chunks: each ``feed`` vocodes at most one codec window of new frames
+    with ``context_frames`` of left context (so a chunk boundary sees real
+    receptive field), emits only the new samples, and reads each chunk back
+    one feed later, so the copy overlaps the caller's next decode segment;
+    the first chunk is read at once (time to first audio). PCM is quantized to int16 on the device (half the readback
+    bytes). A partial window runs through the smallest quarter-window
+    bucket that holds it."""
+
+    def __init__(self, spt: XYTokenizer, context_frames: int = 25,
+                 timings=None):
+        if not 0 <= context_frames < spt.chunk_codes:
+            # a context as wide as the codec window never lets the sliding
+            # window (context + new frames) advance, and finish() would
+            # loop forever; effective_context() clamps against the stride
+            raise ValueError(
+                f"context_frames={context_frames} must be in [0, "
+                f"{spt.chunk_codes}) (the codec window in codes)")
+        self.spt = spt
+        self.context = context_frames
+        self.timings = timings
+        self.up = spt.cfg.decoder_upsample_rate      # samples per frame
+        self.K = spt.cfg.quantizer.codebook_size
+        self.buckets = quarter_window_buckets(spt.chunk_codes)
+        self.emitted = 0
+        self._pending = None
+
+    @staticmethod
+    def effective_context(spt: XYTokenizer, overlap_s: int, feed_steps: int,
+                          context_frames: int = 25) -> int:
+        """Clamp the left context so one feed's sliding window (context +
+        new frames) fits a single codec chunk call."""
+        return min(context_frames,
+                   max(0, chunk_stride_codes(spt, overlap_s) - feed_steps))
+
+    @property
+    def sample_rate(self) -> int:
+        return self.spt.output_sample_rate
+
+    def _dispatch(self, speech_ids: np.ndarray, start: int, end_c: int):
+        spt = self.spt
+        codes = np.clip(speech_ids[0, start:end_c].T.astype(np.int64),
+                        0, self.K - 1)
+        n = codes.shape[-1]
+        L = next(b for b in self.buckets if b >= n)
+        buf = np.zeros((spt.nq, 1, L), np.int64)
+        buf[:, 0, :n] = codes
+        out = spt._detokenize(buf, np.array([n]), pcm16=True)
+        return out, self.emitted - start, n
+
+    def _read(self, p) -> np.ndarray:
+        out, skip_frames, n = p
+        t0 = time.perf_counter()
+        wav = out["wav"].cpu().numpy()[0].astype(np.float32) / 32768.0
+        dt = time.perf_counter() - t0
+        if self.timings is not None:
+            self.timings.add("vocode_s", dt)
+        metrics.add("vocode_s", dt)
+        return wav[skip_frames * self.up:n * self.up]
+
+    def feed(self, speech_ids: np.ndarray, end: int) -> List[np.ndarray]:
+        """speech_ids (1, T, nq) unshifted, ``end`` = frames valid so far.
+        Returns 0-2 ready PCM chunks (float32 in [-1, 1])."""
+        out: List[np.ndarray] = []
+        new_p, end_c = None, 0
+        if end > self.emitted:
+            start = max(0, self.emitted - self.context)
+            # one dispatch covers at most one codec window (the largest
+            # bucket); frames past the cap drain in later feeds / finish
+            end_c = min(end, start + self.spt.chunk_codes)
+            new_p = self._dispatch(speech_ids, start, end_c)
+        if self._pending is not None:
+            new = self._read(self._pending)
+            self._pending = None
+            if new.size:
+                out.append(new)
+        if new_p is not None:
+            if self.emitted == 0:
+                new = self._read(new_p)
+                if new.size:
+                    out.append(new)
+            else:
+                self._pending = new_p
+            self.emitted = end_c
+        return out
+
+    def finish(self, speech_ids: Optional[np.ndarray],
+               end: int) -> List[np.ndarray]:
+        """Drain: vocode the frames the per-feed window cap deferred, then
+        read the last pending chunk."""
+        out: List[np.ndarray] = []
+        while speech_ids is not None and end > self.emitted:
+            start = max(0, self.emitted - self.context)
+            end_c = min(end, start + self.spt.chunk_codes)
+            new_p = self._dispatch(speech_ids, start, end_c)
+            if self._pending is not None:
+                new = self._read(self._pending)
+                if new.size:
+                    out.append(new)
+            self._pending = new_p
+            self.emitted = end_c
+        if self._pending is not None:
+            new = self._read(self._pending)
+            self._pending = None
+            if new.size:
+                out.append(new)
+        return out
 
 
 class TTSPipeline:
@@ -59,13 +187,16 @@ class TTSPipeline:
                  restricted_text_head: Optional[bool] = None,
                  restricted_audit_every: Optional[int] = None,
                  encode_cache_size: int = 16,
+                 overlap_vocode: bool = True,
                  device: DeviceLike = "cuda"):
         """``quant="int8"`` serves w8a16 weights; ``restricted_text_head``
         and ``restricted_audit_every`` set the decode policies of the same
         names (``GenerationEngine``). ``self.lm_cfg`` is the engine's config,
         with these overrides applied. ``encode_cache_size`` LRU-caches the
         codec encodings of single prompt voices by wav content (a fixed
-        voice is encoded once, not on every request); 0 disables it."""
+        voice is encoded once, not on every request); 0 disables it.
+        ``overlap_vocode`` vocodes each completed 30 s codec window while
+        the LM keeps decoding (outputs longer than one window only)."""
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.engine = GenerationEngine(
@@ -75,6 +206,7 @@ class TTSPipeline:
         self.lm_cfg = self.engine.cfg
         self.spt = spt
         self.vocode_rows_per_call = vocode_rows_per_call
+        self.overlap_vocode = overlap_vocode
         # codec window overlap (reference default 10 s on 30 s windows)
         self.vocode_overlap_s = min(10, max(0, spt.chunk_seconds - 1))
         self.timings = PhaseTimings()
@@ -134,10 +266,11 @@ class TTSPipeline:
                 cached = self._encode_cache.get(key)
                 if cached is not None:
                     self._encode_cache.move_to_end(key)
+                    metrics.add("tokenize_cache_hits", 1)
                     return cached
         t0 = time.perf_counter()
         codes = self.spt.encode([wav])["codes_list"][0]     # (nq, T)
-        self.timings.tokenize_s += time.perf_counter() - t0
+        self._add_time("tokenize_s", time.perf_counter() - t0)
         audio_codes = np.asarray(codes).T                   # (T, nq)
         if key is not None:
             with self._encode_cache_lock:
@@ -156,20 +289,27 @@ class TTSPipeline:
             return []
         t0 = time.perf_counter()
         codes_list = self.spt.encode(wavs)["codes_list"]
-        self.timings.tokenize_s += time.perf_counter() - t0
+        self._add_time("tokenize_s", time.perf_counter() - t0)
         return codes_list
+
+    def _add_time(self, phase: str, seconds: float) -> None:
+        """One phase's wall time into ``timings`` and ``metrics``."""
+        self.timings.add(phase, seconds)
+        metrics.add(phase, seconds)
 
     def process_batch(self, batch_items: List[dict],
                       system_prompt: str = SYSTEM_PROMPT,
                       start_idx: int = 0, use_normalize: bool = False,
-                      max_new_tokens: Optional[int] = None, seed: int = 0):
+                      max_new_tokens: Optional[int] = None, seed: int = 0,
+                      adapter=None):
         """Returns (texts_data, audio_results); audio_results entries are
         {audio_data (1, T) float32, sample_rate, index} or None.
 
         Per-item isolation: an item that fails preparation (a malformed
         record, a prompt wav that cannot be read) becomes None plus an
         "error" entry in its text metadata; the rest of the batch still
-        generates."""
+        generates. ``adapter`` (LoRA voices) is not ported: anything but
+        None raises ValueError in the engine."""
         staged, texts_data = [], []   # (i, meta slot, final_text, wav)
         for i, item in enumerate(batch_items):
             try:
@@ -205,9 +345,39 @@ class TTSPipeline:
                                         self.lm_cfg.speech_pad_token)
 
         t0 = time.perf_counter()
-        result = self.engine.generate(batch, mask, max_new_tokens, seed=seed)
-        self.timings.prefill_decode_s += time.perf_counter() - t0
-        self.timings.generated_steps += result.steps
+        C, nq = self.lm_cfg.channels, self.spt.nq
+        max_steps, _ = self.engine._step_budget(max_new_tokens,
+                                                batch.shape[1])
+        # decode <-> vocode overlap when the budget spans more than one
+        # codec window: segments end where a window completes for every
+        # row, and each completed window's vocode is queued on the card
+        # while the LM decodes the next segment (the same device calls as
+        # the serial branch, so the audio is byte-identical)
+        inc = None
+        if self.overlap_vocode and max_steps - (C - 1) > self.spt.chunk_codes:
+            inc = self.spt.incremental_decoder(
+                overlap_seconds=self.vocode_overlap_s, pcm16=True,
+                rows_per_call=self.vocode_rows_per_call)
+            first_ready = self.spt.chunk_codes + C - 1
+            n_chunks = -(-(max_steps - (C - 1)) // inc.duration_codes)
+            bounds = [first_ready + ci * inc.duration_codes
+                      for ci in range(n_chunks)]
+            result = None
+            for result in self.engine.generate_stream(
+                    batch, mask, max_new_tokens, seed=seed,
+                    boundaries=bounds, adapter=adapter):
+                inc.feed([c if c is not None else np.zeros((nq, 0), np.int64)
+                          for c in self.extract_codes(result)],
+                         [not bool(u) for u in result.unfinished])
+        else:
+            result = self.engine.generate(batch, mask, max_new_tokens,
+                                          seed=seed, adapter=adapter)
+        self._add_time("prefill_decode_s", time.perf_counter() - t0)
+        self.timings.add("generated_steps", result.steps)
+        metrics.add("generated_steps", result.steps)
+        if result.audit is not None:
+            metrics.add("restricted_audit_rows", result.audit[0])
+            metrics.add("restricted_audit_flagged", result.audit[1])
 
         final_codes = self.extract_codes(result)
         valid_idx, valid_codes = [], []
@@ -219,11 +389,17 @@ class TTSPipeline:
         wavs = []
         if valid_codes:
             t0 = time.perf_counter()
-            wavs = self.spt.decode(
-                valid_codes, overlap_seconds=self.vocode_overlap_s,
-                pcm16=True,
-                rows_per_call=self.vocode_rows_per_call)["syn_wav_list"]
-            self.timings.vocode_s += time.perf_counter() - t0
+            if inc is not None and len(valid_codes) == len(final_codes):
+                wavs = inc.finish(final_codes)["syn_wav_list"]
+            else:
+                # the serial branch, also when the overlap ran but some rows
+                # made no speech: the serial contract vocodes only the valid
+                # rows, and another vocode batch changes the GEMM shapes
+                wavs = self.spt.decode(
+                    valid_codes, overlap_seconds=self.vocode_overlap_s,
+                    pcm16=True,
+                    rows_per_call=self.vocode_rows_per_call)["syn_wav_list"]
+            self._add_time("vocode_s", time.perf_counter() - t0)
 
         audio_results = [None] * len(batch_items)
         for i, wav in zip(valid_idx, wavs):
@@ -257,3 +433,42 @@ class TTSPipeline:
         li = pp.find_max_valid_positions(speech_ids,
                                          self.lm_cfg.speech_pad_token)
         return speech_ids, li + 1
+
+    def stream_item(self, item: dict, system_prompt: str = SYSTEM_PROMPT,
+                    use_normalize: bool = False,
+                    max_new_tokens: Optional[int] = None, seed: int = 0,
+                    chunk_steps: int = 25, context_frames: int = 25,
+                    first_chunk_steps: int = 12, adapter=None):
+        """Streaming synthesis of ONE item: yields (audio chunk (T,)
+        float32, sample_rate) as generation progresses (~``chunk_steps`` /
+        12.5 s of new audio a yield).
+
+        The first segment is only ``first_chunk_steps`` decode steps and
+        its vocode is read back at once, so the first audio comes after the
+        prefill, those steps and one small vocode. Every later segment's
+        vocode runs one segment behind the decode: it is queued on the
+        card, and read back while the next segment decodes. The vocoder
+        re-runs a sliding window with ``context_frames`` of left context
+        (``StreamVocoder``) and emits only the new samples."""
+        shifted, _ = self.prepare_item(item, system_prompt, use_normalize)
+        batch, mask = pp.left_pad_batch([shifted], self.tokenizer.pad_token_id,
+                                        self.lm_cfg.speech_pad_token)
+        sv = StreamVocoder(
+            self.spt, StreamVocoder.effective_context(
+                self.spt, self.vocode_overlap_s, chunk_steps, context_frames),
+            timings=self.timings)
+        max_steps, _ = self.engine._step_budget(max_new_tokens, batch.shape[1])
+        bounds = [min(first_chunk_steps, chunk_steps, max_steps)]
+        while bounds[-1] < max_steps:
+            bounds.append(min(bounds[-1] + chunk_steps, max_steps))
+
+        last_ids, last_end = None, 0
+        for result in self.engine.generate_stream(batch, mask, max_new_tokens,
+                                                  seed=seed, boundaries=bounds,
+                                                  adapter=adapter):
+            speech_ids, ends = self.unshift_end(result.tokens, result.base)
+            last_ids, last_end = speech_ids, int(ends[0])
+            for chunk in sv.feed(speech_ids, last_end):
+                yield chunk, sv.sample_rate
+        for chunk in sv.finish(last_ids, last_end):
+            yield chunk, sv.sample_rate

@@ -502,3 +502,34 @@ def test_codec_encode_on_card_matches_cpu(cuda):
     for a, b in zip(cpu.encode(wavs)["codes_list"],
                     gpu.encode(wavs)["codes_list"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("do_sample", [False, True])
+def test_generate_stream_on_card_equals_generate(cuda, do_sample):
+    """generate_stream on the card, in segments over one state and one
+    generator: the tokens of generate with the same seed, greedy and
+    sampled, and the segments end at the boundaries."""
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             LMConfig, SamplingConfig)
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny(
+        speech_token_range=(0, 160))
+    sampling = SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=do_sample, temperature=0.9 if do_sample else None,
+        top_k=20 if do_sample else None, top_p=0.9 if do_sample else None)
+        for _ in range(cfg.channels)], max_new_tokens=30)
+    rng = np.random.default_rng(1)
+    prompt = np.full((2, 20, cfg.channels), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = rng.integers(1, 90, (2, 20))
+    mask = np.ones((2, 20), np.int64)
+    mask[1, :7] = 0
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    with torch.no_grad():       # EOS logit 0: the rows decode all 30 steps
+        model.embed_text[cfg.eos_token_id] = 0.0
+    eng = GenerationEngine(cfg, model, sampling, bucket=32, device="cuda")
+    full = eng.generate(prompt, mask, 30, seed=3)
+    res = list(eng.generate_stream(prompt, mask, 30, seed=3,
+                                   boundaries=[12, 25]))
+    assert [r.steps for r in res] == [12, 25, 30] and full.steps == 30
+    np.testing.assert_array_equal(res[-1].tokens, full.tokens)

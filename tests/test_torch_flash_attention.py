@@ -171,6 +171,9 @@ def test_decode_split_plain_matches_jax_kernel(n_split):
     (1, 1, 1, 132),        # one slot
     (3, 2, 70, 132),       # fewer tiles than the card needs
     (64, 8, 300, 132),     # more (row, kv-head) pairs than SMs
+    (3, 8, 761, 132),      # the voice-cloning run: one tile a chunk
+    (1, 8, 4096, 132),     # 64 tiles: at most DECODE_MAX_SPLIT partials
+    (8, 8, 1557, 132),     # batch 8, the long form's capacity
 ])
 def test_decode_split_plan(B, Hkv, S, sm):
     import inspect
@@ -187,8 +190,14 @@ def test_decode_split_plan(B, Hkv, S, sm):
         assert B * Hkv * n_split >= sm
     else:
         assert n_split == tiles                  # one tile per chunk
-    if (B, Hkv, S, sm) == (2, 8, 633, 132):
-        assert (n_split, chunk) == (10, 64)
+    assert n_split <= fa.DECODE_MAX_SPLIT
+    if n_split > 1 and tiles <= fa.DECODE_MAX_SPLIT:
+        assert chunk == 64                       # one tile a chunk
+    want = {(2, 8, 633, 132): (10, 64), (3, 8, 761, 132): (12, 64),
+            (8, 8, 633, 132): (10, 64), (1, 8, 4096, 132): (32, 128),
+            (1, 8, 1557, 132): (25, 64)}
+    if (B, Hkv, S, sm) in want:
+        assert (n_split, chunk) == want[(B, Hkv, S, sm)]
 
 
 def test_prefill_bf16_p_plain_matches_jax_kernel_bf16():

@@ -118,12 +118,36 @@ def test_cli_without_cuda_raises(no_cuda, tmp_path):
 def test_cli_unported_flags_fail_loudly(tmp_path):
     from moss_ttsd_torch.cli.inference import main
     for extra in (["--mesh", "2x1"], ["--attn_impl", "xla"],
-                  ["--profile_dir", str(tmp_path)],
+                  ["--profiler_port", "9999"],
                   ["--lora_adapter", "a=b"], ["--quant", "int4"]):
         with pytest.raises(SystemExit):
             main(["--tiny", "--platform", "cpu", *extra])
     with pytest.raises(SystemExit, match="not yet ported"):
         main(["--platform", "cpu", "--output_dir", str(tmp_path)])
+
+
+def test_server_without_cuda_raises(no_cuda):
+    """The server CLI and the tiny pipeline it serves run on the card
+    unless asked for the CPU; the streaming path has no CPU fallback."""
+    from moss_ttsd_torch.cli.inference import build_tiny_pipeline
+    from moss_ttsd_torch.serve.server import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--tiny", "--host", "127.0.0.1", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--host", "127.0.0.1", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tiny_pipeline()
+
+
+def test_stream_item_runs_where_its_pipeline_runs(no_cuda):
+    """stream_item runs on its pipeline's device: a CPU pipeline streams on
+    the CPU with no card; a card pipeline cannot be built without one."""
+    from moss_ttsd_torch.cli.inference import build_tiny_pipeline
+    pipe = build_tiny_pipeline(device="cpu")
+    chunks = list(pipe.stream_item({"text": "[S1]hi[S2]there"},
+                                   max_new_tokens=12, chunk_steps=4))
+    assert chunks and all(sr == 24000 for _, sr in chunks)
+    assert pipe.engine.device.type == pipe.spt.device.type == "cpu"
 
 
 def test_codec_roundtrip_cli_refuses_unported_flags(tmp_path):
