@@ -56,6 +56,23 @@ Phases, each printing one JSON line:
      voice-cloning request (a base64 reference wav), a streamed request
      (PCM16), the port's API client, /v1/metrics; a lone request equals
      process_batch within one int16 step;
+     Then the continuous scheduler over the same pipeline (8 slots, base
+     512, max_steps 128, int8 KV by the auto rule, a LoRA voice): five
+     wav requests 0.3 s apart, two streams decoding in the pool at once, a
+     voiced request, an over-budget request routed to the overflow
+     worker; /v1/models lists the voice; latency p50/p95, TTFA p50,
+     joins, segments, routed overflow and the launches of B1, B2, B3;
+ 10b. pool    — the continuous slot pool at the server's default geometry
+     (8 slots, base 512, max_steps 2048: a 2560-slot cache), two random
+     rank-16 LoRA adapters on all seven projections: eight greedy requests
+     in one burst (budgets 64-256, three base, five voiced) give the
+     static engine's tokens at the same batch exactly, with the int8 KV
+     cache (B3) and with the bf16 cache (B2); fp32 weights and cache,
+     requests joining at three segment boundaries, greedy and sampled,
+     each row equal to its isolated batch-1 generate (a flip prints the
+     row, the step and the logit gap); the throughput line (pool steps/s,
+     frames/s at B 8, launches and host syncs a step, the per-row draws,
+     peak memory, admission prefill ms per burst size);
  11. cli      — the --tiny CLIs on the card write wavs: inference as it is,
      with --profile_dir (a torch.profiler trace), with --quant int8
      --restricted_text_head, and cloning the voices of
@@ -64,7 +81,9 @@ then the ``kernels`` line (times, bounds, launches; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
 so at (8, 633), longer caches at B 1, 3 and 8 and the stream's capacity,
-``shape_sweep``) and,
+``shape_sweep``; with the pool phase each kernel also at the pool's
+shapes, ``pool``: flash_prefill at (8, 512) and (1, 512), both decodes at
+(8, 2560) at the extents the pool reached and at the full extent) and,
 last, the result line {"ok": true, "device": {...}}. Any failing phase
 exits non-zero with no result line. Without a CUDA device it exits 1 at
 once.
@@ -1608,6 +1627,653 @@ def server_phase(pipe, max_tokens: int = 128):
 
 
 # ---------------------------------------------------------------------------
+# phase: pool (the continuous slot pool, multi-LoRA)
+# ---------------------------------------------------------------------------
+
+POOL_TEXTS = (
+    "[S1]Welcome back to the show, it is good to have you here.[S2]Thanks, "
+    "glad to be back.",
+    "[S1]Short one.[S2]Yes.",
+    "[S1]Today we talk about the weather on the coast and why the fog "
+    "comes in so early in the summer months.[S2]It is the cold current, "
+    "mostly, and the warm air above it.",
+    "[S1]Can you say that again?[S2]Of course. The fog comes from the "
+    "cold water.",
+    "[S1]What about the mountains?[S2]Different story there.",
+    "[S1]Let us take a question from a listener who wrote in last week "
+    "about the long drive home.[S2]Happy to.")
+
+
+def _greedy(channels: int, n: int = 256):
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             SamplingConfig)
+    return SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=False, temperature=None, top_k=None, top_p=None)
+        for _ in range(channels)], max_new_tokens=n)
+
+
+def pool_adapter(cfg, seed: int, rank: int = 16):
+    """A random rank-16 LoRA adapter on all seven projections of every
+    layer (the reference's finetune targets), layer-stacked factors in the
+    flat registry format; a and b N(0, 0.02), so with alpha 32 / rslora the
+    delta is of the order of the projections' own output."""
+    import numpy as np
+    g = np.random.default_rng(seed)
+    H, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    hid, inter, L = (cfg.hidden_size, cfg.intermediate_size,
+                     cfg.num_hidden_layers)
+    dims = {"q_proj": (hid, H * D), "k_proj": (hid, Hkv * D),
+            "v_proj": (hid, Hkv * D), "o_proj": (H * D, hid),
+            "gate_proj": (hid, inter), "up_proj": (hid, inter),
+            "down_proj": (inter, hid)}
+    return {f"layers/block/{t}/kernel": {
+        "a": (g.standard_normal((L, fi, rank), np.float32) * 0.02),
+        "b": (g.standard_normal((L, rank, fo), np.float32) * 0.02)}
+        for t, (fi, fo) in dims.items()}
+
+
+def pool_prompts(pipe, n: int):
+    """n delay-shifted prompts of the main path's text items and more."""
+    texts = [it["text"] for it in load_items()] + list(POOL_TEXTS)
+    return [pipe.prepare_item({"text": t})[0] for t in texts[:n]]
+
+
+def _make_pool(cfg, model, sampling, kv_quant, adapters):
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    cb = ContinuousBatcher(cfg, model, sampling, slots=8, base=512,
+                           max_steps=2048, device="cuda", kv_quant=kv_quant)
+    for name, tree in adapters.items():
+        cb.register_adapter(name, tree, alpha=32.0, use_rslora=True)
+    return cb
+
+
+def _run_to_end(cb, n, segment: int = 25):
+    """Run the pool in segments until n rows have finished; returns (pool
+    steps, wall seconds)."""
+    import torch
+    t0, steps = time.perf_counter(), 0
+    while len(cb.finished()) < n:
+        ran = cb.run(steps=segment)
+        if not ran:
+            break
+        steps += ran
+    torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0
+
+
+def _pool_extent(cb):
+    """The (B,) extent the pool's next step gives each row (the last valid
+    slot + 1 for live rows, 1 for the others) and its valid bits."""
+    import torch
+    st = cb.state
+    adv = st.active & st.unfinished
+    iota = torch.arange(1, cb.S + 1, device="cuda")
+    last = torch.where(st.key_valid, iota, 0).amax(dim=1)
+    return (st.key_valid.clone(),
+            torch.where(adv, last, 1).to(torch.int32))
+
+
+def burst_check(pipe, adapters, prompts, kv_quant):
+    """Eight greedy requests admitted in ONE burst at pool step 0 (budgets
+    64-256; three on the base model, five split between two LoRA voices)
+    against the static engine at the same batch, adapters, capacity
+    (step_bucket 2048) and kv_quant: every row's tokens identical up to
+    its own budget (the pool writes the same slots in the same batch as
+    the static run). Counts the launches of the pool's run alone; with
+    int8 KV also snapshots the valid bits and extents the pool reached
+    (half-way) for the kernel rows."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline import prompt as pp
+    cfg, model = pipe.engine.cfg, pipe.engine.model
+    C, L = cfg.channels, cfg.num_hidden_layers
+    greedy = _greedy(C)
+    budgets = [64, 96, 128, 160, 192, 224, 256, 80]
+    rows = [None, None, None, "v1", "v1", "v1", "v2", "v2"]
+    cb = _make_pool(cfg, model, greedy, kv_quant, adapters)
+    line = {"kv_quant": kv_quant, "budgets": budgets, "adapters": rows,
+            "prompt_rows": [len(p) for p in prompts]}
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    slots = cb.submit_many([(p, b, 0, a) for p, b, a in
+                            zip(prompts, budgets, rows)])
+    torch.cuda.synchronize()
+    line["admission_ms"] = (time.perf_counter() - t0) * 1e3
+    snap = None
+    if kv_quant == "int8":
+        half = cb.run(128)
+        snap = _pool_extent(cb)
+        steps = half + _run_to_end(cb, 8)[0]
+    else:
+        steps = _run_to_end(cb, 8)[0]
+    line["launches"] = fa.launch_counts()
+    line["pool_steps"] = steps
+    got = {s: cb.collect(s) for s in slots}
+    want_launch = {"flash_prefill": L,
+                   "flash_decode_hs": 0 if kv_quant == "int8" else L * steps,
+                   "flash_decode_int8_hs": L * steps if kv_quant == "int8"
+                   else 0}
+    problems = []
+    if line["launches"] != want_launch:
+        problems.append(f"launches {line['launches']} != {want_launch}")
+    del cb
+    torch.cuda.empty_cache()
+
+    eng = GenerationEngine(cfg, model, greedy, bucket=512 + C - 1,
+                           step_bucket=2048, device="cuda",
+                           kv_quant=kv_quant)
+    for name, tree in adapters.items():
+        eng.register_adapter(name, tree, alpha=32.0, use_rslora=True)
+    # left pads as the pool's (cfg.pad_token_id), so the prompts are the
+    # same ids
+    batch, mask = pp.left_pad_batch(prompts, cfg.pad_token_id,
+                                    cfg.speech_pad_token)
+    ref = eng.generate(batch, mask, max(budgets), adapter=rows)
+    del eng
+    torch.cuda.empty_cache()
+    same = []
+    for i, s in enumerate(slots):
+        g, b = got[s], budgets[i]
+        ok = (g.steps == b and g.base == ref.base and np.array_equal(
+            g.tokens[0, g.base:g.base + b], ref.tokens[i, ref.base:ref.base
+                                                       + b]))
+        same.append(bool(ok))
+    line["rows_identical"] = same
+    if not all(same):
+        problems.append(f"burst {kv_quant}: rows != static engine: {same}")
+    line["problems"] = problems
+    return line, snap
+
+
+def _flip_report(eng, prompt, seed, adapter, step, chan, tok_a, tok_b):
+    """The logits of the isolated engine at ``step`` of one request: the
+    gap between the two tokens that differ on channel ``chan``."""
+    import numpy as np
+    import torch
+    ids = prompt[None]
+    mask = np.ones((1, len(prompt)), np.int64)
+    st, base, _, _, gen, *_rest, ad = eng._start(ids, mask, max(step, 1),
+                                                 seed, adapter)
+    eng.run(st, base, step, gen, ad)
+    t, s = eng.model.logits_all(st.hidden_last)
+    row = t[0, 0] if chan == 0 else s[0, 0, chan - 1]
+    return {"step": step, "channel": chan, "pool_token": int(tok_a),
+            "isolated_token": int(tok_b),
+            "logit_gap": float(row[tok_b] - row[tok_a])}
+
+
+def staggered_check(pipe, adapters32, prompts):
+    """fp32 weights and cache, TF32 off, at full width: requests join the
+    pool at three segment boundaries (mixed adapters), one greedy pool and
+    one sampled pool; each row against its isolated batch-1 generate
+    (same seed, adapter and capacity). On a flip: the row, the step and
+    the logit gap there."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = LMConfig.from_dict({**pipe.engine.cfg.to_dict(),
+                              "dtype": "float32", "param_dtype": "float32"})
+    model = AsteroidLM.init_random(cfg, seed=1, device="cuda",
+                                   dtype=torch.float32)
+    C = cfg.channels
+    budgets = [64, 48, 56, 40]
+    rows = [None, "v1", "v2", "v1"]
+    seeds = [11, 12, 13, 14]
+    line, problems = {"budgets": budgets, "adapters": rows}, []
+    for mode, sampling in (("greedy", _greedy(C)), ("sampled",
+                                                    pipe.engine.sampling)):
+        cb = _make_pool(cfg, model, sampling, "none", adapters32)
+        slots = cb.submit_many([(prompts[0], budgets[0], seeds[0], rows[0]),
+                                (prompts[1], budgets[1], seeds[1], rows[1])])
+        cb.run(25)
+        slots.append(cb.submit(prompts[2], budgets[2], seeds[2], rows[2]))
+        cb.run(25)
+        slots.append(cb.submit(prompts[3], budgets[3], seeds[3], rows[3]))
+        _run_to_end(cb, 4)
+        got = [cb.collect(s) for s in slots]
+        del cb
+        torch.cuda.empty_cache()
+        eng = GenerationEngine(cfg, model, sampling, bucket=512 + C - 1,
+                               step_bucket=2048, device="cuda")
+        for name, tree in adapters32.items():
+            eng.register_adapter(name, tree, alpha=32.0, use_rslora=True)
+        res = []
+        for i, g in enumerate(got):
+            p = prompts[i]
+            ref = eng.generate(p[None], np.ones((1, len(p)), np.int64),
+                               budgets[i], seed=seeds[i], adapter=rows[i])
+            a = g.tokens[0, g.base:]
+            b = ref.tokens[0, ref.base:]
+            ok = g.steps == ref.steps and np.array_equal(a, b)
+            res.append(bool(ok))
+            if not ok:
+                n = min(len(a), len(b))
+                diff = np.argwhere(a[:n] != b[:n])
+                if len(diff):
+                    s, ch = (int(x) for x in diff[0])
+                    rep = _flip_report(eng, p, seeds[i], rows[i], s, ch,
+                                       a[s, ch], b[s, ch])
+                else:
+                    rep = {"steps": [g.steps, ref.steps]}
+                problems.append({"mode": mode, "row": i, **rep})
+        line[mode] = res
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    line["problems"] = problems
+    return line
+
+
+def _launches_per_step(cb, steps):
+    """(kernel events, launch API calls) a pool step over ``steps`` steps,
+    from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = cb.run(steps)
+        torch.cuda.synchronize()
+    kern = launch = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kern += e.count
+        elif e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launch += e.count
+    return kern / max(n, 1), launch / max(n, 1)
+
+
+def throughput_run(pipe, adapters, prompts):
+    """The serving geometry under the pipeline's sampled config (top-k 50,
+    top-p 0.95, T 0.9 on every channel), int8 KV, eight requests of 128
+    steps in one burst (three base, five voiced): pool steps/s and frames/s
+    at B 8, host syncs a step (sync debug mode), launches a step
+    (torch.profiler: kernel events and launch API calls), the per-row
+    draws a step, peak memory; then admission prefill ms and flash_prefill
+    launches per burst size (counted in the timed admission alone), and
+    the launches a step of eight base-model rows with the voices still
+    registered (no adapter work then)."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops import sampling as sam
+    cfg, model = pipe.engine.cfg, pipe.engine.model
+    rows = [None, None, None, "v1", "v1", "v1", "v2", "v2"]
+    cb = _make_pool(cfg, model, pipe.engine.sampling, "int8", adapters)
+    line = {"batch": 8, "steps_per_request": 128, "kv_quant": "int8",
+            "sampling": "top_k 50, top_p 0.95, T 0.9"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.submit_many([(p, 128, i, a) for i, (p, a) in
+                    enumerate(zip(prompts, rows))])
+    cb.run(cfg.channels)                          # past the TF window
+    torch.cuda.synchronize()
+    draws0 = sam.categorical.row_draws
+    t0 = time.perf_counter()
+    ran = cb.run(64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line["pool_steps_per_s"] = ran / wall
+    line["frames_per_s"] = 8 * ran / wall
+    line["row_draws_per_step"] = (sam.categorical.row_draws - draws0) / ran
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            n = cb.run(8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    line["host_syncs_per_step"] = sum(
+        "synchroniz" in str(x.message) for x in w) / max(n, 1)
+    (line["kernel_events_per_step"],
+     line["launch_calls_per_step"]) = _launches_per_step(cb, 8)
+    _run_to_end(cb, 8)
+    line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for s, _ in cb.poll():
+        cb.collect(s)
+    prefill_ms, prefill_launches = {}, {}
+    for K in (1, 2, 4, 8):
+        for _ in range(2):              # the second is timed and counted
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            slots = cb.submit_many([(p, 16, 0, None) for p in prompts[:K]])
+            torch.cuda.synchronize()
+            prefill_ms[str(K)] = (time.perf_counter() - t0) * 1e3
+            prefill_launches[str(K)] = fa.launch_counts()["flash_prefill"]
+            for s in slots:
+                cb.release(s)
+    line["admission_prefill_ms"] = prefill_ms
+    line["admission_prefill_launches"] = prefill_launches
+    cb.submit_many([(p, 64, i, None) for i, p in enumerate(prompts)])
+    cb.run(cfg.channels)
+    (line["base_rows_kernel_events_per_step"],
+     line["base_rows_launch_calls_per_step"]) = _launches_per_step(cb, 8)
+    del cb
+    torch.cuda.empty_cache()
+    return line
+
+
+def pool_phase(pipe):
+    """The continuous pool at the server's default geometry (8 slots, base
+    512, max_steps 2048: a 2560-slot cache), full width: the exact burst
+    check with int8 KV (B3) and with the bf16 cache (B2), the fp32
+    staggered check, the throughput line. Returns the line (with the
+    shapes, launches and snapshot the kernel rows need)."""
+    import torch
+    cfg = pipe.engine.cfg
+    adapters = {"v1": pool_adapter(cfg, 1), "v2": pool_adapter(cfg, 2)}
+    prompts = pool_prompts(pipe, 8)
+    C = cfg.channels
+    line = {"phase": "pool", "slots": 8, "base": 512, "max_steps": 2048,
+            "adapter_rank": 16, "adapter_targets": 7}
+    problems = []
+    t0 = time.perf_counter()
+    b8, snap = burst_check(pipe, adapters, prompts, "int8")
+    b16, _ = burst_check(pipe, adapters, prompts, "none")
+    line["burst_int8"], line["burst_bf16"] = b8, b16
+    problems += b8["problems"] + b16["problems"]
+    line["burst_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = staggered_check(pipe, adapters, prompts)
+    line["staggered_fp32"] = st
+    problems += [f"staggered fp32 flip: {p}" for p in st["problems"]]
+    line["staggered_s"] = time.perf_counter() - t0
+    line["throughput"] = throughput_run(pipe, adapters, prompts)
+    torch.cuda.synchronize()
+    adm = line["throughput"]["admission_prefill_launches"]
+    if any(n != cfg.num_hidden_layers for n in adm.values()):
+        problems.append(f"admission prefill launches {adm}: one a layer")
+    pads = [512 + C - 1 - len(p) for p in prompts]
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"pool phase failed: {problems}")
+    return {**line, "prefill_pads": pads, "snapshot": snap,
+            "layers": cfg.num_hidden_layers}
+
+
+
+def pool_decode_times(gen, valid, ext, kind, SETS):
+    """flash_decode_hs (kind "bf16") or flash_decode_int8_hs ("int8") at the
+    pool's (8, 2560) with its (B,) int32 extent and ring-addressed valid
+    bits, over a SETS-layer stack read through the layer index (as the
+    path reads it): kernel, plain and library ms (SDPA over the slots below
+    the longest extent; for int8 no PyTorch call attends over the cache,
+    so library_ms is null and dequant_sdpa_ms is the reference point), the
+    check against the plain version, the bytes and flops of the valid
+    slots below each row's extent."""
+    import torch
+    import torch.nn.functional as F
+    from moss_ttsd_torch.ops import flash_attention as fa
+    B, S = valid.shape
+    H, Hkv, D = 16, 8, 128
+    bf = torch.bfloat16
+    scale = D ** -0.5
+    q = _rand(gen, (B, 1, H, D), bf)
+    shape = (SETS, B, Hkv, S, D)
+    if kind == "int8":
+        kq, ks = _int8_kv(gen, shape)
+        vq, vs = _int8_kv(gen, shape)
+        cache = (kq, ks, vq, vs)
+        kernel, plain = fa.flash_decode_int8_hs, fa.flash_decode_int8_hs_plain
+    else:
+        cache = (_rand(gen, shape, bf), _rand(gen, shape, bf))
+        kernel, plain = fa.flash_decode_hs, fa.flash_decode_hs_plain
+    iota = torch.arange(S, device="cuda")
+    below = valid & (iota[None, :] < ext[:, None].long())
+    nv = int(below.sum())
+    emax = int(ext.max())
+    mask = below[:, None, None, :emax]
+    qh = q.transpose(1, 2)
+    per = 1 if kind == "int8" else 2
+    nbytes = (2 * Hkv * D * per * nv + (2 * Hkv * 4 * nv if kind == "int8"
+                                        else 0)
+              + 2 * 2 * q.numel() + int(ext.long().sum()) + 4 * B)
+    flops = 4 * D * H * nv
+
+    def lib(i):
+        l = i % SETS
+        if kind == "int8":
+            k = cache[0][l][:, :, :emax].to(bf) * cache[1][l][
+                :, :, :emax, None].to(bf)
+            v = cache[2][l][:, :, :emax].to(bf) * cache[3][l][
+                :, :, :emax, None].to(bf)
+        else:
+            k, v = cache[0][l][:, :, :emax], cache[1][l][:, :, :emax]
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    out = kernel(q, *cache, valid, scale, extent=ext, layer=0)
+    ref = plain(q, *cache, valid, scale, extent=ext, layer=0,
+                out_dtype=torch.float32, p_dtype=bf)
+    check = compare(out, ref)
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
+    res = {"shape": [B, S, H, Hkv, D], "extent_max": emax,
+           "extent": [int(x) for x in ext.tolist()], "valid_slots": nv,
+           "n_split": n_split, "chunk": chunk, "blocks": B * Hkv * n_split,
+           "max_abs_err": check["max_abs_err"],
+           "tolerance": check["tolerance"], "pass": check["ok"],
+           "ms": cuda_ms(lambda i: kernel(q, *cache, valid, scale,
+                                          extent=ext, layer=i % SETS),
+                         2 * SETS),
+           "plain_ms": cuda_ms(lambda i: plain(
+               q, *cache, valid, scale, extent=ext, layer=i % SETS,
+               p_dtype=bf), SETS),
+           "bytes": nbytes, "flops": flops, **_bound(nbytes, flops)}
+    lib_ms = cuda_ms(lib, 2 * SETS)
+    if kind == "int8":
+        res.update(library_ms=None, dequant_sdpa_ms=lib_ms)
+    else:
+        res["library_ms"] = lib_ms
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def pool_kernel_rows(pool, checks_ok, SETS):
+    """The pool's shapes for the kernels line: flash_prefill at the burst
+    admission (8, 512) and a lone join (1, 512) with the prompts' left
+    pads; both decodes at (8, 2560), at the extents the pool reached
+    half-way through the int8 burst (four rows live, four frozen) and at
+    the full extent (a full ring, every row live)."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    H, Hkv, D = 16, 8, 128
+    pads = pool["prefill_pads"]
+    out = {"flash_prefill": {}, "flash_decode_hs": {},
+           "flash_decode_int8_hs": {}}
+    # the burst's (8, 512) prefill ran in the int8 burst check, a lone
+    # join's (1, 512) in the throughput run's timed Kb-1 admission
+    launches = {8: pool["burst_int8"]["launches"]["flash_prefill"],
+                1: pool["throughput"]["admission_prefill_launches"]["1"]}
+    for B in (8, 1):
+        pd = pads[:B]
+        t = prefill_times(gen, B, 512, pd, H, Hkv, D, SETS)
+        chk = prefill_case(gen, f"pool_B{B}", B, 512, H, Hkv, D,
+                           torch.bfloat16, pd)
+        out["flash_prefill"][f"pool_B{B}_T512"] = {
+            "shape": [B, 512, H, Hkv, D], "left_pad": pd,
+            "launches": launches[B],
+            "max_abs_err": chk["max_abs_err"], "pass": chk["ok"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bytes": t["bytes"],
+            "flops": t["flops"]}
+        checks_ok.append(chk["ok"])
+    valid, ext = pool["snapshot"]
+    S = valid.shape[1]
+    full_valid = torch.zeros_like(valid)
+    for b, p in enumerate(pads):
+        full_valid[b, p:] = True
+    full_ext = torch.full_like(ext, S)
+    for kind, name, burst in (("bf16", "flash_decode_hs", "burst_bf16"),
+                              ("int8", "flash_decode_int8_hs",
+                               "burst_int8")):
+        for tag, v, e in (("reached", valid, ext),
+                          ("full", full_valid, full_ext)):
+            r = pool_decode_times(gen, v, e, kind, SETS)
+            r["launches"] = pool[burst]["launches"][name]
+            out[name][f"pool_B8_S{S}_{tag}"] = r
+            checks_ok.append(r["pass"])
+    return out
+
+
+def continuous_server_part(pipe):
+    """SpeechServer(scheduler="continuous") over the same pipeline on
+    127.0.0.1: 8 slots, base 512, max_steps 128 (a 640-slot cache, so the
+    auto KV policy picks int8, and an over-budget request stays cheap),
+    segments of 25, one LoRA voice "narrator". Five wav requests arriving
+    0.3 s apart, two streamed requests at once (both decode in the pool
+    together), one request naming the voice, one over-budget request routed
+    to the overflow worker; /v1/models lists the voice, an unknown voice
+    is a 400. Reports latency p50 / p95, stream TTFA p50, joins, segments,
+    routed-overflow and the launch counts of the part."""
+    import http.client
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.serve.api_client import wav_bytes_to_array
+    from moss_ttsd_torch.serve.server import SpeechServer
+    from moss_ttsd_torch.utils.profiling import metrics
+
+    eng = pipe.engine
+    srv = SpeechServer(pipe, "127.0.0.1", 0, max_batch=8,
+                       scheduler="continuous", pool_base=512,
+                       pool_max_steps=128, segment_steps=25,
+                       lora_adapters={"narrator": pool_adapter(eng.cfg, 3)})
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    worker = srv.worker
+    problems = []
+    line = {"phase": "server_continuous", "slots": 8, "pool_base": 512,
+            "pool_max_steps": 128, "segment_steps": 25,
+            "pool_kv_quant": worker.cb.cfg.kv_quant}
+    # the most streams decoding in one segment, seen from the worker
+    seen = {"streams": 0}
+    orig_service = worker._service
+
+    def service():
+        live = sum(r.stream_q is not None for r in worker._live.values())
+        seen["streams"] = max(seen["streams"], live)
+        return orig_service()
+
+    worker._service = service
+
+    def post(payload):
+        req = urllib.request.Request(f"{base}/v1/audio/speech",
+                                     json.dumps(payload).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    def stream(payload, out, i):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
+        conn.request("POST", "/v1/audio/speech", json.dumps(
+            {**payload, "stream": True}), {"Content-Type":
+                                           "application/json"})
+        r = conn.getresponse()
+        out[i] = (r.status, r.read())
+        conn.close()
+
+    texts = [it["text"] for it in load_items()] + list(POOL_TEXTS)
+    try:
+        line["voices"] = json.loads(urllib.request.urlopen(
+            f"{base}/v1/models", timeout=60).read())["data"][0]["voices"]
+        if line["voices"] != ["narrator"]:
+            problems.append(f"/v1/models voices {line['voices']}")
+        try:
+            post({"input": texts[0], "max_tokens": 8, "voice": "nobody"})
+            problems.append("an unknown voice was served")
+        except urllib.error.HTTPError as e:
+            line["unknown_voice_status"] = e.code
+            if e.code != 400:
+                problems.append(f"unknown voice: HTTP {e.code}")
+        srv.warmup(max_tokens=16)
+        torch.cuda.synchronize()
+        metrics.reset()
+        fa.reset_launch_counts()
+        bodies, streams = [None] * 7, [None] * 2
+        jobs = []
+        for i in range(5):
+            jobs.append(threading.Thread(target=lambda i=i: bodies.__setitem__(
+                i, post({"input": texts[i], "max_tokens": 64 + 16 * i,
+                         "seed": i}))))
+        jobs.append(threading.Thread(target=lambda: bodies.__setitem__(
+            5, post({"input": texts[5], "max_tokens": 96, "seed": 5,
+                     "voice": "narrator"}))))
+        jobs.append(threading.Thread(target=lambda: bodies.__setitem__(
+            6, post({"input": texts[6], "max_tokens": 136, "seed": 6}))))
+        for i in range(2):
+            jobs.append(threading.Thread(target=stream, args=(
+                {"input": texts[i], "max_tokens": 96, "seed": 10 + i},
+                streams, i)))
+        t0 = time.perf_counter()
+        # the streams and the overflow request first, then the wav
+        # requests 0.3 s apart
+        order = [7, 8, 6, 0, 1, 2, 3, 4, 5]
+        for n, j in enumerate(order):
+            jobs[j].start()
+            if n >= 3:
+                time.sleep(0.3)
+        for j in jobs:
+            j.join()
+        line["wall_s"] = time.perf_counter() - t0
+        line["launches"] = fa.launch_counts()
+        for i, b in enumerate(bodies):
+            w = wav_bytes_to_array(b)[0] if b else np.zeros(0)
+            if not (len(w) and np.isfinite(w).all()):
+                problems.append(f"request {i} gave no audio")
+        line["wav_samples"] = [len(wav_bytes_to_array(b)[0]) if b else 0
+                               for b in bodies]
+        line["stream_bytes"] = [len(s[1]) if s else 0 for s in streams]
+        if not all(s and s[0] == 200 and len(s[1]) > 0 for s in streams):
+            problems.append(f"streams: {[s and s[0] for s in streams]}")
+        line["streams_in_pool_at_once"] = seen["streams"]
+        if seen["streams"] < 2:
+            problems.append("the two streams never decoded in one segment")
+        m = json.loads(urllib.request.urlopen(f"{base}/v1/metrics",
+                                              timeout=60).read())
+        line["metrics"] = {k: m.get(k) for k in (
+            "server_request_latency_s_p50", "server_request_latency_s_p95",
+            "server_request_latency_s_observed", "server_ttfa_s_p50",
+            "server_ttfa_s_observed", "server_continuous_joins",
+            "server_continuous_segments", "server_routed_overflow",
+            "server_streamed", "server_pool_active_slots")}
+        mm = line["metrics"]
+        if not (mm["server_routed_overflow"] == 1
+                and mm["server_streamed"] == 2
+                and mm["server_continuous_joins"] == 8
+                and mm["server_request_latency_s_observed"] == 7
+                and mm["server_ttfa_s_observed"] == 2):
+            problems.append(f"metrics: {mm}")
+        lc = line["launches"]
+        if not (lc["flash_prefill"] > 0 and lc["flash_decode_int8_hs"] > 0
+                and lc["flash_decode_hs"] > 0):
+            problems.append(f"launches {lc}: B1, B3 (pool) and B2 "
+                            "(overflow) must all run")
+    finally:
+        srv.stop()
+        worker._service = orig_service
+    torch.cuda.synchronize()
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"continuous server failed: {problems}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the --tiny CLIs on the card
 # ---------------------------------------------------------------------------
 
@@ -1714,7 +2380,7 @@ def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
 
 
 def kernel_table(main, longform, checks, clone=None, stream=None,
-                 sweep=False):
+                 sweep=False, pool=None):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs (and the clone run's,
     when it ran), the long-form run's for flash_decode_int8_hs. Each
@@ -1724,7 +2390,9 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
     move and compute: the rows and slots that are valid in the run's
     padding, below the extent. ``sweep``: the decode also at other splits
     than its plan (``split_sweep_ms``), and flash_decode_hs so at
-    SWEEP_SHAPES and the stream run's cache (``shape_sweep``)."""
+    SWEEP_SHAPES and the stream run's cache (``shape_sweep``). ``pool``:
+    each kernel also at the continuous pool's shapes (``pool`` entries,
+    ``pool_kernel_rows``)."""
     import torch
     B, base, steps = main["batch"], main["base"], main["steps"]
     H, Hkv, D, L = 16, 8, 128, main["layers"]
@@ -1803,6 +2471,28 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
          "merges the fp32 partials in the same launch"}))
     if longform is not None:
         rows.append(int8_decode_row(longform, checks, SETS, sweep))
+    if pool is not None:
+        oks = []
+        extra = pool_kernel_rows(pool, oks, SETS)
+        by_name = {r["name"]: r for r in rows}
+        for name, entries in extra.items():
+            if name in by_name:
+                by_name[name]["pool"] = entries
+            else:              # B3 without the int8 phase: its pool row
+                e = next(iter(entries.values()))
+                rows.append(_row(
+                    name, "moss_ttsd_torch/csrc/flash_decode_int8.cu",
+                    "moss_ttsd_tpu/ops/pallas_attention.py:311 "
+                    "(flash_decode_int8_hs / _decode_int8_kernel)",
+                    e["launches"], {"max_abs_err": e["max_abs_err"],
+                                    "tolerance": e["tolerance"],
+                                    "ok": e["pass"]},
+                    e["ms"], e["plain_ms"], None, e["bytes"], e["flops"],
+                    {"pool": entries}))
+        if not all(oks):
+            emit({"kernels": rows})
+            raise SystemExit("a kernel disagrees with its plain version at "
+                             "the pool's shapes")
     emit({"kernels": rows})
     return rows
 
@@ -1982,7 +2672,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "stream,overlap,server,clone,int8,cli,profile,"
+                         "stream,overlap,server,pool,clone,int8,cli,profile,"
                          "sweep "
                          "(default all = every phase but profile and sweep)")
     args = ap.parse_args(argv)
@@ -1992,7 +2682,7 @@ def main(argv=None) -> int:
         return 1
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
-               "overlap", "server", "clone", "int8", "cli"}
+               "overlap", "server", "pool", "clone", "int8", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -2022,7 +2712,7 @@ def main(argv=None) -> int:
     checks = kernel_checks() if "kernels" in phases else {}
     if "reference" in phases:
         reference_check()
-    main_line = longform = clone_line = stream_line = None
+    main_line = longform = clone_line = stream_line = pool_line = None
     pipe = None
     if "main" in phases:
         pipe, main_line = main_path()
@@ -2030,8 +2720,9 @@ def main(argv=None) -> int:
             logits_check(pipe)
         if "profile" in phases:
             profile_decode("main_path", *decode_state(pipe, load_items()))
-    # streaming, the overlap and the server run the main path's pipeline
-    if phases & {"stream", "overlap", "server"}:
+    # streaming, the overlap, the servers and the pool run the main path's
+    # pipeline
+    if phases & {"stream", "overlap", "server", "pool"}:
         if pipe is None:
             pipe = build_full_pipeline()[0]
         if "stream" in phases:
@@ -2040,6 +2731,9 @@ def main(argv=None) -> int:
             overlap_phase(pipe)
         if "server" in phases:
             server_phase(pipe)
+            continuous_server_part(pipe)
+        if "pool" in phases:
+            pool_line = pool_phase(pipe)
     del pipe
     _release()
     if "clone" in phases:
@@ -2050,8 +2744,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "kernels" in phases and main_line is not None:
         kernel_table(main_line, longform, checks, clone_line, stream_line,
-                     "sweep" in phases)
+                     "sweep" in phases, pool_line)
         torch.cuda.empty_cache()
+    elif pool_line is not None:
+        # --phases pool alone: the pool's kernel entries on their own line
+        extra = pool_kernel_rows(pool_line, oks := [], 28)
+        emit({"pool_kernels": extra})
+        if not all(oks):
+            raise SystemExit("a kernel disagrees with its plain version at "
+                             "the pool's shapes")
     if "cli" in phases:
         cli_check()
     emit({"ok": True, "device": {"platform": "gpu",

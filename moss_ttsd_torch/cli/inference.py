@@ -2,10 +2,13 @@
 
 Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
---platform --quant --restricted_text_head --profile_dir). Runs on the CUDA
-card unless ``--platform cpu``. ``--tiny`` runs tiny random-weight models (no checkpoint
-needed). Items with prompt audio clone their voices: the prompt wavs are
-encoded by the codec into the prompt's speech codes.
+--platform --quant --restricted_text_head --profile_dir --lora_adapter
+--adapter_alpha). Runs on the CUDA card unless ``--platform cpu``.
+``--tiny`` runs tiny random-weight models (no checkpoint needed). Items
+with prompt audio clone their voices: the prompt wavs are encoded by the
+codec into the prompt's speech codes. ``--lora_adapter NAME=PATH``
+(repeatable) registers a LoRA voice, a finetune CLI lora_factors.npz or a
+peft adapter directory; an item's ``"voice"`` field selects it.
 
     python -m moss_ttsd_torch.cli.inference --jsonl examples/examples.jsonl \\
         --tiny --platform cpu --output_dir outputs --max_new_tokens 32
@@ -90,17 +93,22 @@ def main(argv=None):
     parser.add_argument("--profiler_port", type=int, default=None,
                         help="a live profiler server: no PyTorch "
                              "counterpart, refused")
+    parser.add_argument("--lora_adapter", action="append", default=[],
+                        metavar="NAME=PATH",
+                        help="register a LoRA voice; items select one with a "
+                             "\"voice\" field. PATH is a lora_factors.npz "
+                             "or a peft adapter directory. Repeatable")
+    parser.add_argument("--adapter_alpha", type=float, default=32.0,
+                        help="LoRA alpha of lora_factors.npz adapters (a "
+                             "peft directory brings its own)")
     # flags of the JAX CLI that this port does not implement yet: accepted
     # so they fail loudly instead of being silently ignored
     parser.add_argument("--mesh", default=None)
-    parser.add_argument("--lora_adapter", action="append", default=[])
     parser.add_argument("--attn_impl", default=None)
     args = parser.parse_args(argv)
 
-    for flag, val in (("--mesh", args.mesh),
-                      ("--lora_adapter", args.lora_adapter)):
-        if val:
-            _not_yet(parser, flag)
+    if args.mesh:
+        _not_yet(parser, "--mesh")
     if args.attn_impl not in (None, "mixed", "pallas"):
         _not_yet(parser, f"--attn_impl {args.attn_impl}")
     from ..utils import profiling
@@ -121,17 +129,27 @@ def main(argv=None):
             f"directory ({args.model_path}), its Qwen tokenizer and the "
             f"XY-Tokenizer checkpoint ({args.spt_ckpt}); use --tiny")
 
+    from ..utils.convert_lora import parse_adapter_specs
+    for name, (tree, alpha, rslora) in parse_adapter_specs(
+            args.lora_adapter, args.adapter_alpha, parser.error).items():
+        pipe.engine.register_adapter(name, tree, alpha=alpha,
+                                     use_rslora=rslora)
+
     from ..utils.audio_io import write_wav
     os.makedirs(args.output_dir, exist_ok=True)
     with open(args.jsonl) as f:
         items = [json.loads(line) for line in f if line.strip()]
     print(f"Loaded {len(items)} items from {args.jsonl}")
+    # per-item LoRA voices: a "voice" field names a registered adapter
+    voices = [it.get("voice") or None for it in items]
+    adapter = voices if any(voices) else None
     prof = (profiling.trace(args.profile_dir) if args.profile_dir
             else contextlib.nullcontext())
     with prof:
         texts_data, audio_results = pipe.process_batch(
             items, use_normalize=args.use_normalize,
-            max_new_tokens=args.max_new_tokens, seed=args.seed or 0)
+            max_new_tokens=args.max_new_tokens, seed=args.seed or 0,
+            adapter=adapter)
     if args.profile_dir:
         print(f"Saved profiler trace to {args.profile_dir}")
 

@@ -1,7 +1,8 @@
 """Autoregressive generation engine, PyTorch port of
 ``moss_ttsd_tpu/decode/engine.py`` (the static-batch ``generate``, with the
 int8 serving policies: ``quant="int8"`` weights, the ``kv_quant="int8"``
-cache and the restricted text head with its audit).
+cache and the restricted text head with its audit; per-row LoRA adapters
+through ``register_adapter`` and ``adapter=``).
 
 Prefill runs the left-padded, bucketed prompt through the LM once; a
 host-driven step loop (the JAX ``while_loop``) then runs the decode
@@ -34,12 +35,13 @@ import torch
 
 from ..core.config import LMConfig, SamplingConfig
 from ..core.device import DeviceLike, resolve_device, torch_dtype
-from ..models.lm import AsteroidLM, init_cache
+from ..models.lm import AsteroidLM, init_cache, select_adapters
 from ..ops.attention import NEG_INF
 from ..ops.quantize import is_quantized_tree, quantize_lm_params
 from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
+from .lora_registry import LoraRegistry
 
 
 class GenerateResult(NamedTuple):
@@ -70,11 +72,18 @@ class DecodeState:
 
 
 def sample_channels(gen, text_logits, speech_logits, presence_text,
-                    presence_speech, srow: int, ch_params, prefilter,
+                    presence_speech, srow, ch_params, prefilter,
                     approx_topk, eos, pad_speech, text_offset: int = 0):
-    """One sampling round -> next_tokens (B, C). ``text_offset``: vocab id
-    of column 0 of text_logits / presence_text (the restricted head's window
-    start); ``eos`` and the returned channel-0 tokens are full vocab ids."""
+    """One sampling round -> next_tokens (B, C). ``srow`` is the decode
+    step: a host int (static batch, all rows in lockstep) or a (B,) tensor
+    (continuous pool, each row at its own depth). ``gen``: one generator
+    for the batch, or a list of one per row (the continuous pool's
+    sampler: row b draws, channel by channel, exactly the noise of a
+    batch-1 call with ``gen[b]``, i.e. the static engine's draws for that
+    request; the logits work stays batched).
+    ``text_offset``: vocab id of column 0 of text_logits / presence_text
+    (the restricted head's window start); ``eos`` and the returned channel-0
+    tokens are full vocab ids."""
     lg = channel_logits(text_logits, speech_logits, presence_text,
                         presence_speech, srow, ch_params, eos, pad_speech,
                         text_offset)
@@ -85,21 +94,29 @@ def sample_channels(gen, text_logits, speech_logits, presence_text,
 
 
 def channel_logits(text_logits, speech_logits, presence_text,
-                   presence_speech, srow: int, ch_params, eos, pad_speech,
+                   presence_speech, srow, ch_params, eos, pad_speech,
                    text_offset: int = 0):
     """The masked + penalized per-channel logits the draws see (the JAX
-    ``_sample_channels_body`` chain): channel 0 gets -1e30 on eos inside the
-    TF window, channel i >= 1 on the speech pad once its delay elapsed; then
-    the repetition penalty."""
+    ``_sample_channels_body`` chain, the one copy shared by the static and
+    the per-row samplers): channel 0 gets -1e30 on eos inside the TF
+    window, channel i >= 1 on the speech pad once its delay elapsed; then
+    the repetition penalty. ``srow``: a host int, or a (B,) tensor of
+    per-row steps (each row masked by its own)."""
     C = len(ch_params)
     t = text_logits.clone()
-    if srow < C - 1:
+    per_row = isinstance(srow, torch.Tensor)
+    if per_row:
+        t[:, eos - text_offset] += torch.where(srow < C - 1, NEG_INF, 0.0)
+    elif srow < C - 1:
         t[:, eos - text_offset] += NEG_INF
     out = [apply_repetition_penalty(t, presence_text,
                                     ch_params[0].repetition_penalty)]
     for i in range(1, C):
         sl = speech_logits[:, i - 1]
-        if srow >= i:
+        if per_row:
+            sl = sl.clone()
+            sl[:, pad_speech] += torch.where(srow >= i, NEG_INF, 0.0)
+        elif srow >= i:
             sl = sl.clone()
             sl[:, pad_speech] += NEG_INF
         out.append(apply_repetition_penalty(sl, presence_speech[:, i - 1],
@@ -146,7 +163,12 @@ class GenerationEngine:
     ``restricted_text_head``: channel-0 logits over the speech window only;
     ``restricted_audit_every=N`` streams the full text head every N-th step
     and counts the rows where it would have preferred an out-of-window
-    token (``GenerateResult.audit``). The four keywords override ``cfg``."""
+    token (``GenerateResult.audit``). The four keywords override ``cfg``.
+
+    LoRA voices: ``register_adapter`` stacks an adapter's factors
+    (``decode/lora_registry.py``); ``generate(adapter=...)`` then runs the
+    prefill and every decode step of each row through its adapter. The
+    training-time ``cfg.lora_rank`` is not ported (ValueError)."""
 
     def __init__(self, cfg: LMConfig,
                  params: Union[AsteroidLM, Mapping[str, torch.Tensor]],
@@ -184,6 +206,33 @@ class GenerationEngine:
             for c in self.sampling.channels]
         # host-clock split of the last generate() (prefill / decode loop)
         self.last_stats: dict = {}
+        # multi-LoRA registry: id 0 = the base model
+        self.lora = LoraRegistry(self.cache_dtype, cfg.num_hidden_layers,
+                                 self.device)
+
+    def register_adapter(self, name: str, lora: dict, alpha: float = 32.0,
+                         use_rslora: bool = True) -> int:
+        """Register a LoRA adapter for per-row serving; returns its id (see
+        ``LoraRegistry.register`` for the tree formats and the scale).
+        Register every adapter before serving traffic."""
+        return self.lora.register(name, lora, alpha, use_rslora)
+
+    def _adapter_operands(self, adapter, batch: int) -> Optional[dict]:
+        """The rows' LoRA factors (``select_adapters``) for ``adapter`` (one
+        name, or a per-row list; None = the base model), or None when
+        every row is on the base model (nothing to add in any projection)."""
+        if not self.lora:
+            named = ([adapter] if adapter is None or isinstance(adapter, str)
+                     else list(adapter))
+            if any(a not in (None, "") for a in named):
+                raise ValueError(
+                    f"unknown adapter {adapter!r}; none registered")
+            return None
+        row_ids = self.lora.row_ids(adapter, batch)
+        if not any(row_ids):
+            return None
+        ids = torch.tensor(row_ids, dtype=torch.int64, device=self.device)
+        return select_adapters(self.lora.stacks, ids)
 
     def _build_model(self, cfg: LMConfig, params) -> AsteroidLM:
         """The engine's own ``AsteroidLM(cfg)`` around the given weights:
@@ -245,10 +294,12 @@ class GenerationEngine:
 
     @torch.no_grad()
     def prefill(self, tokens_full: torch.Tensor, attn_mask: torch.Tensor,
-                base: int, buf_steps: int) -> DecodeState:
+                base: int, buf_steps: int,
+                adapters: Optional[dict] = None) -> DecodeState:
         """tokens_full (B, L, C) shifted prompt (bucketed, left-padded);
         attn_mask (B, L) 1 = real. Runs the first ``base`` rows (the
-        reference drops the last C-1 before its loop) into a fresh cache."""
+        reference drops the last C-1 before its loop) into a fresh cache of
+        base + buf_steps slots, through the rows' ``adapters``."""
         cfg, dev = self.cfg, self.device
         C = cfg.channels
         B, L, _ = tokens_full.shape
@@ -261,7 +312,8 @@ class GenerationEngine:
         key_valid[:, :base] = m.to(torch.bool)
         cache = init_cache(cfg, B, S, self.cache_dtype, dev)
         hidden, cache = self.model.backbone(buf[:, :base], positions,
-                                            key_valid, cache, 0)
+                                            key_valid, cache, 0,
+                                            adapters=adapters)
         lo, hi = self.text_window
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         return DecodeState(
@@ -281,7 +333,8 @@ class GenerationEngine:
 
     @torch.no_grad()
     def _step(self, st: DecodeState, base: int,
-              gen: Optional[torch.Generator]) -> None:
+              gen: Optional[torch.Generator],
+              adapters: Optional[dict] = None) -> None:
         """One decode step, in place on ``st`` (JAX engine ``body``)."""
         cfg = self.cfg
         C = cfg.channels
@@ -344,28 +397,28 @@ class GenerationEngine:
         st.last_pos = st.last_pos + 1
         hidden, _ = self.model.backbone(
             next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
-            st.cache, cur_len)
+            st.cache, cur_len, adapters=adapters)
         st.hidden_last = hidden
         st.step = s + 1
 
     def run(self, st: DecodeState, base: int, upto: int,
-            gen: Optional[torch.Generator]) -> DecodeState:
+            gen: Optional[torch.Generator],
+            adapters: Optional[dict] = None) -> DecodeState:
         """Decode until step == upto or every row finished. The
         ``unfinished.any()`` test is the step's one host sync."""
         while st.step < upto and bool(st.unfinished.any()):
-            self._step(st, base, gen)
+            self._step(st, base, gen, adapters)
         return st
 
     def _start(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                max_new_tokens: Optional[int], seed: int, adapter):
-        """Budget, bucketed prompt, seeded generator and prefilled state of
-        one request -> (state, base, max_steps, buf_steps, gen, bucketed
-        ids, bucketed mask, prefill seconds)."""
-        if adapter is not None:
-            raise ValueError(f"adapter={adapter!r}: LoRA adapters are not "
-                             "ported to moss_ttsd_torch yet (ROADMAP A10b)")
+        """Budget, adapters, bucketed prompt, seeded generator and
+        prefilled state of one request -> (state, base, max_steps,
+        buf_steps, gen, bucketed ids, bucketed mask, prefill seconds,
+        adapters)."""
         max_steps, buf_steps = self._step_budget(max_new_tokens,
                                                  input_ids.shape[1])
+        adapters = self._adapter_operands(adapter, input_ids.shape[0])
         input_ids, attention_mask, base = self._bucket_prompt(input_ids,
                                                               attention_mask)
         dev = self.device
@@ -373,11 +426,11 @@ class GenerationEngine:
         t0 = time.perf_counter()
         st = self.prefill(torch.as_tensor(input_ids, device=dev),
                           torch.as_tensor(attention_mask, device=dev),
-                          base, buf_steps)
+                          base, buf_steps, adapters)
         if dev.type == "cuda":      # the loop's first any() test syncs anyway
             torch.cuda.synchronize(dev)
         return (st, base, max_steps, buf_steps, gen, input_ids,
-                attention_mask, time.perf_counter() - t0)
+                attention_mask, time.perf_counter() - t0, adapters)
 
     def _audit_on(self) -> bool:
         return (self.cfg.restricted_text_head
@@ -396,13 +449,14 @@ class GenerationEngine:
                  adapter=None) -> GenerateResult:
         """input_ids: (B, L, C) delay-shifted prompt, left-padded;
         attention_mask: (B, L). Returns the prompt-minus-tail plus the
-        generated rows, sliced on the host. ``adapter`` (a LoRA voice) is
-        not ported: anything but None raises ValueError."""
-        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s = \
+        generated rows, sliced on the host. ``adapter``: a registered LoRA
+        adapter name for the whole batch, or a per-row list of names (None
+        = the base model); an unknown name raises ValueError."""
+        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s, ad = \
             self._start(input_ids, attention_mask, max_new_tokens, seed,
                         adapter)
         t1 = time.perf_counter()
-        st = self.run(st, base, max_steps, gen)
+        st = self.run(st, base, max_steps, gen, ad)
         tokens = st.tokens.cpu().numpy()
         audit = None
         if self._audit_on():
@@ -428,8 +482,9 @@ class GenerationEngine:
         ``generate`` with the same seed. A host mirror of the token buffer
         receives only each segment's new rows; those rows, the finish flags
         and (when on) the audit counters come back in one readback per
-        segment. A budget of 0 steps yields one prompt-only result."""
-        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s = \
+        segment. A budget of 0 steps yields one prompt-only result.
+        ``adapter`` as in ``generate``."""
+        st, base, max_steps, buf_steps, gen, ids, mask, prefill_s, ad = \
             self._start(input_ids, attention_mask, max_new_tokens, seed,
                         adapter)
         B, L, C = ids.shape
@@ -449,7 +504,7 @@ class GenerationEngine:
                 upto = next((b for b in bounds if b > done), max_steps)
             else:
                 upto = min(done + chunk_steps, max_steps)
-            st = self.run(st, base, upto, gen)
+            st = self.run(st, base, upto, gen, ad)
             steps = st.step
             parts = [st.tokens[:, base + done:base + steps].reshape(-1),
                      st.unfinished.to(torch.int64)]

@@ -1,5 +1,6 @@
 """AsteroidLM — the 8-channel Qwen3-style decoder, PyTorch port of
-``moss_ttsd_tpu/models/lm.py`` (bf16/fp32 and int8 weights; no LoRA).
+``moss_ttsd_tpu/models/lm.py`` (bf16/fp32 and int8 weights, per-row LoRA
+adapters for serving).
 
   * 8 embedding tables summed into one hidden stream (``embed``);
   * Qwen3 blocks: RMSNorm, GQA attention with per-head q/k RMSNorm + RoPE,
@@ -11,6 +12,14 @@
 
 ``cfg.quantized`` (w8a16): the seven projections are ``QLinear`` and the
 embedding tables int8 with per-row scales (``ops/quantize.py``).
+
+Multi-LoRA serving: ``backbone(adapters=...)`` takes per-row factors
+(``select_adapters`` of a ``decode/lora_registry`` stack by adapter id),
+and each of the seven projections adds ``bmm(bmm(h, a), b)`` to its base
+output (the scale is folded into ``b``; id 0 is the zero adapter). The
+continuous pool writes the cache ring-addressed: every row writes the one
+scalar slot, ``write_gate`` keeps the old k/v (and scales) of gated-off
+rows, and ``read_extent`` gives each row its own decode extent.
 
 Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` on
 the exact k/v; single-token decode through the extent-clamped
@@ -103,16 +112,30 @@ class Qwen3Block(nn.Module):
         self.up_proj = dense(hid, c.intermediate_size, bias=False)
         self.down_proj = dense(c.intermediate_size, hid, bias=False)
 
+    def _proj(self, name: str, h: torch.Tensor,
+              adapters: Optional[dict]) -> torch.Tensor:
+        """The projection ``name`` of h (B, T, in), plus the rows' LoRA
+        delta when ``adapters`` holds this target: (a (B, in, r), b (B, r,
+        out)) of this layer, the scale folded into b."""
+        y = getattr(self, name)(h)
+        if adapters is not None and name in adapters:
+            a, b = adapters[name]
+            y = y + torch.bmm(torch.bmm(h, a), b)
+        return y
+
     def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
                 cache_pos: int, key_valid: torch.Tensor,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                write_gate: Optional[torch.Tensor] = None,
+                read_extent: Optional[torch.Tensor] = None,
+                adapters: Optional[dict] = None):
         c = self.cfg
         H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         B, T, _ = x.shape
         h = self.input_ln(x)
-        q = self.q_proj(h).reshape(B, T, H, D)
-        k = self.k_proj(h).reshape(B, T, Hkv, D)
-        v = self.v_proj(h).reshape(B, T, Hkv, D)
+        q = self._proj("q_proj", h, adapters).reshape(B, T, H, D)
+        k = self._proj("k_proj", h, adapters).reshape(B, T, Hkv, D)
+        v = self._proj("v_proj", h, adapters).reshape(B, T, Hkv, D)
         q = apply_rope(self.q_norm(q), cos, sin)
         k = apply_rope(self.k_norm(k), cos, sin)
         scale = D ** -0.5
@@ -123,15 +146,17 @@ class Qwen3Block(nn.Module):
             # in-place copy_ into the slot — the counterpart of XLA's in-place
             # dynamic_update_slice on the loop carry; no cache copy is made.
             # An int8 cache ("k_s" present) stores the quantized slice and
-            # its per-head-per-token scales.
+            # its per-head-per-token scales. write_gate (B,) bool: rows
+            # gated off keep their old sliver (a (B, Hkv, T[, D]) read).
             kv8 = "k_s" in cache
             slot = slice(cache_pos, cache_pos + T)
             for name, new in (("k", k), ("v", v)):
                 new = new.transpose(1, 2)
                 if kv8:
                     new, sc = quantize_kv(new)
-                    cache[name + "_s"][layer_idx][:, :, slot].copy_(sc)
-                cache[name][layer_idx][:, :, slot].copy_(new)
+                    _write(cache[name + "_s"][layer_idx][:, :, slot], sc,
+                           write_gate)
+                _write(cache[name][layer_idx][:, :, slot], new, write_gate)
             if T > 1:
                 if cache_pos != 0:
                     raise NotImplementedError(
@@ -139,21 +164,46 @@ class Qwen3Block(nn.Module):
                 # prefill: queries see only keys < T, i.e. the current k/v
                 # (exact even over an int8 cache: only later steps read it)
                 attn = flash_prefill(q, k, v, key_valid[:, :T], scale)
-            elif kv8:
-                # decode: read only the slots up to the one just written
-                attn = flash_decode_int8_hs(
-                    q, cache["k"], cache["k_s"], cache["v"], cache["v_s"],
-                    key_valid, scale, extent=cache_pos + 1, layer=layer_idx)
             else:
-                attn = flash_decode_hs(q, cache["k"], cache["v"], key_valid,
-                                       scale, extent=cache_pos + 1,
-                                       layer=layer_idx)
+                # decode: read only the slots up to the one just written,
+                # or each row up to its own (B,) int32 extent
+                ext = cache_pos + 1 if read_extent is None else read_extent
+                if kv8:
+                    attn = flash_decode_int8_hs(
+                        q, cache["k"], cache["k_s"], cache["v"],
+                        cache["v_s"], key_valid, scale, extent=ext,
+                        layer=layer_idx)
+                else:
+                    attn = flash_decode_hs(q, cache["k"], cache["v"],
+                                           key_valid, scale, extent=ext,
+                                           layer=layer_idx)
         else:
             attn = gqa_attention(q, k, v, mask, scale)
-        x = x + self.o_proj(attn.reshape(B, T, H * D))
+        x = x + self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
         h = self.post_ln(x)
-        down = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
-        return x + down
+        act = (F.silu(self._proj("gate_proj", h, adapters))
+               * self._proj("up_proj", h, adapters))
+        return x + self._proj("down_proj", act, adapters)
+
+
+def _write(dst: torch.Tensor, new: torch.Tensor,
+           gate: Optional[torch.Tensor]) -> None:
+    """In-place cache write of one sliver (B, Hkv, T[, D]); rows with a
+    False ``gate`` keep what ``dst`` holds."""
+    if gate is not None:
+        new = torch.where(gate.view((-1,) + (1,) * (dst.dim() - 1)),
+                          new.to(dst.dtype), dst)
+    dst.copy_(new)
+
+
+def select_adapters(stacks: Dict[str, tuple], ids: torch.Tensor
+                    ) -> Dict[str, tuple]:
+    """Per-row LoRA factors: each registry stack (a (L, N, in, r), b (L, N,
+    r, out)) gathered by the (B,) adapter ids -> (a (L, B, in, r), b (L, B,
+    r, out)). The ids change only when a row changes its request, so
+    callers gather once per batch (or pool segment), not per step."""
+    return {t: (a.index_select(1, ids), b.index_select(1, ids))
+            for t, (a, b) in stacks.items()}
 
 
 class AsteroidLM(nn.Module):
@@ -237,7 +287,10 @@ class AsteroidLM(nn.Module):
 
     def backbone(self, input_ids: torch.Tensor, positions: torch.Tensor,
                  key_valid: torch.Tensor, cache: Optional[dict],
-                 cache_pos: int = 0
+                 cache_pos: int = 0,
+                 write_gate: Optional[torch.Tensor] = None,
+                 read_extent: Optional[torch.Tensor] = None,
+                 adapters: Optional[Dict[str, tuple]] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Run the decoder stack.
 
@@ -245,15 +298,26 @@ class AsteroidLM(nn.Module):
         key_valid (B, S) cache-slot validity, or (B, T) without a cache;
         cache {"k","v": (L, B, Hkv, S, D)} updated in place, or None;
         cache_pos: the scalar write slot of this segment; a one-token
-        segment reads the cache up to extent cache_pos + 1.
+        segment reads the cache up to extent cache_pos + 1;
+        write_gate (B,) bool: ring-addressed decode (the continuous pool),
+        rows gated off keep their old cache sliver; slot order is not time
+        order there, and key_valid alone carries causality;
+        read_extent (B,) int32: each row's decode extent, in place of
+        cache_pos + 1;
+        adapters: per-row LoRA factors from ``select_adapters``.
         Returns (hidden (B, T, hidden) after the final norm, cache)."""
         c = self.cfg
         x = self.embed(input_ids)
         B, T, _ = x.shape
+        if write_gate is not None and T != 1:
+            raise ValueError("ring-addressed writes are decode-only (T 1)")
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
         mask = None if cache is not None else causal_mask(0, T, T, key_valid)
         for li, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, li, cache, cache_pos, key_valid, mask)
+            ad = (None if adapters is None else
+                  {t: (a[li], b[li]) for t, (a, b) in adapters.items()})
+            x = layer(x, cos, sin, li, cache, cache_pos, key_valid, mask,
+                      write_gate, read_extent, ad)
         return self.final_norm(x), cache
 
     # -- tied heads ----------------------------------------------------------

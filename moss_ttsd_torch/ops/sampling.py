@@ -12,14 +12,15 @@ Temperature -> TopK -> TopP, then multinomial/argmax):
   * top-p: keep token i (descending order) iff the probability mass strictly
     above it is < p; top-1 always kept.
 
-Random draws come from an explicit ``torch.Generator``: categorical
-sampling is the Gumbel-max trick ``argmax(logits + Gumbel noise)``, the same
-construction as ``jax.random.categorical`` (the bits differ).
+Random draws come from an explicit ``torch.Generator`` (or one per row):
+categorical sampling is the Gumbel-max trick ``argmax(logits + Gumbel
+noise)``, the same construction as ``jax.random.categorical`` (the bits
+differ).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -93,12 +94,30 @@ def _use_exact_top_p(p: ChannelParams) -> bool:
     return p.exact_top_p and p.do_sample and p.top_p < 1.0 and p.top_k <= 0
 
 
-def categorical(gen: Optional[torch.Generator],
-                logits: torch.Tensor) -> torch.Tensor:
-    """Draw one index per row of (B, K) logits: argmax(logits + Gumbel)."""
-    e = torch.empty_like(logits, dtype=torch.float32).exponential_(
-        generator=gen)
+def categorical(gen, logits: torch.Tensor) -> torch.Tensor:
+    """Draw one index per row of (B, K) logits: argmax(logits + Gumbel).
+
+    ``gen``: one ``torch.Generator`` (or None) for the whole batch, or a
+    sequence of B generators, one per row (the continuous pool's per-request
+    streams): row b then draws exactly the (1, K) noise that a batch-1 call
+    with ``gen[b]`` draws. Each per-row draw is a launch of its own; they
+    are counted in ``categorical.row_draws``."""
+    if isinstance(gen, (list, tuple)):
+        if len(gen) != logits.shape[0]:
+            raise ValueError(f"{len(gen)} generators for {logits.shape[0]} "
+                             "rows")
+        e = torch.cat([torch.empty((1,) + logits.shape[1:],
+                                   dtype=torch.float32,
+                                   device=logits.device).exponential_(
+                                       generator=g) for g in gen])
+        categorical.row_draws += len(gen)
+    else:
+        e = torch.empty_like(logits, dtype=torch.float32).exponential_(
+            generator=gen)
     return torch.argmax(logits - torch.log(e), dim=-1)
+
+
+categorical.row_draws = 0
 
 
 def _prefilter(logits: torch.Tensor, p: ChannelParams, prefilter_k: int):
@@ -113,10 +132,11 @@ def _prefilter(logits: torch.Tensor, p: ChannelParams, prefilter_k: int):
     return vals, idx
 
 
-def sample_from_channel(gen: Optional[torch.Generator], logits: torch.Tensor,
+def sample_from_channel(gen, logits: torch.Tensor,
                         p: ChannelParams, prefilter_k: int = 128,
                         approx_topk: bool = False) -> torch.Tensor:
     """One channel's sampling step. logits (B, V) fp32 -> token ids (B,).
+    ``gen`` as in ``categorical``.
 
     The caller applies repetition penalty and any hard masks first.
     ``approx_topk`` is accepted for signature parity and ignored (exact)."""

@@ -308,8 +308,9 @@ class TTSPipeline:
         Per-item isolation: an item that fails preparation (a malformed
         record, a prompt wav that cannot be read) becomes None plus an
         "error" entry in its text metadata; the rest of the batch still
-        generates. ``adapter`` (LoRA voices) is not ported: anything but
-        None raises ValueError in the engine."""
+        generates. ``adapter``: a registered LoRA voice for the whole batch,
+        or a per-item list of names (None = the base model); an unknown
+        name raises ValueError in the engine."""
         staged, texts_data = [], []   # (i, meta slot, final_text, wav)
         for i, item in enumerate(batch_items):
             try:
@@ -340,6 +341,13 @@ class TTSPipeline:
 
         if not shifted_list:
             return texts_data, [None] * len(batch_items)
+        if isinstance(adapter, (list, tuple)):
+            # per-item voices follow the surviving rows (failed items were
+            # isolated above): the engine's adapter list is row-aligned
+            if len(adapter) != len(batch_items):
+                raise ValueError(f"{len(adapter)} adapter names for "
+                                 f"{len(batch_items)} items")
+            adapter = [adapter[i] for i in ok_idx]
         batch, mask = pp.left_pad_batch(shifted_list,
                                         self.tokenizer.pad_token_id,
                                         self.lm_cfg.speech_pad_token)
@@ -449,7 +457,8 @@ class TTSPipeline:
         vocode runs one segment behind the decode: it is queued on the
         card, and read back while the next segment decodes. The vocoder
         re-runs a sliding window with ``context_frames`` of left context
-        (``StreamVocoder``) and emits only the new samples."""
+        (``StreamVocoder``) and emits only the new samples. ``adapter``
+        names a registered LoRA voice (None = the base model)."""
         shifted, _ = self.prepare_item(item, system_prompt, use_normalize)
         batch, mask = pp.left_pad_batch([shifted], self.tokenizer.pad_token_id,
                                         self.lm_cfg.speech_pad_token)

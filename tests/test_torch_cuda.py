@@ -533,3 +533,130 @@ def test_generate_stream_on_card_equals_generate(cuda, do_sample):
                                    boundaries=[12, 25]))
     assert [r.steps for r in res] == [12, 25, 30] and full.steps == 30
     np.testing.assert_array_equal(res[-1].tokens, full.tokens)
+
+
+def _pool_rows(B, S, base):
+    """Ring-addressed valid bits of a pool of B rows (prefix left pads,
+    then each row's own wrapped span of the ring) and the pool's per-row
+    extent: the last valid slot + 1, 1 for the rows that do not advance."""
+    g = np.random.default_rng(0)
+    ring = S - base
+    valid = np.zeros((B, S), bool)
+    ext = np.ones(B, np.int32)
+    for b in range(B):
+        valid[b, g.integers(0, base // 2):base] = True
+        start, n = g.integers(0, ring), g.integers(1, ring)
+        valid[b, base + (start + np.arange(n)) % ring] = True
+        if b % 4 != 3:                          # every 4th row is frozen
+            ext[b] = np.nonzero(valid[b])[0].max() + 1
+    return (torch.from_numpy(valid).cuda(),
+            torch.from_numpy(ext).cuda())
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_tensor_extent_at_pool_shape(cuda, kind):
+    """B2 / B3 at the pool's (8, 2560) with a (B,) int32 extent (each row
+    its own; frozen rows 1) over ring-addressed valid bits and a layer view
+    of a 2-layer stack: kernel against its plain version."""
+    B, S, H, Hkv, D, base = 8, 2560, 16, 8, 128, 512
+    bf = torch.bfloat16
+    q = torch.randn(B, 1, H, D, generator=cuda, device="cuda").to(bf)
+    valid, ext = _pool_rows(B, S, base)
+    shape = (2, B, Hkv, S, D)
+    if kind == "bf16":
+        k, v = (torch.randn(shape, generator=cuda, device="cuda").to(bf)
+                for _ in range(2))
+        out = fa.flash_decode_hs(q, k, v, valid, D ** -0.5, extent=ext,
+                                 layer=1)
+        ref = fa.flash_decode_hs_plain(q, k, v, valid, D ** -0.5, extent=ext,
+                                       layer=1, p_dtype=bf,
+                                       out_dtype=torch.float32)
+    else:
+        from moss_ttsd_torch.ops.quantize import quantize_kv
+        k, ks = quantize_kv(torch.randn(shape, generator=cuda, device="cuda"))
+        v, vs = quantize_kv(torch.randn(shape, generator=cuda, device="cuda"))
+        out = fa.flash_decode_int8_hs(q, k, ks, v, vs, valid, D ** -0.5,
+                                      extent=ext, layer=1)
+        ref = fa.flash_decode_int8_hs_plain(q, k, ks, v, vs, valid,
+                                            D ** -0.5, extent=ext, layer=1,
+                                            p_dtype=bf,
+                                            out_dtype=torch.float32)
+    _close(out, ref, "bfloat16")
+
+
+def _tiny_pool_parts(do_sample=False):
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             LMConfig, SamplingConfig)
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny(
+        speech_token_range=(0, 160))
+    sampling = SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=do_sample, temperature=0.9 if do_sample else None,
+        top_k=20 if do_sample else None, top_p=0.9 if do_sample else None)
+        for _ in range(cfg.channels)], max_new_tokens=30)
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    with torch.no_grad():       # EOS logit 0: rows decode their budgets
+        model.embed_text[cfg.eos_token_id] = 0.0
+    rng = np.random.default_rng(2)
+    prompts = []
+    for n in (14, 20, 9):
+        p = np.full((n, cfg.channels), cfg.speech_pad_token, np.int64)
+        p[:, 0] = rng.integers(1, 90, n)
+        prompts.append(p)
+    return cfg, sampling, model, prompts
+
+
+def _drive_pool(cb, prompts, budgets, seeds, adapters):
+    slots = []
+    for i, (p, b, s, a) in enumerate(zip(prompts, budgets, seeds, adapters)):
+        if i:
+            cb.run(steps=3 + 2 * i)
+        slots.append(cb.submit(p, max_new_tokens=b, seed=s, adapter=a))
+    for _ in range(20):
+        cb.run(steps=5)
+        if len(cb.finished()) == len(slots):
+            break
+    return [cb.collect(s).tokens for s in slots]
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_tiny_pool_on_card_matches_cpu(cuda, kv_quant):
+    """The continuous pool (gated ring writes, tensor extents into B2 / B3,
+    per-row LoRA adapters) on the card against the same pool on the CPU:
+    staggered joins, greedy, fp32 with TF32 off, identical tokens."""
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    cfg, sampling, model, prompts = _tiny_pool_parts()
+    g = np.random.default_rng(3)
+    L, hid = cfg.num_hidden_layers, cfg.hidden_size
+    qd = cfg.num_attention_heads * cfg.head_dim
+    lora = {"layers/block/q_proj/kernel": {
+        "a": g.standard_normal((L, hid, 2)).astype(np.float32) * 0.1,
+        "b": g.standard_normal((L, 2, qd)).astype(np.float32) * 0.3}}
+    out = []
+    for dev in ("cpu", "cuda"):
+        cb = ContinuousBatcher(cfg, model, sampling, slots=3, base=24,
+                               max_steps=40, device=dev, kv_quant=kv_quant)
+        cb.register_adapter("v1", lora, alpha=8.0)
+        out.append(_drive_pool(cb, prompts, [30, 24, 28], [0, 0, 0],
+                               [None, "v1", None]))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sampled_pool_row_on_card_equals_generate(cuda):
+    """Per-row generators on the card: a sampled row joined mid-flight
+    equals the card's isolated batch-1 generate with its seed."""
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    cfg, sampling, model, prompts = _tiny_pool_parts(do_sample=True)
+    cb = ContinuousBatcher(cfg, model, sampling, slots=3, base=24,
+                           max_steps=40, device="cuda")
+    got = _drive_pool(cb, prompts, [30, 24, 28], [5, 6, 7],
+                      [None, None, None])
+    eng = GenerationEngine(cfg, model, sampling, bucket=24 + cfg.channels - 1,
+                           step_bucket=40, device="cuda")
+    for p, b, s, g in zip(prompts, [30, 24, 28], [5, 6, 7], got):
+        ref = eng.generate(p[None], np.ones((1, len(p)), np.int64), b,
+                           seed=s)
+        np.testing.assert_array_equal(g[0, ref.base:],
+                                      ref.tokens[0, ref.base:])

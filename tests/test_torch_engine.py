@@ -194,3 +194,154 @@ def test_engine_accepts_tpu_performance_knobs(models):
                                 attn_impl="pallas", lora_rank=8)
     eng = GenerationEngine(knobs, model, device="cpu", quant="int8")
     assert eng.cfg.quantized and eng.cfg.lora_rank == 0
+
+
+def test_tf_pad_eos_masks_match_jax_per_row(models):
+    """The pool's form: srow a (B,) tensor, each row masked by its own step
+    (inside, at the edge of and past the TF window), equal to the JAX
+    sampler body with a per-row srow vector."""
+    jcfg = models[0]
+    rng = np.random.default_rng(11)
+    srow = np.array([0, 3, 6, 7, 12])
+    B, C = len(srow), jcfg.channels
+    tl = rng.standard_normal((B, jcfg.vocab_size)).astype(np.float32)
+    sl = rng.standard_normal((B, C - 1, jcfg.speech_vocab_size)
+                             ).astype(np.float32)
+    pt = rng.random((B, jcfg.vocab_size)) < 0.2
+    ps = rng.random((B, C - 1, jcfg.speech_vocab_size)) < 0.2
+    jps = [jsam.ChannelParams.from_config(JCh(**SAMPLED[0]))] * C
+    pps = [psam.ChannelParams.from_config(
+        ChannelSamplingConfig(**SAMPLED[0]))] * C
+    seen = {}
+
+    def draw(i, lg):
+        seen[i] = np.asarray(lg)
+        return jnp.zeros((B,), jnp.int32)
+
+    jeng._sample_channels_body(draw, jnp.asarray(tl), jnp.asarray(sl),
+                               jnp.asarray(pt), jnp.asarray(ps),
+                               jnp.asarray(srow, jnp.int32), jps,
+                               jcfg.eos_token_id, jcfg.speech_pad_token, 0)
+    got = channel_logits(torch.from_numpy(tl), torch.from_numpy(sl),
+                         torch.from_numpy(pt), torch.from_numpy(ps),
+                         torch.from_numpy(srow), pps, jcfg.eos_token_id,
+                         jcfg.speech_pad_token)
+    for i in range(C):
+        np.testing.assert_allclose(got[i].numpy(), seen[i], rtol=1e-6)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_rowkeys_sampler_draws_each_rows_batch1_noise(exact):
+    """sample_channels with a list of one generator per row: row b's tokens
+    are those of a batch-1 sample_channels with a generator seeded alike,
+    at its own step; B x (sampled channels) per-row draws are counted."""
+    from moss_ttsd_torch.decode.engine import sample_channels
+    rng = np.random.default_rng(12)
+    B, C, V, Vs, eos, pad = 3, 8, 40, 17, 39, 16
+    tl = torch.from_numpy(rng.standard_normal((B, V)).astype(np.float32))
+    sl = torch.from_numpy(rng.standard_normal((B, C - 1, Vs)
+                                              ).astype(np.float32))
+    pt = torch.from_numpy(rng.random((B, V)) < 0.2)
+    ps = torch.from_numpy(rng.random((B, C - 1, Vs)) < 0.2)
+    srow = torch.tensor([0, 5, 9])
+    chs = [dict(SAMPLED[i % 2], do_sample=i != 3) for i in range(C)]
+    params = [psam.ChannelParams.from_config(ChannelSamplingConfig(**c),
+                                             exact_top_p=exact) for c in chs]
+    seeds = [3, 17, 3]
+    before = psam.categorical.row_draws
+    got = sample_channels(
+        [torch.Generator().manual_seed(s) for s in seeds], tl, sl, pt, ps,
+        srow, params, 16, False, eos, pad)
+    assert psam.categorical.row_draws - before == B * (C - 1)
+    for b in range(B):
+        ref = sample_channels(torch.Generator().manual_seed(seeds[b]),
+                              tl[b:b + 1], sl[b:b + 1], pt[b:b + 1],
+                              ps[b:b + 1], int(srow[b]), params, 16, False,
+                              eos, pad)
+        assert torch.equal(got[b], ref[0]), b
+
+
+def _ring_inputs(cfg, rng, B, S):
+    from tests.test_torch_lm import rand_ids
+    kv = rng.random((B, S)) < 0.6
+    slot = 5
+    gate = np.array([True, False, True])[:B]
+    kv[:, slot] |= gate
+    ext = np.where(gate, np.max(np.where(kv, np.arange(S) + 1, 0), axis=1),
+                   1).astype(np.int32)
+    return (rand_ids(cfg, rng, B, 1), rng.integers(3, 9, (B, 1)), kv, slot,
+            gate, ext)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_backbone_ring_write_gate_extent_and_adapters_match_jax(models,
+                                                                 kv_quant):
+    """One ring-addressed decode step over a cache with random contents and
+    valid bits: write_gate keeps gated-off rows' k/v (and int8 scales) as
+    they were, read_extent gives each row its own extent, and per-row LoRA
+    adapters (ids 1, 0, 2) run in every projection: hidden states and the
+    whole cache equal the JAX backbone's (hidden states of the rows that
+    advance)."""
+    import dataclasses
+    from moss_ttsd_tpu.decode.lora_registry import LoraRegistry as JReg
+    from moss_ttsd_tpu.models import lm as jlm
+    from moss_ttsd_torch.decode.lora_registry import LoraRegistry
+    from moss_ttsd_torch.models.lm import init_cache, select_adapters
+    from tests.test_torch_continuous import rand_adapter
+    jcfg, params, cfg, model = models
+    jcfg = dataclasses.replace(jcfg, kv_quant=kv_quant)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    model.cfg = cfg
+    B, S, L = 3, 12, cfg.num_hidden_layers
+    rng = np.random.default_rng(21)
+    ids, pos, kv, slot, gate, ext = _ring_inputs(cfg, rng, B, S)
+    reg, jreg = LoraRegistry(torch.float32, L), JReg(jnp.float32, L)
+    for r in (reg, jreg):
+        r.register("a", rand_adapter(cfg, 1, rank=3), alpha=8.0)
+        r.register("b", rand_adapter(cfg, 2, rank=2), alpha=8.0)
+    aids = np.array([1, 0, 2])
+    try:
+        jc = jlm.init_cache(jcfg, B, S, jnp.float32)
+        pc = init_cache(cfg, B, S, torch.float32, device="cpu")
+        for name in jc:
+            if jc[name].dtype == jnp.int8:
+                v = rng.integers(-127, 128, jc[name].shape).astype(np.int8)
+            else:
+                v = rng.random(jc[name].shape).astype(np.float32)
+            jc[name] = jnp.asarray(v)
+            pc[name].copy_(torch.from_numpy(v))
+        old = {k: v.clone() for k, v in pc.items()}
+        jh, jc = jlm.AsteroidLM(jcfg).apply(
+            params, jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(kv), jc,
+            slot, jnp.asarray(gate), method=jlm.AsteroidLM.backbone,
+            read_extent=jnp.asarray(ext), adapters=jreg.stacks,
+            adapter_ids=jnp.asarray(aids, jnp.int32))
+        with torch.no_grad():
+            ph, _ = model.backbone(
+                torch.from_numpy(ids), torch.from_numpy(pos),
+                torch.from_numpy(kv), pc, slot,
+                write_gate=torch.from_numpy(gate),
+                read_extent=torch.from_numpy(ext),
+                adapters=select_adapters(reg.stacks,
+                                         torch.from_numpy(aids)))
+    finally:
+        model.cfg = models[2]
+    # rows that advance; a gated-off row reads a 1-slot extent and its
+    # output is dropped by the pool (JAX on the CPU reads every slot)
+    np.testing.assert_allclose(ph.numpy()[gate], np.asarray(jh)[gate],
+                               atol=1e-4)
+    for name in pc:
+        got, ref = pc[name].numpy(), np.asarray(jc[name])
+        if got.dtype == np.int8:
+            # a quantized value may sit one step off where the fp32 k/v
+            # differ by float reassociation
+            assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        # rows gated off keep their old sliver exactly; no other slot moved
+        np.testing.assert_array_equal(got[:, ~gate], old[name].numpy()[
+            :, ~gate])
+        keep = np.ones(S, bool)
+        keep[slot] = False
+        np.testing.assert_array_equal(got[:, :, :, keep],
+                                      old[name].numpy()[:, :, :, keep])

@@ -74,6 +74,21 @@ def test_engine_without_cuda_raises(no_cuda):
     GenerationEngine(cfg, model, device="cpu")          # asked for: runs
 
 
+def test_pool_and_registry_without_cuda_raise(no_cuda):
+    """The continuous pool runs on the card unless asked for the CPU; a
+    CPU engine's LoRA stacks stay on the CPU."""
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    cfg, model = _tiny_lm()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatcher(cfg, model, slots=2, base=16, max_steps=16)
+    cb = ContinuousBatcher(cfg, model, slots=2, base=16, max_steps=16,
+                           device="cpu")
+    assert cb.state.tokens.device.type == "cpu"
+    eng = GenerationEngine(cfg, model, device="cpu")
+    assert eng.lora.device.type == "cpu"
+
+
 def test_codec_without_cuda_raises(no_cuda):
     from moss_ttsd_torch.core.config import CodecConfig
     from moss_ttsd_torch.models.codec.model import XYTokenizer

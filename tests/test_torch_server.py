@@ -1,10 +1,14 @@
-"""The port's window-scheduler speech server, end to end over real HTTP on
-127.0.0.1 against the tiny pipeline on the CPU (the cases of the JAX
-server's tests for this scheduler): wav, reference-wav and streamed PCM
+"""The port's speech server, end to end over real HTTP on 127.0.0.1
+against the tiny pipeline on the CPU (the cases of the JAX server's
+tests): the window scheduler (wav, reference-wav and streamed PCM
 requests, micro-batching of concurrent requests, 400/429 where the JAX
 server gives them, /v1/metrics with the pipeline's and the server's
-counters, the port's client; the continuous scheduler and LoRA voices are
-refused; the server CLI on the CPU."""
+counters, the port's client); the continuous scheduler (concurrent
+requests joining the pool, the overflow worker for prompts and budgets
+the pool cannot hold, concurrent streams in the pool, a pool stream equal
+to stream_item, cancelled requests freeing their slots); LoRA voices on
+both schedulers and on the streaming path, /v1/models listing them; the
+refusals that still hold; the server CLI on the CPU."""
 import base64
 import json
 import pathlib
@@ -24,9 +28,11 @@ from moss_ttsd_torch.cli.inference import build_tiny_pipeline  # noqa: E402
 from moss_ttsd_torch.serve.api_client import (SpeechAPIClient,  # noqa: E402
                                               wav_bytes_to_array)
 from moss_ttsd_torch.serve.server import (BatchingWorker,  # noqa: E402
-                                          ServerBusy, SpeechServer, _Request,
-                                          main, wav_array_to_bytes)
+                                          ContinuousWorker, ServerBusy,
+                                          SpeechServer, _Request, main,
+                                          wav_array_to_bytes)
 from moss_ttsd_torch.utils.profiling import metrics  # noqa: E402
+from tests.test_torch_continuous import rand_adapter  # noqa: E402
 
 LSB = 1.0 / 32768
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -164,15 +170,18 @@ def test_voice_without_registered_adapters_is_400(server):
 
 
 def test_continuous_scheduler_and_lora_voices_are_refused():
+    """Since the continuous scheduler and LoRA voices are ported, what is
+    still refused: an unknown scheduler, an empty or missing adapter, a
+    malformed --lora_adapter, an unknown --pool_kv_quant, --mesh,
+    --attn_impl xla, --jax_cache_dir and a real checkpoint."""
     pipe = build_tiny_pipeline(device="cpu")
-    with pytest.raises(ValueError, match="A10b"):
-        SpeechServer(pipe, host="127.0.0.1", port=0, scheduler="continuous")
-    with pytest.raises(ValueError, match="A10b"):
-        SpeechServer(pipe, host="127.0.0.1", port=0,
-                     lora_adapters={"narrator": {}})
     with pytest.raises(ValueError, match="unknown scheduler"):
         SpeechServer(pipe, host="127.0.0.1", port=0, scheduler="round")
-    for argv in (["--scheduler", "continuous"], ["--lora_adapter", "a=b"],
+    with pytest.raises(ValueError, match="no LoRA factors"):
+        SpeechServer(pipe, host="127.0.0.1", port=0,
+                     lora_adapters={"narrator": {}})
+    for argv in (["--lora_adapter", "a=b"], ["--lora_adapter", "noequals"],
+                 ["--scheduler", "continuous", "--pool_kv_quant", "int4"],
                  ["--mesh", "1x4"], ["--attn_impl", "xla"],
                  ["--jax_cache_dir", "x"]):
         with pytest.raises(SystemExit):
@@ -296,6 +305,392 @@ def test_server_cli_serves_on_the_cpu():
         port = int(line.split(":")[1].split()[0])
         assert urllib.request.urlopen(
             f"http://127.0.0.1:{port}/health", timeout=60).read() == b"ok"
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+# -- the continuous scheduler ------------------------------------------------
+
+POOL = dict(max_batch=2, scheduler="continuous", pool_base=192,
+            pool_max_steps=32, segment_steps=4)
+
+
+@pytest.fixture(scope="module")
+def continuous_server():
+    pipe = build_tiny_pipeline(device="cpu")
+    srv = SpeechServer(pipe, host="127.0.0.1", port=0, **POOL)
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+def _adapter(pipe, seed):
+    return rand_adapter(pipe.lm_cfg, seed, rank=2)
+
+
+def _pcm(server, payload):
+    ct, pcm = _stream(server, payload)
+    assert ct == "audio/L16; rate=24000; channels=1"
+    assert len(pcm) > 0 and len(pcm) % 2 == 0
+    return np.frombuffer(pcm, "<i2").astype(np.float32) / 32768.0
+
+
+def test_continuous_scheduler_serves_requests(continuous_server):
+    """Three concurrent requests with different budgets each get a finite
+    wav through the pool (the auto KV policy turns the int8 cache off
+    below 512 slots)."""
+    assert continuous_server.worker.cb.cfg.kv_quant == "none"
+    metrics.reset()
+    results = [None] * 3
+
+    def work(i, max_tokens):
+        results[i] = _post(f"{_base(continuous_server)}/v1/audio/speech",
+                           {"input": f"[S1]req {i}[S2]ok",
+                            "max_tokens": max_tokens}).read()
+
+    threads = [threading.Thread(target=work, args=(i, mt))
+               for i, mt in enumerate([10, 24, 16])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for body in results:
+        wav, _ = wav_bytes_to_array(body)
+        assert len(wav) > 0 and np.isfinite(wav).all()
+    snap = metrics.snapshot()
+    assert snap.get("server_continuous_joins", 0) >= 3
+    assert snap.get("server_continuous_segments", 0) >= 1
+    assert "server_pool_active_slots" in snap
+
+
+def test_continuous_request_equals_pool_and_process_batch(continuous_server):
+    """A lone pool request's wav equals process_batch over the same item
+    (the pool row's tokens are the static engine's; the codec is the
+    same) within one int16 step."""
+    item = {"text": "[S1]a pooled request[S2]answered"}
+    r = _post(f"{_base(continuous_server)}/v1/audio/speech",
+              {"input": item["text"], "max_tokens": 16, "seed": 4})
+    wav, _ = wav_bytes_to_array(r.read())
+    pipe = continuous_server.worker.pipeline
+    _, audio = pipe.process_batch([item], max_new_tokens=16, seed=4)
+    ref = audio[0]["audio_data"][0]
+    assert wav.shape == ref.shape
+    assert float(np.abs(wav - ref).max()) <= LSB * 1.01
+
+
+def test_continuous_scheduler_routes_oversized_prompt(continuous_server):
+    """A prompt over the pool bucket rides the overflow worker."""
+    before = metrics.snapshot().get("server_routed_overflow", 0)
+    r = _post(f"{_base(continuous_server)}/v1/audio/speech",
+              {"input": "[S1]" + "long words here " * 40 + "[S2]ok",
+               "max_tokens": 16})
+    wav, _ = wav_bytes_to_array(r.read())
+    assert len(wav) > 0 and np.isfinite(wav).all()
+    assert metrics.snapshot().get("server_routed_overflow", 0) == before + 1
+
+
+def test_continuous_scheduler_routes_over_budget_request(continuous_server):
+    """max_tokens over the pool's per-slot budget goes to the overflow
+    worker, which reports on its own queue gauge."""
+    before = metrics.snapshot().get("server_routed_overflow", 0)
+    r = _post(f"{_base(continuous_server)}/v1/audio/speech",
+              {"input": "[S1]long request[S2]ok", "max_tokens": 48})
+    wav, _ = wav_bytes_to_array(r.read())
+    assert len(wav) > 0 and np.isfinite(wav).all()
+    assert metrics.snapshot().get("server_routed_overflow", 0) == before + 1
+    assert "server_overflow_queue_depth" in metrics.snapshot()
+    assert continuous_server.worker._overflow.queue_gauge == \
+        "server_overflow_queue_depth"
+
+
+def test_overflow_busy_rejection_not_counted_as_routed(continuous_server):
+    worker = continuous_server.worker
+    saved = worker._overflow
+
+    class _Busy:
+        queue_gauge = "server_overflow_queue_depth"
+
+        def submit(self, req):
+            raise ServerBusy("queue full (0 waiting)")
+
+        def shutdown(self):
+            pass
+
+    worker._overflow = _Busy()
+    try:
+        before = metrics.snapshot().get("server_routed_overflow", 0)
+        req = _Request({"text": "[S1]hi[S2]ok"}, 999, 0, False)
+        with pytest.raises(ServerBusy):
+            worker._route_overflow(req)
+        assert metrics.snapshot().get("server_routed_overflow", 0) == before
+    finally:
+        worker._overflow = saved
+
+
+def test_route_overflow_rejects_after_shutdown_flag(continuous_server):
+    worker = continuous_server.worker
+    saved_worker, saved_flag = worker._overflow, worker._overflow_closed
+    worker._overflow, worker._overflow_closed = None, True
+    try:
+        req = _Request({"text": "[S1]hi[S2]ok"}, 999, 0, False)
+        with pytest.raises(ServerBusy):
+            worker._route_overflow(req)
+        assert worker._overflow is None
+    finally:
+        worker._overflow, worker._overflow_closed = saved_worker, saved_flag
+
+
+def test_continuous_stream_over_budget_is_400(continuous_server):
+    """A stream cannot ride the batched fallback: 400, with the reason."""
+    code, msg = _status(continuous_server, {"input": "[S1]hi[S2]ok",
+                                            "max_tokens": 48,
+                                            "stream": True})
+    assert code == 400 and "pool capacity" in msg
+
+
+def test_continuous_streaming_pcm(continuous_server):
+    wav = _pcm(continuous_server, {"input": "[S1]pool stream[S2]ok",
+                                   "stream": True, "max_tokens": 20,
+                                   "seed": 2})
+    assert wav.size > 100 and np.isfinite(wav).all()
+
+
+def test_continuous_concurrent_streams(continuous_server):
+    """Two streams decode in the pool at once while a non-streamed request
+    joins around them."""
+    metrics.reset()
+    out = [None] * 3
+
+    def stream(i):
+        out[i] = _pcm(continuous_server, {"input": f"[S1]stream {i}[S2]go",
+                                          "stream": True, "max_tokens": 20,
+                                          "seed": i})
+
+    def plain():
+        out[2] = _post(f"{_base(continuous_server)}/v1/audio/speech",
+                       {"input": "[S1]plain rider[S2]ok",
+                        "max_tokens": 12}).read()
+
+    threads = [threading.Thread(target=stream, args=(0,)),
+               threading.Thread(target=stream, args=(1,)),
+               threading.Thread(target=plain)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert all(o is not None and len(o) for o in out)
+    assert len(wav_bytes_to_array(out[2])[0]) > 0
+    snap = metrics.snapshot()
+    assert snap.get("server_streamed", 0) == 2
+    assert snap.get("server_ttfa_s_observed", 0) == 2
+
+
+def test_warmup_roundtrip_continuous(continuous_server):
+    continuous_server.warmup(max_tokens=8, timeout_s=300)
+
+
+def _worker(**kw):
+    return ContinuousWorker(build_tiny_pipeline(device="cpu"), slots=2,
+                            base=192, segment_steps=4, **kw)
+
+
+def _drain(req):
+    chunks = []
+    while True:
+        c = req.stream_q.get(timeout=300)
+        if c is None:
+            return chunks
+        assert not isinstance(c, str), c
+        chunks.append(c)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_pool_stream_matches_stream_item(kv_quant):
+    """Pool streaming is byte-identical to stream_item fed at the same
+    boundaries: the pool row repeats the isolated engine's tokens and both
+    vocode through StreamVocoder (with the int8 KV cache the reference is
+    an int8-KV pipeline engine)."""
+    import queue
+    worker = _worker(max_steps=32, kv_quant=kv_quant)
+    try:
+        item = {"text": "[S1]pool stream parity[S2]ok"}
+        req = _Request(item, 20, 5, False)
+        req.stream_q = queue.Queue()
+        worker.submit(req)
+        chunks = _drain(req)
+    finally:
+        worker.shutdown()
+    pipe = worker.pipeline
+    if kv_quant == "int8":
+        import dataclasses
+        from moss_ttsd_torch.decode.engine import GenerationEngine
+        eng = pipe.engine
+        pipe.engine = GenerationEngine(
+            dataclasses.replace(eng.cfg, kv_quant="int8"), eng.model,
+            eng.sampling, bucket=eng.bucket, device="cpu")
+    ref = [c for c, _ in pipe.stream_item(item, max_new_tokens=20, seed=5,
+                                          chunk_steps=4,
+                                          first_chunk_steps=4)]
+    assert chunks and ref
+    np.testing.assert_array_equal(np.concatenate(chunks),
+                                  np.concatenate(ref))
+
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_pool_cancel_frees_slot(stream):
+    """A cancelled request (a stream whose client left, or a request whose
+    handler timed out) frees its slot at the next segment boundary, and the
+    pool keeps serving."""
+    import queue
+    import time
+    worker = _worker(max_steps=64)
+    try:
+        req = _Request({"text": "[S1]cancel me please[S2]ok"}, 60, 0, False)
+        if stream:
+            req.stream_q = queue.Queue()
+        before = metrics.get("server_cancelled")
+        worker.submit(req)
+        if stream:
+            assert not isinstance(req.stream_q.get(timeout=300), str)
+        else:
+            deadline = time.time() + 120
+            while time.time() < deadline and worker.cb.free_slots == 2:
+                time.sleep(0.05)
+        req.cancelled = True
+        deadline = time.time() + 120
+        while time.time() < deadline and worker.cb.free_slots < 2:
+            time.sleep(0.05)
+        assert worker.cb.free_slots == 2
+        assert metrics.get("server_cancelled") == before + 1
+        req2 = _Request({"text": "[S1]after cancel[S2]ok"}, 8, 0, False)
+        worker.submit(req2)
+        assert req2.event.wait(300)
+        assert req2.error is None and req2.wav_bytes
+    finally:
+        worker.shutdown()
+
+
+# -- LoRA voices ---------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lora_server():
+    """Continuous server with one registered LoRA voice."""
+    pipe = build_tiny_pipeline(device="cpu")
+    srv = SpeechServer(pipe, host="127.0.0.1", port=0,
+                       lora_adapters={"narrator": _adapter(pipe, 3)}, **POOL)
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+@pytest.fixture(scope="module")
+def lora_server_window():
+    pipe = build_tiny_pipeline(device="cpu")
+    srv = SpeechServer(pipe, host="127.0.0.1", port=0, max_batch=2,
+                       batch_window_s=0.1,
+                       lora_adapters={"narrator": (_adapter(pipe, 4), 16.0,
+                                                   False)})
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+def test_voice_adapter_request(lora_server):
+    """A voice reaches its adapter: the pool's wav equals process_batch
+    with that adapter (and differs from the base model's); "default"
+    serves the base model."""
+    item = {"text": "[S1]voice test[S2]ok"}
+    pipe = lora_server.worker.pipeline
+    r = _post(f"{_base(lora_server)}/v1/audio/speech",
+              {"input": item["text"], "max_tokens": 10, "seed": 1,
+               "voice": "narrator"})
+    wav, _ = wav_bytes_to_array(r.read())
+    _, voiced = pipe.process_batch([item], max_new_tokens=10, seed=1,
+                                   adapter="narrator")
+    _, plain = pipe.process_batch([item], max_new_tokens=10, seed=1)
+    ref = voiced[0]["audio_data"][0]
+    assert wav.shape == ref.shape
+    assert float(np.abs(wav - ref).max()) <= LSB * 1.01
+    base = plain[0]["audio_data"][0]
+    assert base.shape != ref.shape or not np.array_equal(base, ref)
+    r = _post(f"{_base(lora_server)}/v1/audio/speech",
+              {"input": "[S1]plain[S2]ok", "max_tokens": 10,
+               "voice": "default"})
+    assert len(wav_bytes_to_array(r.read())[0]) > 0
+
+
+def test_voice_unknown_is_400(lora_server):
+    code, msg = _status(lora_server, {"input": "[S1]x", "voice": "whoami",
+                                      "max_tokens": 4})
+    assert code == 400 and msg == ("unknown voice 'whoami'; available: "
+                                   "['narrator']")
+
+
+def test_models_endpoint_lists_voices(lora_server):
+    m = json.loads(urllib.request.urlopen(
+        f"{_base(lora_server)}/v1/models").read())
+    assert m["data"] == [{"id": "moss-ttsd", "object": "model",
+                          "voices": ["narrator"]}]
+    # one registry: the pool serves the pipeline engine's voices
+    worker = lora_server.worker
+    assert worker.cb.lora is worker.pipeline.engine.lora
+
+
+def test_voice_on_window_scheduler_and_streaming(lora_server_window):
+    """Voices on the window scheduler (per-row adapters in one batch, the
+    peft-style (tree, alpha, rslora) spec) and on its streaming path; the
+    port's client sends voice=."""
+    r = _post(f"{_base(lora_server_window)}/v1/audio/speech",
+              {"input": "[S1]windowed voice[S2]yes", "max_tokens": 10,
+               "voice": "narrator"})
+    wav, _ = wav_bytes_to_array(r.read())
+    assert len(wav) > 0 and np.isfinite(wav).all()
+    pipe = lora_server_window.worker.pipeline
+    got = _pcm(lora_server_window, {"input": "[S1]stream with voice[S2]go",
+                                    "stream": True, "max_tokens": 20,
+                                    "voice": "narrator", "seed": 3})
+    ref = np.concatenate([c for c, _ in pipe.stream_item(
+        {"text": "[S1]stream with voice[S2]go"}, max_new_tokens=20, seed=3,
+        adapter="narrator")])
+    assert got.shape == ref.shape
+    assert float(np.abs(got - ref).max()) <= LSB * 1.01
+    client = SpeechAPIClient(f"{_base(lora_server_window)}/v1",
+                             max_retries=1)
+    w, _ = wav_bytes_to_array(client.generate_speech(
+        "[S1]client voice[S2]ok", extra={"max_tokens": 8},
+        voice="narrator"))
+    assert len(w) > 0
+    with pytest.raises(RuntimeError, match="400"):
+        client.generate_speech("[S1]x", extra={"max_tokens": 8},
+                               voice="nobody")
+
+
+def test_continuous_server_cli_serves_a_voice(tmp_path):
+    """``--scheduler continuous --lora_adapter narrator=<npz>`` on the CPU:
+    the process prints its scheduler and port and lists the voice."""
+    from moss_ttsd_tpu.core.checkpoint import save_pytree
+    pipe = build_tiny_pipeline(device="cpu")
+    tree = {"params": {"layers": {"block": {
+        t.split("/")[-2]: {"lora_a": ab["a"], "lora_b": ab["b"]}
+        for t, ab in _adapter(pipe, 5).items()}}}}
+    npz = str(tmp_path / "lora_factors.npz")
+    save_pytree(npz, tree)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "moss_ttsd_torch.serve.server", "--tiny",
+         "--platform", "cpu", "--host", "127.0.0.1", "--port", "0",
+         "--scheduler", "continuous", "--pool_base", "192",
+         "--pool_max_steps", "32", "--lora_adapter", f"narrator={npz}"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on 127.0.0.1:"), line
+        assert "scheduler=continuous" in line
+        port = int(line.split(":")[1].split()[0])
+        m = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/v1/models", timeout=60).read())
+        assert m["data"][0]["voices"] == ["narrator"]
     finally:
         proc.kill()
         proc.wait(timeout=30)
