@@ -73,10 +73,27 @@ Phases, each printing one JSON line:
      row, the step and the logit gap); the throughput line (pool steps/s,
      frames/s at B 8, launches and host syncs a step, the per-row draws,
      peak memory, admission prefill ms per burst size);
- 11. cli      — the --tiny CLIs on the card write wavs: inference as it is,
+ 11. train    — LM finetuning at the full width (LMConfig(): fp32 master
+     weights, bf16 compute, remat, ce_chunks 8; random weights from seed
+     0): one batch of two synthetic examples laid out as
+     build_training_example lays them out (the text rows masked, the
+     audio rows and the EOS supervised), delay-shifted and collated to T
+     2048, run as B 2 with gradient accumulation 2; 6 full-finetune steps
+     and 6 layerwise LoRA steps (rank 16, alpha 32, rslora, the seven
+     projections) at a constant 1e-4: finite and falling losses, the LoRA
+     run's base bitwise unchanged and lora_b non-zero after step 2, s/step,
+     tokens/s, 6 N tokens / step time / 989e12, peak memory; the trained
+     factors saved in the JAX layout, loaded through LoraRegistry into the
+     main-path pipeline (a bf16 copy of the same base) and served to item 0
+     of examples_only_text.jsonl for 64 steps (finite wavs, 28 B1 launches
+     a prefill, 28 B2 launches a step); a tiny fp32 model's 3 full and 3
+     LoRA steps on the card against the CPU;
+ 12. cli      — the --tiny CLIs on the card write wavs: inference as it is,
      with --profile_dir (a torch.profiler trace), with --quant int8
      --restricted_text_head, and cloning the voices of
-     examples/examples.jsonl; the codec round trip over examples/;
+     examples/examples.jsonl; the codec round trip over examples/; the
+     finetune workflow over the examples' voices (the port's codec encodes
+     them), full finetuning checkpointed and resumed, LoRA finetuning;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
@@ -2274,7 +2291,445 @@ def continuous_server_part(pipe):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the --tiny CLIs on the card
+# phase 11: LM finetuning at the full width, and the trained voice served
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_T = 2048
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+
+
+def train_batch(seed: int = 0):
+    """Two synthetic examples as ``build_training_example`` lays them out
+    (style and text rows masked, random audio codes and the EOS
+    supervised), written as one shard, read back through
+    ``TrainingDataset`` (the delay shift) and collated to T 2048, as K 2
+    micro batches of one row. Returns (batch, masked rows per example)."""
+    import numpy as np
+    from moss_ttsd_torch.train.data import (TrainingDataset,
+                                            build_training_example, collate)
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    tok = MockTokenizer()
+    g = np.random.default_rng(seed)
+    data_dir = os.path.join(TRAIN_DIR, "data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    os.makedirs(data_dir)
+    flat, masked = {}, []
+    for i, (text, short) in enumerate((
+            ("[S1]Welcome back.[S2]Thanks.", 0),
+            ("[S1]Hello.[S2]Hi there.", TRAIN_T // 8))):     # a padded row
+        rows = len(build_training_example(tok, text, np.zeros((0, 8)))[0])
+        codes = g.integers(0, 1024, (TRAIN_T - 7 - rows - short, 8))
+        ids, labels = build_training_example(tok, text, codes)
+        flat[f"input_ids_{i}"], flat[f"labels_{i}"] = ids, labels
+        masked.append(int((labels[:, 0] == -100).sum()))
+    np.savez(os.path.join(data_dir, "processed_data_00000.npz"), **flat)
+    ds = TrainingDataset(data_dir, 8, tok.pad_token_id, 1024, seed=seed)
+    batch = collate([ds[0], ds[1]], tok.pad_token_id, max_length=TRAIN_T,
+                    pad_token=1024, pad_to_multiple=64)
+    return {k: v.reshape((2, 1) + v.shape[1:]) for k, v in batch.items()}, \
+        masked
+
+
+def _train_steps(state, step_fn, batch, steps, after=None):
+    """``steps`` optimizer steps; the host clock of each ends in a sync.
+    ``after(n, state)`` runs after step n (1-based)."""
+    import torch
+    losses, norms, times = [], [], []
+    for n in range(1, steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        if after is not None:
+            after(n, state)
+    return state, losses, norms, times
+
+
+def profile_train_step(run, state, step_fn, batch):
+    """torch.profiler over one more optimizer step (``run`` names it):
+    device busy ms (the sum of kernel times, one stream), the idle share of
+    the step's wall time, kernel launches and the kernels that take the
+    most device time. Profiler overhead inflates the host time, so the
+    idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, host_ops = [], 0
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", 0)
+             or getattr(e, "self_cuda_time_total", 0))
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kern.append((e.key, t, e.count))
+    host_ops = sum(1 for e in prof.events()
+                   if e.name.startswith("aten::") and (
+                       e.cpu_parent is None
+                       or not e.cpu_parent.name.startswith("aten::")))
+    busy_us = sum(t for _, t, _ in kern)
+    kern.sort(key=lambda x: -x[1])
+    emit({"phase": "profile", "run": run, "step_s": wall,
+          "device_busy_ms": busy_us / 1e3,
+          "device_idle_share": 1.0 - busy_us / (wall * 1e6),
+          "kernel_launches": sum(c for _, _, c in kern),
+          "top_level_aten_ops": host_ops,
+          "top": [{"kernel": k[:80], "ms": t / 1e3, "calls": c}
+                  for k, t, c in kern[:12]]})
+
+
+def _train_numbers(losses, norms, times, sup_tokens, tokens, n_params,
+                   peak):
+    import math
+    step_s = sorted(times[1:])[len(times[1:]) // 2]      # median past step 1
+    problems = []
+    if not all(math.isfinite(x) for x in losses + norms):
+        problems.append(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall: {losses}")
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "first_step_s": times[0], "s_per_step": step_s,
+            "supervised_tokens_per_s": sup_tokens / step_s,
+            "tokens_per_s": tokens / step_s,
+            "six_n_tokens_per_step_s_over_989e12":
+                6 * n_params * tokens / step_s / PEAK_BF16_FLOPS,
+            "peak_mem_gib": peak / 2 ** 30}, problems
+
+
+def _params_gap(a, b, lr):
+    """The largest gaps between two state dicts after a few Adam steps
+    (fp32), and whether they pass: within rel 1e-4 (atol 1e-6) but for at
+    most max(4, n/1000) elements of a tensor, and those within one update
+    (lr): Adam divides each gradient element by its own magnitude, so an
+    element whose gradient sits within rounding of zero (|g| near eps
+    1e-8) takes a step that reassociation changes."""
+    worst_abs = worst_rel = 0.0
+    outside_max, ok = 0, True
+    for k, x in a.items():
+        x, y = x.detach().float().cpu(), b[k].detach().float().cpu()
+        err = (x - y).abs()
+        rel = err / (y.abs() + 1e-6)
+        outside = int((err > 1e-4 * y.abs() + 1e-6).sum())
+        worst_abs = max(worst_abs, float(err.max()))
+        worst_rel = max(worst_rel, float(rel.max()))
+        outside_max = max(outside_max, outside)
+        ok = ok and outside <= max(4, x.numel() // 1000) \
+            and float(err.max()) <= lr
+    return {"max_abs_gap": worst_abs, "max_rel_gap": worst_rel,
+            "most_elements_outside_rel_1e-4": outside_max, "ok": ok}
+
+
+def train_reference():
+    """A tiny fp32 model (the --tiny geometry) takes 3 full steps (cosine
+    with a warmup step, weight decay, K 2 accumulation, remat) and 3
+    layerwise LoRA steps on the card and on the CPU, TF32 off: the losses
+    and every parameter must agree."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.cli.inference import tiny_lm_config
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.train import lora as tl
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step)
+    cfg = tiny_lm_config()
+    lcfg = dataclasses.replace(cfg, lora_rank=4, lora_alpha=8.0)
+    g = np.random.default_rng(1)
+    B, T = 4, 40
+    ids = g.integers(0, cfg.speech_vocab_size, (B, T, cfg.channels))
+    ids[..., 0] = g.integers(0, cfg.vocab_size, (B, T))
+    labels = ids.copy()
+    for b in range(B):
+        labels[b, : 5 + 3 * b] = -100
+    mask = np.ones((B, T), np.int64)
+    mask[3, T - 6:] = 0
+    batch = {k: v.reshape((2, 2) + v.shape[1:]) for k, v in
+             (("input_ids", ids), ("labels", labels),
+              ("attention_mask", mask))}
+    lr = 1e-3
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = make_optimizer(learning_rate=lr, warmup_ratio=0.1,
+                             total_steps=10, weight_decay=0.01)
+        model = AsteroidLM.init_random(cfg, seed=0, device="cpu").to(dev)
+        state = init_train_state(cfg, opt, model=model)
+        step = make_train_step(cfg, opt, remat=True, ce_chunks=2,
+                               grad_accum_steps=2)
+        full = [float(step(state, batch)[1]["loss"]) for _ in range(3)]
+        lmodel = tl.graft_lora_params(
+            AsteroidLM.init_random(cfg, seed=0, device="cpu"), lcfg,
+            seed=1).to(dev)
+        lstate = tl.init_lora_state(lmodel, opt)
+        lstep = tl.make_layerwise_lora_step(lcfg, opt, remat=True,
+                                            ce_chunks=2, grad_accum_steps=2)
+        lora = [float(lstep(lstate, batch)[1]["loss"]) for _ in range(3)]
+        runs[dev] = (full, model.state_dict(), lora, lmodel.state_dict())
+    (fc, mc, lc, lmc), (fg, mg, lg, lmg) = runs["cpu"], runs["cuda"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(fg + lg, fc + lc))
+    full_gap = _params_gap(mg, mc, lr)
+    lora_gap = _params_gap(lmg, lmc, lr)
+    ok = loss_gap <= 1e-4 and full_gap["ok"] and lora_gap["ok"]
+    return {"losses_cpu": fc + lc, "losses_cuda": fg + lg,
+            "loss_max_rel_gap": loss_gap, "full_params": full_gap,
+            "lora_params": lora_gap, "tol": "loss rel 1e-4; params rel 1e-4 "
+            "(atol 1e-6) but max(4, n/1000) elements within lr",
+            "ok": ok}
+
+
+def serve_back(base, lcfg, factors, steps: int = 64):
+    """The trained factors, exported in the JAX layout (``save_pytree`` of
+    ``lm_state_to_jax``) and read back (``load_pytree``), register as a
+    voice of the main-path pipeline (a bf16 serving copy of the same fp32
+    base, the full-width codec): ``process_batch`` over
+    examples_only_text.jsonl with item 0 voiced, ``steps`` decode steps,
+    launch counts from that run alone."""
+    import torch
+    from moss_ttsd_torch.core.checkpoint import load_pytree, save_pytree
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             CodecConfig, LMConfig,
+                                             SamplingConfig)
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils.convert_jax import lm_state_to_jax
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    path = os.path.join(TRAIN_DIR, "lora_factors.npz")
+    save_pytree(path, lm_state_to_jax(factors, lcfg))
+    tree = load_pytree(path)
+    cfg = LMConfig()
+    cfg = LMConfig.from_dict({**cfg.to_dict(),
+                              "speech_token_range": [0, cfg.vocab_size]})
+    sampling = SamplingConfig(
+        channels=[ChannelSamplingConfig(do_sample=True, temperature=0.9,
+                                        top_k=50, top_p=0.95)
+                  for _ in range(cfg.channels)], max_new_tokens=steps)
+    spt = XYTokenizer.init_random(CodecConfig(), seed=0, dtype="bfloat16",
+                                  device="cuda")
+    pipe = TTSPipeline(MockTokenizer(), cfg, base, spt, sampling,
+                       bucket=128, device="cuda")
+    pipe.engine.register_adapter("trained", tree, alpha=lcfg.lora_alpha,
+                                 use_rslora=lcfg.lora_rslora)
+    items = load_items()
+    items[0] = {**items[0], "voice": "trained"}
+    voices = [it.get("voice") for it in items]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    texts, audio = pipe.process_batch(items, max_new_tokens=steps, seed=0,
+                                      adapter=voices)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    st = dict(pipe.engine.last_stats)
+    L = cfg.num_hidden_layers
+    problems, wav_lens, _ = audio_problems(texts, audio, st["steps"],
+                                           cfg.channels)
+    problems += _launch_problems(counts, L, 1, st["steps"])
+    if st["steps"] != steps:
+        problems.append(f"decode ran {st['steps']} of {steps} steps")
+    a_q = pipe.engine.lora.stacks["q_proj"][0]
+    if tuple(a_q.shape) != (L, 2, cfg.hidden_size, lcfg.lora_rank):
+        problems.append(f"registry stack shape {tuple(a_q.shape)}")
+    del pipe, spt
+    return {"voices": voices, "steps": st["steps"], "e2e_s": e2e_s,
+            "wav_samples": wav_lens, "launches": counts,
+            "registered_stacks": sorted(tree["params"]["layers"]["block"]),
+            "problems": problems}
+
+
+def train_phase(card: str, profile: bool = False):
+    """Full finetuning and layerwise LoRA at the full MOSS-TTSD-v0.5 width
+    (LMConfig(): fp32 masters, bf16 compute, remat, ce_chunks 8), 6 steps
+    each at a constant 1e-4 on one batch (B 2, T 2048, K 2 micro batches of
+    one row); the trained voice served back through the main path; the
+    tiny card-vs-CPU reference. ``card``: nvidia-smi's name and power
+    limit, printed beside the times; ``profile``: one more step of each
+    under torch.profiler (``profile`` lines)."""
+    import dataclasses
+    import torch
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops.chunked_ce import valid_label_counts
+    from moss_ttsd_torch.train import lora as tl
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step, to_device)
+    problems = []
+    cfg = LMConfig()
+    np_batch, masked = train_batch()
+    batch = to_device(np_batch, torch.device("cuda"))
+    sup = int(valid_label_counts(batch["labels"])[0])
+    tokens = int(batch["attention_mask"].sum())
+    opt = make_optimizer(learning_rate=1e-4, lr_scheduler_type="constant",
+                         total_steps=TRAIN_STEPS)
+    geometry = {"layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+                "vocab": cfg.vocab_size, "batch": 2, "micro_batch": 1,
+                "grad_accum": 2, "T": int(batch["labels"].shape[2]),
+                "masked_rows": masked, "tokens": tokens,
+                "supervised_tokens_ch0": sup, "dtype": cfg.dtype,
+                "param_dtype": "float32", "remat": True, "ce_chunks": 8}
+
+    # full finetune
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    model = AsteroidLM.init_random(cfg, seed=0, device="cuda",
+                                   dtype=torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = init_train_state(cfg, opt, model=model)
+    step = make_train_step(cfg, opt, remat=True, ce_chunks=8,
+                           grad_accum_steps=2)
+    state, losses, norms, times = _train_steps(state, step, batch,
+                                               TRAIN_STEPS)
+    full, p = _train_numbers(losses, norms, times, sup, tokens, n_params,
+                             torch.cuda.max_memory_allocated())
+    problems += [f"full: {x}" for x in p]
+    full["library_launches"] = fa.launch_counts()
+    if any(full["library_launches"].values()):
+        problems.append("the training step ran a serving kernel")
+    if profile:
+        profile_train_step("train_full", state, step, batch)
+    del state, model, step
+    _release()
+
+    # layerwise LoRA over the same base
+    torch.cuda.reset_peak_memory_stats()
+    base = AsteroidLM.init_random(cfg, seed=0, device="cuda",
+                                  dtype=torch.float32)
+    lcfg = dataclasses.replace(cfg, lora_rank=16, lora_alpha=32.0,
+                               lora_rslora=True)
+    lmodel = tl.graft_lora_params(base, lcfg, seed=1)
+    lstate = tl.init_lora_state(lmodel, opt)
+    lstep = tl.make_layerwise_lora_step(lcfg, opt, remat=True, ce_chunks=8,
+                                        grad_accum_steps=2)
+    b_after_2 = {}
+
+    def after(n, st):
+        if n == 2:
+            b_after_2["max_abs"] = max(
+                float(v.detach().abs().max()) for k, v in st.params.items()
+                if k.endswith("lora_b"))
+
+    lstate, losses, norms, times = _train_steps(lstate, lstep, batch,
+                                                TRAIN_STEPS, after)
+    # 6 N tokens with the model's N, as for the full step (a LoRA step
+    # does about 4 N tokens: no weight gradients but the factors')
+    lora, p = _train_numbers(losses, norms, times, sup, tokens, n_params,
+                             torch.cuda.max_memory_allocated())
+    problems += [f"lora: {x}" for x in p]
+    base_sd = base.state_dict()
+    lora["trainable_params"] = sum(v.numel() for v in lstate.params.values())
+    lora["base_bitwise_unchanged"] = all(
+        torch.equal(v, base_sd[k]) for k, v in lmodel.state_dict().items()
+        if "lora_" not in k)
+    lora["lora_b_max_abs_after_step_2"] = b_after_2["max_abs"]
+    if not lora["base_bitwise_unchanged"]:
+        problems.append("lora: the base weights changed")
+    if not b_after_2["max_abs"] > 0:
+        problems.append("lora: lora_b is zero after step 2")
+    if profile:
+        profile_train_step("train_lora", lstate, lstep, batch)
+    factors = {k: v.detach() for k, v in lstate.params.items()}
+    del lstate, lmodel, lstep
+    _release()
+
+    served = serve_back(base, lcfg, factors)
+    problems += [f"serve_back: {x}" for x in served.pop("problems")]
+    del base
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _release()
+    reference = train_reference()
+    if not reference["ok"]:
+        problems.append("card vs CPU reference disagrees")
+    line = {"phase": "train", "card": card,
+            "params": n_params, **geometry, "full": full, "lora": lora,
+            "serve_back": served, "reference": reference,
+            "ok": not problems, "problems": problems}
+    emit(line)
+    if problems:
+        raise SystemExit(f"train phase failed: {problems}")
+    return line
+
+
+def train_cli_check():
+    """The finetune CLIs --tiny on the card: the workflow preprocesses a
+    training JSONL over the examples' voices with the port's codec and
+    trains (full, checkpointed at step 2); --resume continues to step 4;
+    --lora writes lora_factors.npz and model_merged.npz."""
+    out = os.path.join(ROOT, "build", "chip_smoke_finetune")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    voice = lambda n: os.path.join(EXAMPLES, n)
+    items = [{"file_path": voice("voice_both.wav"),
+              "full_transcript": "[S1]This is the first speaker reference "
+                                 "voice.[S2]And this is the second speaker "
+                                 "reference voice."},
+             {"reference_audio": voice("voice_s1.wav"),
+              "reference_text": "[S1]This is the first speaker reference "
+                                "voice.",
+              "audio": voice("voice_s2.wav"),
+              "text": "[S2]And this is the second speaker reference voice."}]
+    jsonl = os.path.join(out, "train.jsonl")
+    with open(jsonl, "w") as f:
+        f.writelines(json.dumps(it) + "\n" for it in items)
+    data = os.path.join(out, "processed")
+    full = os.path.join(out, "full")
+    with open(os.path.join(out, "train.yaml"), "w") as f:
+        f.write("save_steps: 2\nlogging_steps: 1\n")
+    with open(os.path.join(out, "wf.yaml"), "w") as f:
+        f.write(f"data_preprocess:\n  jsonl: {jsonl}\n  output_dir: {data}\n"
+                f"finetune:\n  output_dir: {full}\n  training_config: "
+                f"{os.path.join(out, 'train.yaml')}\n  max_steps: 2\n")
+    ft = [sys.executable, "-m", "moss_ttsd_torch.cli.finetune", "--tiny",
+          "--data_dir", data]
+    runs = [
+        ("finetune_workflow",
+         [sys.executable, "-m", "moss_ttsd_torch.cli.finetune_workflow",
+          "--tiny", "--config", os.path.join(out, "wf.yaml")],
+         full, ["model.npz", "checkpoints"]),
+        ("finetune_resume", ft + ["--output_dir", full, "--max_steps", "4",
+                                  "--save_steps", "2", "--resume"],
+         full, ["model.npz", "checkpoints"]),
+        ("finetune_lora", ft + ["--output_dir", os.path.join(out, "lora"),
+                                "--lora", "--max_steps", "2"],
+         os.path.join(out, "lora"), ["lora_factors.npz",
+                                     "model_merged.npz"]),
+    ]
+    for name, cmd, out_dir, want in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+        ok = proc.returncode == 0 and set(want) <= set(files)
+        meta = {}
+        if ok:
+            with open(os.path.join(out_dir, "train_config.json")) as f:
+                meta = json.load(f)
+        if name == "finetune_resume":
+            ok = ok and "resumed from" in proc.stdout and meta["steps"] == 4 \
+                and sorted(os.listdir(os.path.join(out_dir, "checkpoints"))) \
+                == ["step_2", "step_4"]
+        if name == "finetune_workflow":
+            with open(os.path.join(data, "processed_data_index.json")) as f:
+                ok = ok and json.load(f)["total"] == 2
+        emit({"phase": "cli", "run": name, "flags": cmd[3:],
+              "rc": proc.returncode, "files": files, "steps": meta.get("steps"),
+              "seconds": time.perf_counter() - t0, "ok": ok,
+              "tail": proc.stdout.strip().splitlines()[-2:]})
+        if not ok:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise SystemExit(f"tiny CLI run {name} failed")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the --tiny CLIs on the card
 # ---------------------------------------------------------------------------
 
 def _trace_kernel_events(path) -> int:
@@ -2672,8 +3127,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "stream,overlap,server,pool,clone,int8,cli,profile,"
-                         "sweep "
+                         "stream,overlap,server,pool,clone,int8,train,cli,"
+                         "profile,sweep "
                          "(default all = every phase but profile and sweep)")
     args = ap.parse_args(argv)
     import torch
@@ -2682,7 +3137,7 @@ def main(argv=None) -> int:
         return 1
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
-               "overlap", "server", "pool", "clone", "int8", "cli"}
+               "overlap", "server", "pool", "clone", "int8", "train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -2753,8 +3208,12 @@ def main(argv=None) -> int:
         if not all(oks):
             raise SystemExit("a kernel disagrees with its plain version at "
                              "the pool's shapes")
+    if "train" in phases:
+        train_phase(smi_line, "profile" in phases)
+        _release()
     if "cli" in phases:
         cli_check()
+        train_cli_check()
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -27,12 +27,28 @@ SPT_CONFIG_PATH = "XY_Tokenizer/config/xy_tokenizer_config.yaml"
 SPT_CHECKPOINT_PATH = "XY_Tokenizer/weights/xy_tokenizer.ckpt"
 
 
+TINY_SPEECH_OFFSET = 100     # channel 0 of the tiny codec's codes in training
+
+
+def tiny_lm_config():
+    """The tiny LM of ``--tiny`` (fp32): the speech range dominates the
+    vocab so a random model emits speech, and the vocab holds the tiny
+    codec's 64 codes at ``TINY_SPEECH_OFFSET`` (the finetune workflow's
+    channel-0 offset)."""
+    from ..core.config import LMConfig
+    from ..utils.mock_tokenizer import MockTokenizer
+    return LMConfig(dtype="float32", param_dtype="float32").tiny(
+        vocab_size=300, speech_vocab_size=65, speech_pad_token=64,
+        speech_token_range=(0, 290), eos_token_id=290,
+        pad_token_id=MockTokenizer().pad_token_id)
+
+
 def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
                         quant=None, restricted_text_head: bool = False,
                         restricted_audit_every=None):
     """Random tiny LM + codec + mock tokenizer wired into the real pipeline
     (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
-    from ..core.config import (ChannelSamplingConfig, CodecConfig, LMConfig,
+    from ..core.config import (ChannelSamplingConfig, CodecConfig,
                                SamplingConfig)
     from ..core.device import resolve_device
     from ..models.codec.model import XYTokenizer
@@ -42,11 +58,7 @@ def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
 
     dev = resolve_device(device)
     tokenizer = MockTokenizer()
-    # speech range dominates the tiny vocab so a random model emits speech
-    lm_cfg = LMConfig(dtype="float32", param_dtype="float32").tiny(
-        vocab_size=300, speech_vocab_size=65, speech_pad_token=64,
-        speech_token_range=(0, 290), eos_token_id=290,
-        pad_token_id=tokenizer.pad_token_id)
+    lm_cfg = tiny_lm_config()
     model = AsteroidLM.init_random(lm_cfg, seed=seed, device=dev)
     spt = XYTokenizer.init_random(CodecConfig().tiny(), seed=seed, device=dev)
     sampling = SamplingConfig(

@@ -78,9 +78,13 @@ class LMConfig:
     # and restricted_audit_every, and raises ValueError for lora_rank > 0,
     # remat_layers, the ablate_* stubs, an attn_impl other than mixed or
     # pallas (attention is always the kernels of ops/flash_attention.py) and
-    # an unknown kv_quant. The TPU performance knobs decode_len_bucket,
-    # decode_extent_kernel, decode_block_k, pallas_interpret and
-    # fuse_qk_norm_rope change no number and are accepted and ignored.
+    # an unknown kv_quant. The training model (AsteroidLM's cache-free
+    # backbone, train/) implements lora_rank, lora_alpha, lora_rslora,
+    # lora_targets and remat_layers; trained voices are served as adapters
+    # (GenerationEngine.register_adapter). The TPU performance knobs
+    # decode_len_bucket, decode_extent_kernel, decode_block_k,
+    # pallas_interpret and fuse_qk_norm_rope change no number and are
+    # accepted and ignored.
     attn_impl: str = "mixed"
     pallas_interpret: bool = False
     quantized: bool = False

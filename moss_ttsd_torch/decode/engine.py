@@ -167,8 +167,9 @@ class GenerationEngine:
 
     LoRA voices: ``register_adapter`` stacks an adapter's factors
     (``decode/lora_registry.py``); ``generate(adapter=...)`` then runs the
-    prefill and every decode step of each row through its adapter. The
-    training-time ``cfg.lora_rank`` is not ported (ValueError)."""
+    prefill and every decode step of each row through its adapter. A
+    training-time ``cfg.lora_rank`` config is refused (ValueError): a
+    trained voice serves as an adapter (``train/lora.py``)."""
 
     def __init__(self, cfg: LMConfig,
                  params: Union[AsteroidLM, Mapping[str, torch.Tensor]],

@@ -1,6 +1,6 @@
 """AsteroidLM — the 8-channel Qwen3-style decoder, PyTorch port of
 ``moss_ttsd_tpu/models/lm.py`` (bf16/fp32 and int8 weights, per-row LoRA
-adapters for serving).
+adapters for serving, the training forward).
 
   * 8 embedding tables summed into one hidden stream (``embed``);
   * Qwen3 blocks: RMSNorm, GQA attention with per-head q/k RMSNorm + RoPE,
@@ -21,6 +21,16 @@ continuous pool writes the cache ring-addressed: every row writes the one
 scalar slot, ``write_gate`` keeps the old k/v (and scales) of gated-off
 rows, and ``read_extent`` gives each row its own decode extent.
 
+Training (the cache-free ``backbone``): the weights may be fp32 masters
+under a bf16 ``cfg.dtype``; every weight is cast to the compute dtype where
+it is used, as flax casts (``Dense``, ``RMSNorm``, the embedding sum), so no
+``torch.autocast`` op list is involved. ``remat`` (default
+``cfg.remat_layers``) recomputes each decoder block in the backward
+(``torch.utils.checkpoint``, non-reentrant: the counterpart of
+``nn.remat(nothing_saveable)``). ``cfg.lora_rank > 0`` gives the
+``cfg.lora_targets`` projections trainable ``lora_a`` (in, r) / ``lora_b``
+(r, out) factors (JAX ``LoRADense``).
+
 Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` on
 the exact k/v; single-token decode through the extent-clamped
 ``flash_decode_hs``, or ``flash_decode_int8_hs`` over an int8 cache — the
@@ -36,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LMConfig
 from ..core.device import DeviceLike, resolve_device, torch_dtype
@@ -44,6 +55,7 @@ from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
                                    flash_prefill)
 from ..ops.quantize import quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..utils.convert_lora import lora_scale
 
 
 def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -90,6 +102,39 @@ class QLinear(nn.Module):
         return F.linear(x, w, b)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to the input's dtype at
+    use (flax ``nn.Dense(dtype=...)``): fp32 master weights run a bf16
+    forward, and weights already in the compute dtype are used as they are.
+
+    ``rank`` > 0 is the JAX ``LoRADense``: y = x W + ((x A) B) * scale
+    (+ bias), with A (in, r) and B (r, out) beside the base weight; the
+    scale is held at the compute dtype's precision, as JAX's weakly typed
+    Python scale is."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = False, rank: int = 0, scale: float = 1.0):
+        super().__init__(in_features, out_features, bias=bias)
+        self.scale = scale
+        self.lora_a = self.lora_b = None
+        if rank:
+            self.lora_a = nn.Parameter(torch.zeros(in_features, rank))
+            self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        w, bias = self.weight, self.bias
+        if w.dtype != dt:                  # the serving path casts nothing
+            w = w.to(dt)
+        if bias is not None and bias.dtype != dt:
+            bias = bias.to(dt)
+        if self.lora_a is None:
+            return F.linear(x, w, bias)
+        y = F.linear(x, w)
+        y = y + ((x @ self.lora_a.to(dt)) @ self.lora_b.to(dt)) * self.scale
+        return y if bias is None else y + bias
+
+
 class Qwen3Block(nn.Module):
     """One decoder layer (JAX ``Qwen3Block``)."""
 
@@ -99,18 +144,29 @@ class Qwen3Block(nn.Module):
         self.cfg = cfg
         H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
         hid, bias = c.hidden_size, c.attention_bias
-        dense = QLinear if c.quantized else nn.Linear
+
+        def dense(fan_in, fan_out, bias, name):
+            if c.quantized:
+                return QLinear(fan_in, fan_out, bias=bias)
+            if c.lora_rank and name in c.lora_targets:
+                scale = lora_scale(c.lora_rank, c.lora_alpha, c.lora_rslora)
+                # JAX multiplies by the scale as a weakly typed constant,
+                # i.e. rounded to the compute dtype
+                scale = float(torch.tensor(scale).to(torch_dtype(c.dtype)))
+                return Dense(fan_in, fan_out, bias, c.lora_rank, scale)
+            return Dense(fan_in, fan_out, bias)
+
         self.input_ln = RMSNorm(hid, c.rms_norm_eps)
-        self.q_proj = dense(hid, H * D, bias=bias)
-        self.k_proj = dense(hid, Hkv * D, bias=bias)
-        self.v_proj = dense(hid, Hkv * D, bias=bias)
-        self.o_proj = dense(H * D, hid, bias=bias)       # HF Qwen3: o_proj too
+        self.q_proj = dense(hid, H * D, bias, "q_proj")
+        self.k_proj = dense(hid, Hkv * D, bias, "k_proj")
+        self.v_proj = dense(hid, Hkv * D, bias, "v_proj")
+        self.o_proj = dense(H * D, hid, bias, "o_proj")  # HF Qwen3: o_proj too
         self.q_norm = RMSNorm(D, c.rms_norm_eps)
         self.k_norm = RMSNorm(D, c.rms_norm_eps)
         self.post_ln = RMSNorm(hid, c.rms_norm_eps)
-        self.gate_proj = dense(hid, c.intermediate_size, bias=False)
-        self.up_proj = dense(hid, c.intermediate_size, bias=False)
-        self.down_proj = dense(c.intermediate_size, hid, bias=False)
+        self.gate_proj = dense(hid, c.intermediate_size, False, "gate_proj")
+        self.up_proj = dense(hid, c.intermediate_size, False, "up_proj")
+        self.down_proj = dense(c.intermediate_size, hid, False, "down_proj")
 
     def _proj(self, name: str, h: torch.Tensor,
               adapters: Optional[dict]) -> torch.Tensor:
@@ -236,9 +292,10 @@ class AsteroidLM(nn.Module):
                     dtype: Optional[torch.dtype] = None) -> "AsteroidLM":
         """Random weights made on ``device`` (the card unless the caller
         asks for the CPU; no card raises) from a seeded generator:
-        embeddings N(0, 0.02), projections N(0, 1/fan_in), norms 1, biases 0
-        (the JAX init's scales; the draws differ). Float weights: an int8
-        model is quantized from them (``GenerationEngine(quant="int8")``)."""
+        embeddings N(0, 0.02), projections N(0, 1/fan_in), norms 1, biases 0,
+        LoRA factors ``lora_a`` N(0, 0.02) and ``lora_b`` 0 (the JAX init's
+        scales; the draws differ). Float weights: an int8 model is quantized
+        from them (``GenerationEngine(quant="int8")``)."""
         device = resolve_device(device)
         dtype = dtype or torch_dtype(cfg.param_dtype)
         with torch.device(device):
@@ -246,11 +303,11 @@ class AsteroidLM(nn.Module):
         gen = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
             for name, p in model.named_parameters():
-                if name.startswith("embed_"):
+                if name.startswith("embed_") or name.endswith(".lora_a"):
                     p.normal_(0.0, 0.02, generator=gen)
                 elif name.endswith("norm.weight") or name.endswith("ln.weight"):
                     p.fill_(1.0)
-                elif name.endswith(".bias"):
+                elif name.endswith(".bias") or name.endswith(".lora_b"):
                     p.zero_()
                 else:
                     p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
@@ -290,7 +347,8 @@ class AsteroidLM(nn.Module):
                  cache_pos: int = 0,
                  write_gate: Optional[torch.Tensor] = None,
                  read_extent: Optional[torch.Tensor] = None,
-                 adapters: Optional[Dict[str, tuple]] = None
+                 adapters: Optional[Dict[str, tuple]] = None,
+                 remat: Optional[bool] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Run the decoder stack.
 
@@ -304,7 +362,9 @@ class AsteroidLM(nn.Module):
         order there, and key_valid alone carries causality;
         read_extent (B,) int32: each row's decode extent, in place of
         cache_pos + 1;
-        adapters: per-row LoRA factors from ``select_adapters``.
+        adapters: per-row LoRA factors from ``select_adapters``;
+        remat: recompute each block in the backward (the cache-free
+        training forward; default ``cfg.remat_layers``).
         Returns (hidden (B, T, hidden) after the final norm, cache)."""
         c = self.cfg
         x = self.embed(input_ids)
@@ -313,11 +373,18 @@ class AsteroidLM(nn.Module):
             raise ValueError("ring-addressed writes are decode-only (T 1)")
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
         mask = None if cache is not None else causal_mask(0, T, T, key_valid)
+        remat = c.remat_layers if remat is None else remat
+        if remat and cache is not None:
+            raise ValueError("remat is for the cache-free training forward")
         for li, layer in enumerate(self.layers):
             ad = (None if adapters is None else
                   {t: (a[li], b[li]) for t, (a, b) in adapters.items()})
-            x = layer(x, cos, sin, li, cache, cache_pos, key_valid, mask,
-                      write_gate, read_extent, ad)
+            args = (x, cos, sin, li, cache, cache_pos, key_valid, mask,
+                    write_gate, read_extent, ad)
+            # non-reentrant: frozen inputs (a LoRA step) still give the
+            # factors inside the block their gradients
+            x = (checkpoint(layer, *args, use_reentrant=False) if remat
+                 else layer(*args))
         return self.final_norm(x), cache
 
     # -- tied heads ----------------------------------------------------------

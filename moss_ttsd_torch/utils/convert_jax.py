@@ -1,9 +1,16 @@
 """Weight carry-over into the port's ``state_dict`` layouts.
 
   * ``lm_state_from_jax``: the JAX ``AsteroidLM`` param tree (as numpy:
-    stacked scan layers, flax ``(in, out)`` Dense kernels) -> ``AsteroidLM``;
+    stacked scan layers, flax ``(in, out)`` Dense kernels, LoRA leaves
+    included) -> ``AsteroidLM``;
     a quantized tree (``kernel_q`` / ``kernel_s``, ``embed_*_q`` / ``_s``)
     -> the int8 layout of ``ops/quantize.py``, bytes unchanged.
+  * ``lm_state_to_jax``: the inverse, ``AsteroidLM``'s state dict (or a
+    part of it, e.g. the LoRA factors alone) -> the JAX tree as numpy, LoRA
+    ``lora_a`` / ``lora_b`` leaves included: what the finetune CLI saves
+    (``model.npz``, ``model_merged.npz``, ``lora_factors.npz``), so JAX's
+    ``load_pytree``, this port's ``load_pytree`` + ``lm_state_from_jax``
+    and ``LoraRegistry`` all read it.
   * ``load_reference_lm_state_dict``: the reference checkpoint's names
     (``model.embedding_list.{i}``, ``model.language_model.layers.{l}.*``;
     the layout of ``moss_ttsd_tpu/utils/convert_lm.py``) -> ``AsteroidLM``.
@@ -25,6 +32,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..core.checkpoint import to_numpy
 from ..core.config import CodecConfig, LMConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -53,7 +61,8 @@ def _i8(x) -> torch.Tensor:
 def lm_state_from_jax(params_np: Mapping, cfg: LMConfig) -> StateDict:
     """Float or quantized JAX tree -> the port's state dict. Quantized:
     ``kernel_q`` (L, in, out) is transposed to ``weight_q`` (out, in) and
-    ``kernel_s`` (L, 1, out) becomes ``weight_s`` (out, 1) per layer."""
+    ``kernel_s`` (L, 1, out) becomes ``weight_s`` (out, 1) per layer. A
+    LoRA model's ``lora_a`` / ``lora_b`` leaves come over as they are."""
     p = params_np["params"] if "params" in params_np else params_np
     block = p["layers"]["block"]
     sd: StateDict = {"final_norm.weight": _t(p["final_norm"]["weight"])}
@@ -78,7 +87,50 @@ def lm_state_from_jax(params_np: Mapping, cfg: LMConfig) -> StateDict:
                     np.asarray(block[n]["kernel"])[l].T)
             if "bias" in block[n]:
                 sd[pre + n + ".bias"] = _t(np.asarray(block[n]["bias"])[l])
+            for f in ("lora_a", "lora_b"):
+                if f in block[n]:
+                    sd[pre + n + "." + f] = _t(np.asarray(block[n][f])[l])
     return sd
+
+
+_TO_JAX = {"weight": ("kernel", True), "weight_q": ("kernel_q", True),
+           "weight_s": ("kernel_s", True), "bias": ("bias", False),
+           "lora_a": ("lora_a", False), "lora_b": ("lora_b", False)}
+
+
+def lm_state_to_jax(sd: Mapping[str, torch.Tensor], cfg: LMConfig) -> dict:
+    """The port's state dict (any subset of it) -> {"params": JAX tree} of
+    numpy arrays: the layers stacked (L, ...) under ``layers/block``,
+    projection weights (out, in) transposed to flax (in, out) kernels
+    (int8 ``weight_q`` / ``weight_s`` to ``kernel_q`` / ``kernel_s``),
+    norms as ``weight``, LoRA factors as they are. bf16 goes out as fp32."""
+    p: dict = {}
+    per_layer: Dict[tuple, dict] = {}
+    for name, t in sd.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            if name == "final_norm.weight":
+                p.setdefault("final_norm", {})["weight"] = to_numpy(t)
+            else:
+                p[name] = to_numpy(t)
+            continue
+        l, mod, leaf = int(parts[1]), parts[2], parts[3]
+        if mod in _LM_NORM:
+            key, transpose = "weight", False
+        else:
+            key, transpose = _TO_JAX[leaf]
+        a = to_numpy(t)
+        per_layer.setdefault((mod, key), {})[l] = a.T if transpose else a
+    block: dict = {}
+    for (mod, key), layers in per_layer.items():
+        if sorted(layers) != list(range(cfg.num_hidden_layers)):
+            raise ValueError(f"{mod}.{key}: layers {sorted(layers)} of "
+                             f"{cfg.num_hidden_layers}")
+        block.setdefault(mod, {})[key] = np.stack(
+            [layers[l] for l in range(cfg.num_hidden_layers)])
+    if block:
+        p["layers"] = {"block": block}
+    return {"params": p}
 
 
 def load_reference_lm_state_dict(sd: Mapping, cfg: LMConfig) -> StateDict:

@@ -1,8 +1,9 @@
 """The port on a CUDA card: each Hopper kernel against its plain version,
 ``quantize_kv`` on the card against the CPU, and the tiny LM engine (bf16
 path and int8 serving) on the card (kernels) against the same engine on the
-CPU (plain versions), and the tiny codec encode on the card against the
-CPU. Imports no JAX, so it runs on a machine with the card
+CPU (plain versions), the tiny codec encode on the card against the CPU,
+and full and LoRA training steps on the card against the CPU. Imports no
+JAX, so it runs on a machine with the card
 and no JAX:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -660,3 +661,63 @@ def test_sampled_pool_row_on_card_equals_generate(cuda):
                            seed=s)
         np.testing.assert_array_equal(g[0, ref.base:],
                                       ref.tokens[0, ref.base:])
+
+
+def _train_batch(cfg, seed=0, B=4, T=32):
+    g = np.random.default_rng(seed)
+    ids = g.integers(0, cfg.speech_vocab_size, (B, T, cfg.channels))
+    ids[..., 0] = g.integers(0, cfg.vocab_size, (B, T))
+    labels = ids.copy()
+    for b in range(B):
+        labels[b, : 3 + 2 * b] = -100
+    mask = np.ones((B, T), np.int64)
+    mask[-1, T - 5:] = 0
+    return {k: v.reshape((2, B // 2) + v.shape[1:]) for k, v in
+            (("input_ids", ids), ("labels", labels),
+             ("attention_mask", mask))}
+
+
+@pytest.mark.parametrize("lora", [False, True])
+def test_tiny_train_steps_on_card_match_cpu(cuda, lora):
+    """Two optimizer steps (cosine with a warmup step, weight decay, K 2
+    accumulation, remat) of full finetuning or layerwise LoRA, fp32 with
+    TF32 off, on the card and on the CPU from the same weights: losses
+    within rel 1e-5 and every parameter within rel 1e-4 (atol 1e-6) but a
+    few elements whose gradient sits within rounding of zero, those within
+    one update (lr)."""
+    import dataclasses
+    from moss_ttsd_torch.cli.inference import tiny_lm_config
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.train import lora as tl
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step)
+    cfg = tiny_lm_config()
+    lcfg = dataclasses.replace(cfg, lora_rank=4, lora_alpha=8.0)
+    batch = _train_batch(cfg)
+    lr = 1e-3
+    out = []
+    for dev in ("cpu", "cuda"):
+        opt = make_optimizer(learning_rate=lr, warmup_ratio=0.1,
+                             total_steps=10, weight_decay=0.01)
+        model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+        if lora:
+            model = tl.graft_lora_params(model, lcfg, seed=1).to(dev)
+            state = tl.init_lora_state(model, opt)
+            step = tl.make_layerwise_lora_step(lcfg, opt, remat=True,
+                                               ce_chunks=2, grad_accum_steps=2)
+        else:
+            model = model.to(dev)
+            state = init_train_state(cfg, opt, model=model)
+            step = make_train_step(cfg, opt, remat=True, ce_chunks=2,
+                                   grad_accum_steps=2)
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+        assert next(model.parameters()).device.type == dev
+        out.append((losses, {k: v.detach().cpu() for k, v in
+                             model.state_dict().items()}))
+    (lc, sc), (lg, sg) = out
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k, want in sc.items():
+        err = (sg[k] - want).abs()
+        outside = int((err > 1e-4 * want.abs() + 1e-6).sum())
+        assert outside <= max(4, want.numel() // 1000), (k, outside)
+        assert float(err.max()) <= lr, (k, float(err.max()))

@@ -193,3 +193,54 @@ def test_cli_tiny_cpu_writes_wavs(tmp_path):
     assert sorted(p.name for p in tmp_path.glob("*.wav")) == [
         "output_0.wav", "output_1.wav"]
     assert len((tmp_path / "summary.jsonl").read_text().splitlines()) == 2
+
+
+def _one_record(tmp_path):
+    import numpy as np
+    ids = np.full((16, 8), 64, np.int64)
+    ids[:, 0] = np.arange(1, 17)
+    np.savez(tmp_path / "processed_data_00000.npz", input_ids_0=ids,
+             labels_0=ids)
+    return str(tmp_path)
+
+
+def test_finetune_cli_without_cuda_raises(no_cuda, tmp_path):
+    """The finetune CLI and the workflow train (and preprocess) on the
+    card unless --platform cpu."""
+    from moss_ttsd_torch.cli.finetune import main
+    from moss_ttsd_torch.cli.finetune_workflow import main as wf_main
+    data = _one_record(tmp_path)
+    args = ["--data_dir", data, "--output_dir", str(tmp_path / "out"),
+            "--tiny", "--max_steps", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(args)
+    assert main(args + ["--platform", "cpu"]) == 0
+    wf = tmp_path / "wf.yaml"
+    wf.write_text(f"data_preprocess:\n  jsonl: {tmp_path / 'x.jsonl'}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wf_main(["--config", str(wf), "--tiny"])
+
+
+@pytest.mark.parametrize("config,extra", [
+    ("", []),                                      # no --tiny: A16
+    ("pipeline_stages: 2\n", ["--tiny"]),
+    ("sequence_parallel: 2\n", ["--tiny"]),
+    ("learning_rate: 1e-4\n", ["--tiny"]),         # YAML 1.1 reads a string
+])
+def test_finetune_cli_unported_fail_loudly(tmp_path, config, extra):
+    from moss_ttsd_torch.cli.finetune import main
+    tc = tmp_path / "tc.yaml"
+    tc.write_text(config)
+    with pytest.raises(SystemExit):
+        main(["--data_dir", _one_record(tmp_path), "--output_dir",
+              str(tmp_path / "out"), "--platform", "cpu",
+              "--training_config", str(tc), *extra])
+    assert not (tmp_path / "out").exists()
+
+
+def test_finetune_workflow_without_tiny_fails_loudly(tmp_path):
+    from moss_ttsd_torch.cli.finetune_workflow import main
+    wf = tmp_path / "wf.yaml"
+    wf.write_text(f"data_preprocess:\n  jsonl: {tmp_path / 'x.jsonl'}\n")
+    with pytest.raises(SystemExit):
+        main(["--config", str(wf), "--platform", "cpu"])
