@@ -88,8 +88,26 @@ Phases, each printing one JSON line:
      of examples_only_text.jsonl for 64 steps (finite wavs, 28 B1 launches
      a prefill, 28 B2 launches a step); a tiny fp32 model's 3 full and 3
      LoRA steps on the card against the CPU;
- 12. cli      — the --tiny CLIs on the card write wavs: inference as it is,
-     with --profile_dir (a torch.profiler trace), with --quant int8
+ 10c. load    — real checkpoints through every loader, from files the phase
+     writes at the full width: the main path's LM as an HF-format
+     directory (bf16 safetensors over two shards by
+     save_asteroid_checkpoint, configs/lm_moss_ttsd_v0.5.json as its
+     config.json with the main path's whole-vocab speech range, a greedy
+     generation_config.json) and a reference-format
+     codec .ckpt + yaml of random weights (configs/xy_codec_defaults.json's
+     geometry, weight norms unfolded); TTSPipeline.load (MockTokenizer put
+     in through load_tokenizer) gives the in-memory pipeline's greedy
+     tokens at B 2 over examples_only_text.jsonl (128 steps), in bf16 and
+     int8, and an int8-KV engine on the loaded int8 weights the in-memory
+     one's (B1, B2, B3 launches counted); the loaded fp32 codec's codes on
+     the card equal the CPU's, its bf16 decode within 3 % relative RMS of
+     fp32; the inference and codec round-trip CLIs with the
+     real-checkpoint flags write their wavs; write and load seconds, the
+     host peak RSS the streamed loader adds (a fresh process; fails above
+     the largest tensor + 0.5 GiB), the card's peak, RTF and steps/s;
+ 12. cli      — the --tiny CLIs on the card write wavs, five processes at
+     once: inference plain, with --profile_dir (a torch.profiler trace),
+     with --quant int8
      --restricted_text_head, and cloning the voices of
      examples/examples.jsonl; the codec round trip over examples/; the
      finetune workflow over the examples' voices (the port's codec encodes
@@ -2660,8 +2678,9 @@ def train_phase(card: str, profile: bool = False):
 def train_cli_check():
     """The finetune CLIs --tiny on the card: the workflow preprocesses a
     training JSONL over the examples' voices with the port's codec and
-    trains (full, checkpointed at step 2); --resume continues to step 4;
-    --lora writes lora_factors.npz and model_merged.npz."""
+    trains (full, checkpointed at step 2); then, as two processes at once,
+    --resume continues to step 4 and --lora writes lora_factors.npz and
+    model_merged.npz."""
     out = os.path.join(ROOT, "build", "chip_smoke_finetune")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -2701,31 +2720,365 @@ def train_cli_check():
          os.path.join(out, "lora"), ["lora_factors.npz",
                                      "model_merged.npz"]),
     ]
-    for name, cmd, out_dir, want in runs:
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
-        files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
-        ok = proc.returncode == 0 and set(want) <= set(files)
-        meta = {}
-        if ok:
-            with open(os.path.join(out_dir, "train_config.json")) as f:
-                meta = json.load(f)
-        if name == "finetune_resume":
-            ok = ok and "resumed from" in proc.stdout and meta["steps"] == 4 \
-                and sorted(os.listdir(os.path.join(out_dir, "checkpoints"))) \
-                == ["step_2", "step_4"]
-        if name == "finetune_workflow":
-            with open(os.path.join(data, "processed_data_index.json")) as f:
-                ok = ok and json.load(f)["total"] == 2
-        emit({"phase": "cli", "run": name, "flags": cmd[3:],
-              "rc": proc.returncode, "files": files, "steps": meta.get("steps"),
-              "seconds": time.perf_counter() - t0, "ok": ok,
-              "tail": proc.stdout.strip().splitlines()[-2:]})
-        if not ok:
-            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            raise SystemExit(f"tiny CLI run {name} failed")
+    def check(results):
+        for (name, cmd, out_dir, want), proc, seconds in results:
+            files = (sorted(os.listdir(out_dir)) if os.path.isdir(out_dir)
+                     else [])
+            ok = proc.returncode == 0 and set(want) <= set(files)
+            meta = {}
+            if ok:
+                with open(os.path.join(out_dir, "train_config.json")) as f:
+                    meta = json.load(f)
+            if name == "finetune_resume":
+                ok = ok and "resumed from" in proc.stdout \
+                    and meta["steps"] == 4 and sorted(os.listdir(
+                        os.path.join(out_dir, "checkpoints"))) \
+                    == ["step_2", "step_4"]
+            if name == "finetune_workflow":
+                with open(os.path.join(data,
+                                       "processed_data_index.json")) as f:
+                    ok = ok and json.load(f)["total"] == 2
+            emit({"phase": "cli", "run": name, "flags": cmd[3:],
+                  "rc": proc.returncode, "files": files,
+                  "steps": meta.get("steps"), "seconds_since_start": seconds,
+                  "ok": ok, "tail": proc.stdout.strip().splitlines()[-2:]})
+            if not ok:
+                sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+                raise SystemExit(f"tiny CLI run {name} failed")
+
+    # the workflow writes the data both later runs read; those two run at
+    # once
+    check(_run_all(runs[:1]))
+    check(_run_all(runs[1:]))
     shutil.rmtree(out, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: real checkpoints (the reference codec's yaml and .ckpt come
+# from tests/torch_ref_codec.py, the writer the CPU tests use too)
+# ---------------------------------------------------------------------------
+
+
+LOAD_JSONS = ("lm_moss_ttsd_v0.5.json", "xy_codec_defaults.json")
+
+
+def _rss_gib() -> float:
+    """This process's resident set now, GiB (VmRSS: VmHWM is missing under
+    some sandboxed kernels, and ru_maxrss carries a parent's peak across
+    exec)."""
+    with open("/proc/self/status") as f:
+        for row in f:
+            if row.startswith("VmRSS:"):
+                return int(row.split()[1]) / 2 ** 20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class _PeakRss:
+    """The resident set's peak while the block runs, sampled every 2 ms by
+    a thread."""
+
+    def __enter__(self):
+        import threading
+        self.peak, self._stop = _rss_gib(), threading.Event()
+
+        def sample():
+            while not self._stop.is_set():
+                self.peak = max(self.peak, _rss_gib())
+                time.sleep(0.002)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gib())
+
+
+# the host RSS a streamed LM load may add beyond the file's largest tensor
+# (its buffer, then its cast copy before the move): the allocator's and
+# the reader's own; the whole-file fp32 loader it replaced added 11 GiB
+RSS_MARGIN_GIB = 0.5
+
+
+def _largest_tensor_bytes(model_dir: str) -> int:
+    """The largest tensor's bytes over the directory's safetensors files,
+    from their headers."""
+    import glob
+    import struct
+    most = 0
+    for path in glob.glob(os.path.join(model_dir, "*.safetensors")):
+        with open(path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+        most = max([most] + [e - b for k, v in header.items()
+                             if k != "__metadata__"
+                             for b, e in [v["data_offsets"]]])
+    return most
+
+
+def rss_probe(model_dir: str) -> int:
+    """One streamed LM load (``load_asteroid_checkpoint`` to the card in
+    the compute dtype, as ``TTSPipeline.load`` loads) in this fresh
+    process, for its host peak RSS. Prints one JSON line."""
+    import torch
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.utils.convert_lm import load_asteroid_checkpoint
+    cfg = LMConfig.from_hf_config_json(os.path.join(model_dir, "config.json"))
+    torch.zeros(1, device="cuda")
+    base = _rss_gib()
+    t0 = time.perf_counter()
+    with _PeakRss() as rss:
+        state = load_asteroid_checkpoint(model_dir, cfg, dtype=torch.bfloat16,
+                                         device="cuda")
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"seconds": seconds, "baseline_rss_gib": base,
+                      "peak_rss_gib": rss.peak, "tensors": len(state)}),
+          flush=True)
+    return 0
+
+
+def _probe(model_dir: str) -> dict:
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--rss_probe", model_dir], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-2000:] + proc.stderr[-4000:])
+        raise SystemExit("the streamed load probe failed")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _tokens_run(pipe, items, steps):
+    """timed_batch with the counted run's tokens (the last generate)."""
+    seen = []
+    _spy(pipe.engine, "generate", seen)
+    texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items, steps)
+    del pipe.engine.generate
+    return seen[-1][1], texts, audio, e2e_s, counts, st
+
+
+def load_phase(pipe, smi_line: str, steps: int = 128):
+    """Real-checkpoint loading at the full width, from files this phase
+    writes: the main path's in-memory LM saved by ``save_asteroid_checkpoint``
+    as bf16 safetensors over two shards (``configs/lm_moss_ttsd_v0.5.json``
+    as its config.json, its speech range widened to the whole vocab as the
+    main path's is, and a greedy generation_config.json), and a
+    reference-format codec ``.ckpt`` of random weights with its yaml (the
+    geometry of ``configs/xy_codec_defaults.json``). The tokenizer is
+    ``MockTokenizer``, put in through ``load_tokenizer`` (the smoke needs
+    no ``transformers``). Checks: (a) ``TTSPipeline.load``'s greedy tokens
+    at B 2 over examples_only_text.jsonl equal the in-memory pipeline's on
+    the same weights, in bf16 and with quant="int8", and an int8-KV engine
+    on the loaded int8 weights equals the in-memory one (B1, B2 and B3
+    launched, counted); (b) the loaded fp32 codec's codes on the card equal
+    the CPU's, and its bf16 decode of those codes is within 3 % relative
+    RMS of the fp32 decode; (c) the inference and codec round-trip CLIs
+    run with the real-checkpoint flags and write their wavs; (d) the
+    streamed LM load, in a fresh process, adds no more host RSS than the
+    largest tensor + ``RSS_MARGIN_GIB``. The write and load times, that
+    host RSS and the card's peak go on one line."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.cli import codec_roundtrip as cli_codec
+    from moss_ttsd_torch.cli import inference as cli_infer
+    from moss_ttsd_torch.core.config import (CodecConfig, LMConfig,
+                                             SamplingConfig)
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline import batch as pbatch
+    from moss_ttsd_torch.utils.convert_lm import save_asteroid_checkpoint
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_ref_codec import write_reference_codec
+
+    lm_json, codec_json = (os.path.join(ROOT, "configs", n)
+                           for n in LOAD_JSONS)
+    # the main path's widening of the speech range to the whole vocab:
+    # random weights would leave it at once, and the rows would end in the
+    # teacher-forcing window with no audio
+    with open(lm_json) as f:
+        lm_config = json.load(f)
+    lm_config["speech_token_range"] = [0, lm_config["vocab_size"]]
+    cfg = LMConfig.from_dict(lm_config)
+    with open(codec_json) as f:
+        geometry = json.load(f)
+    base = CodecConfig()
+    ccfg = dataclasses.replace(base, **{
+        k: type(getattr(base, k))(**v) if isinstance(v, dict) else v
+        for k, v in geometry.items()})
+    L, problems, line = cfg.num_hidden_layers, [], {"phase": "load"}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_load_",
+                           dir=os.path.join(ROOT, "build"))
+    load_tokenizer = pbatch.load_tokenizer
+    pbatch.load_tokenizer = lambda path: MockTokenizer()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        lm_dir, codec_dir = (os.path.join(tmp, n) for n in ("lm", "codec"))
+        state = pipe.engine.model.state_dict()        # bf16, on the card
+        t0 = time.perf_counter()
+        save_asteroid_checkpoint(state, cfg, lm_dir, dtype=torch.bfloat16,
+                                 shards=2)
+        with open(os.path.join(lm_dir, "config.json"), "w") as f:
+            json.dump(lm_config, f, indent=2)
+        with open(os.path.join(lm_dir, "generation_config.json"), "w") as f:
+            json.dump({"do_samples": [False] * cfg.channels,
+                       "layers": [{} for _ in range(cfg.channels)]}, f)
+        line["lm_write_s"] = time.perf_counter() - t0
+        line["lm_files"] = sorted(os.listdir(lm_dir))
+        line["lm_bytes"] = sum(os.path.getsize(os.path.join(lm_dir, n))
+                               for n in line["lm_files"])
+        t0 = time.perf_counter()
+        yaml_path, ckpt = write_reference_codec(codec_dir, ccfg, seed=0)
+        line["codec_write_s"] = time.perf_counter() - t0
+        line["codec_ckpt_bytes"] = os.path.getsize(ckpt)
+
+        probe = _probe(lm_dir)
+        added = probe["peak_rss_gib"] - probe["baseline_rss_gib"]
+        bound = _largest_tensor_bytes(lm_dir) / 2 ** 30 + RSS_MARGIN_GIB
+        line["lm_load_s"] = probe["seconds"]
+        line["host_rss_gib"] = {"baseline": probe["baseline_rss_gib"],
+                                "peak": probe["peak_rss_gib"],
+                                "added": added, "added_bound": bound}
+        if not added <= bound:
+            problems.append(f"streamed LM load added {added:.3f} GiB of host "
+                            f"RSS, over its bound {bound:.3f}")
+        t0 = time.perf_counter()
+        spt16 = XYTokenizer.load_from_checkpoint(yaml_path, ckpt,
+                                                 dtype="bfloat16")
+        torch.cuda.synchronize()
+        line["codec_load_s"] = time.perf_counter() - t0
+
+        # (a) loaded vs in-memory greedy tokens, bf16 and int8
+        items = load_items()
+        sampling = SamplingConfig.from_generation_config_json(
+            os.path.join(lm_dir, "generation_config.json"), cfg.channels)
+        t0 = time.perf_counter()
+        loaded = pbatch.TTSPipeline.load(lm_dir, yaml_path, ckpt)
+        torch.cuda.synchronize()
+        line["pipeline_load_s"] = time.perf_counter() - t0
+        memory = pbatch.TTSPipeline(MockTokenizer(), cfg, state, loaded.spt,
+                                    sampling)
+        runs, launches = {}, {}
+        for name, quant in (("bf16", None), ("int8", "int8")):
+            if quant:
+                loaded = pbatch.TTSPipeline.load(lm_dir, yaml_path, ckpt,
+                                                 quant=quant)
+                memory = pbatch.TTSPipeline(MockTokenizer(), cfg, state,
+                                            loaded.spt, sampling, quant=quant)
+            got = _tokens_run(loaded, items, steps)
+            ref = _tokens_run(memory, items, steps)
+            n = got[0].steps
+            same = (n == ref[0].steps and np.array_equal(
+                np.asarray(got[0].tokens), np.asarray(ref[0].tokens)))
+            audio_bad, _, audio_s = audio_problems(got[1], got[2], n,
+                                                   cfg.channels)
+            runs[name] = {"steps": n, "tokens_identical": same,
+                          "rtf": audio_s / got[3],
+                          "decode_steps_per_s": n / got[5]["decode_s"],
+                          "e2e_s": got[3], "audio_s": audio_s,
+                          "audio_problems": audio_bad}
+            launches[name] = got[4]
+            want = {"flash_prefill": L, "flash_decode_hs": L * n,
+                    "flash_decode_int8_hs": 0}
+            if not same or audio_bad or got[4] != want or n < 1:
+                problems.append(f"{name}: tokens identical {same}, audio "
+                                f"{audio_bad}, launches {got[4]} != {want}")
+        # B3 on the loaded int8 weights: an int8-KV engine over them
+        _, batch, mask = decode_inputs(loaded, items)
+        toks = {}
+        for name, weights in (("loaded", loaded.engine.model),
+                              ("memory", state)):
+            eng = GenerationEngine(cfg, weights, sampling, device="cuda",
+                                   quant="int8", kv_quant="int8")
+            fa.reset_launch_counts()
+            res = eng.generate(batch, mask, steps)
+            torch.cuda.synchronize()
+            toks[name] = (res.steps, np.asarray(res.tokens))
+            if name == "loaded":
+                launches["int8_kv8"] = fa.launch_counts()
+                n = res.steps
+            del eng
+        same = (toks["loaded"][0] == toks["memory"][0]
+                and np.array_equal(toks["loaded"][1], toks["memory"][1]))
+        runs["int8_kv8"] = {"steps": n, "tokens_identical": same}
+        want = {"flash_prefill": L, "flash_decode_hs": 0,
+                "flash_decode_int8_hs": L * n}
+        if not same or launches["int8_kv8"] != want:
+            problems.append(f"int8_kv8: tokens identical {same}, launches "
+                            f"{launches['int8_kv8']} != {want}")
+        line.update(runs=runs, launches=launches)
+        del loaded, memory
+        _release()
+
+        # (b) the loaded codec: fp32 codes card == CPU; bf16 decode vs fp32
+        wavs = prompt_voices()
+        spt_cpu = XYTokenizer.load_from_checkpoint(yaml_path, ckpt,
+                                                   device="cpu")
+        codes_cpu = spt_cpu.encode(wavs)["codes_list"]
+        del spt_cpu
+        spt32 = XYTokenizer.load_from_checkpoint(yaml_path, ckpt)
+        codes = spt32.encode(wavs)["codes_list"]
+        same = all(np.array_equal(a, b) for a, b in zip(codes, codes_cpu))
+        w32 = spt32.decode(codes)["syn_wav_list"]
+        w16 = spt16.decode(codes)["syn_wav_list"]
+        rel = max(float(np.linalg.norm(a - b) / (np.linalg.norm(a) + 1e-9))
+                  for a, b in zip(w32, w16))
+        finite = all(np.isfinite(w).all() and w.size for w in w32 + w16)
+        line["codec"] = {"code_shapes": [list(c.shape) for c in codes],
+                         "codes_card_eq_cpu": same,
+                         "distinct_codes": int(len(np.unique(
+                             np.concatenate([c.reshape(-1) for c in codes])))),
+                         "bf16_vs_fp32_rel_rms": rel, "rel_rms_tol": 0.03,
+                         "finite": finite}
+        if not (same and finite and rel < 0.03):
+            problems.append(f"codec: {line['codec']}")
+        del spt32, spt16
+        _release()
+
+        # (c) the CLIs with the real-checkpoint flags
+        out = os.path.join(tmp, "cli")
+        cli = {}
+        for name, fn, argv, want in (
+                ("inference", cli_infer.main,
+                 ["--jsonl", JSONL, "--model_path", lm_dir, "--spt_config",
+                  yaml_path, "--spt_ckpt", ckpt, "--max_new_tokens", "32",
+                  "--output_dir", os.path.join(out, "infer")],
+                 ["output_0.wav", "output_1.wav"]),
+                ("codec_roundtrip", cli_codec.main,
+                 ["--input_dir", EXAMPLES, "--config", yaml_path,
+                  "--checkpoint", ckpt, "--output_dir",
+                  os.path.join(out, "codec")],
+                 ["voice_both_recon.wav", "voice_s1_recon.wav",
+                  "voice_s2_recon.wav"])):
+            t0 = time.perf_counter()
+            rc = fn(argv)
+            d = argv[-1]
+            wavs_out = sorted(f for f in os.listdir(d) if f.endswith(".wav"))
+            cli[name] = {"rc": rc, "wavs": wavs_out,
+                         "seconds": time.perf_counter() - t0}
+            if rc != 0 or wavs_out != want:
+                problems.append(f"cli {name}: {cli[name]}")
+            _release()
+        line["cli"] = cli
+        line["card_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        pbatch.load_tokenizer = load_tokenizer
+        shutil.rmtree(tmp, ignore_errors=True)
+    line.update(config_json=f"configs/{LOAD_JSONS[0]}, speech_token_range "
+                            f"{lm_config['speech_token_range']}",
+                tokenizer="MockTokenizer through load_tokenizer (no "
+                          "transformers needed)",
+                nvidia_smi=smi_line, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"load phase failed: {problems}")
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -2739,37 +3092,72 @@ def _trace_kernel_events(path) -> int:
     return sum(e.get("cat") == "kernel" for e in events)
 
 
+def _run_all(runs):
+    """Start every (name, cmd, ...) run as its own process at once and
+    wait for all: [(run, CompletedProcess, seconds since the start)].
+    A process still running when this returns or raises is killed."""
+    t0 = time.perf_counter()
+    procs = [(run, subprocess.Popen(run[1], cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for run in runs]
+    results = []
+    try:
+        for run, p in procs:
+            out, err = p.communicate(timeout=600)
+            results.append((run, subprocess.CompletedProcess(
+                p.args, p.returncode, out, err), time.perf_counter() - t0))
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
 def cli_check():
-    """The --tiny CLIs on the card: inference as it is, with int8 serving,
-    and cloning the voices of examples/examples.jsonl (one item, one wav);
-    the codec round trip over examples/ (three wavs and their metrics)."""
-    out_dir = os.path.join(ROOT, "build", "chip_smoke_cli")
-    infer = [sys.executable, "-m", "moss_ttsd_torch.cli.inference", "--tiny",
-             "--max_new_tokens", "32", "--output_dir", out_dir]
-    runs = [
-        ("text", infer + ["--jsonl", JSONL], ["output_0.wav", "output_1.wav"]),
-        ("text_profile_dir", infer + ["--jsonl", JSONL, "--profile_dir",
-                                      os.path.join(out_dir, "trace")],
-         ["output_0.wav", "output_1.wav"]),
-        ("text_int8", infer + ["--jsonl", JSONL, "--quant", "int8",
-                               "--restricted_text_head"],
-         ["output_0.wav", "output_1.wav"]),
-        ("voice_clone", infer + ["--jsonl", os.path.join(EXAMPLES,
-                                                         "examples.jsonl")],
-         ["output_0.wav"]),
-        ("codec_roundtrip",
-         [sys.executable, "-m", "moss_ttsd_torch.cli.codec_roundtrip",
-          "--tiny", "--input_dir", EXAMPLES, "--output_dir", out_dir,
-          "--metrics", os.path.join(out_dir, "metrics.json")],
-         ["voice_both_recon.wav", "voice_s1_recon.wav",
-          "voice_s2_recon.wav"]),
-    ]
-    for name, cmd, want in runs:
+    """The --tiny CLIs on the card, as five processes at once (each its own
+    output directory, so their seconds are wall times of runs sharing the
+    card and the host): inference plain, with --profile_dir, with int8
+    serving, and cloning the voices of examples/examples.jsonl (one item,
+    one wav); the codec round trip over examples/ (three wavs and their
+    metrics). The native audio library is built first, once."""
+    from moss_ttsd_torch.utils import native
+    if not native.available():
+        raise SystemExit(f"the native audio library did not build: "
+                         f"{native.build_info}")
+    root = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def infer(name, *flags):
+        out = os.path.join(root, name)
+        return [sys.executable, "-m", "moss_ttsd_torch.cli.inference",
+                "--tiny", "--max_new_tokens", "32", "--output_dir", out,
+                *flags], out
+
+    runs = []
+    for name, flags, want in (
+            ("text", ["--jsonl", JSONL], ["output_0.wav", "output_1.wav"]),
+            ("text_profile_dir", ["--jsonl", JSONL, "--profile_dir",
+                                  os.path.join(root, "text_profile_dir",
+                                               "trace")],
+             ["output_0.wav", "output_1.wav"]),
+            ("text_int8", ["--jsonl", JSONL, "--quant", "int8",
+                           "--restricted_text_head"],
+             ["output_0.wav", "output_1.wav"]),
+            ("voice_clone", ["--jsonl", os.path.join(EXAMPLES,
+                                                     "examples.jsonl")],
+             ["output_0.wav"])):
+        runs.append((name, *infer(name, *flags), want))
+    codec_out = os.path.join(root, "codec_roundtrip")
+    runs.append(("codec_roundtrip",
+                 [sys.executable, "-m", "moss_ttsd_torch.cli.codec_roundtrip",
+                  "--tiny", "--input_dir", EXAMPLES, "--output_dir",
+                  codec_out, "--metrics",
+                  os.path.join(codec_out, "metrics.json")], codec_out,
+                 ["voice_both_recon.wav", "voice_s1_recon.wav",
+                  "voice_s2_recon.wav"]))
+    for (name, cmd, out_dir, want), proc, seconds in _run_all(runs):
         kernel_events = None
-        shutil.rmtree(out_dir, ignore_errors=True)
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
         files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
         wavs = [f for f in files if f.endswith(".wav")]
         ok = proc.returncode == 0 and wavs == want
@@ -2788,14 +3176,14 @@ def cli_check():
             ok = ok and kernel_events is not None
         emit({"phase": "cli", "run": name, "flags": cmd[3:],
               "rc": proc.returncode, "wavs": wavs,
-              "seconds": time.perf_counter() - t0, "ok": ok,
+              "seconds_since_start": seconds, "ok": ok,
               **({"trace_kernel_events": kernel_events}
                  if name == "text_profile_dir" else {}),
               "tail": proc.stdout.strip().splitlines()[-2:]})
-        shutil.rmtree(out_dir, ignore_errors=True)
         if not ok:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
             raise SystemExit(f"tiny CLI run {name} failed")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2835,7 +3223,7 @@ def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
 
 
 def kernel_table(main, longform, checks, clone=None, stream=None,
-                 sweep=False, pool=None):
+                 sweep=False, pool=None, load=None):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs (and the clone run's,
     when it ran), the long-form run's for flash_decode_int8_hs. Each
@@ -2847,12 +3235,19 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
     than its plan (``split_sweep_ms``), and flash_decode_hs so at
     SWEEP_SHAPES and the stream run's cache (``shape_sweep``). ``pool``:
     each kernel also at the continuous pool's shapes (``pool`` entries,
-    ``pool_kernel_rows``)."""
+    ``pool_kernel_rows``). ``load``: each kernel's launches in the load
+    phase's runs (``load_launches``)."""
     import torch
     B, base, steps = main["batch"], main["base"], main["steps"]
     H, Hkv, D, L = 16, 8, 128, main["layers"]
     SETS = L
     gen = torch.Generator(device="cuda").manual_seed(5)
+    if load is not None:
+        # each kernel's launches in the load phase's runs on loaded weights
+        # (counts reset before each run, read after it)
+        load_launches = {n: {run: c[n] for run, c in load["launches"].items()}
+                         for n in ("flash_prefill", "flash_decode_hs",
+                                   "flash_decode_int8_hs")}
     pads = main["left_pad"]
     rows = []
 
@@ -2948,6 +3343,9 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
             emit({"kernels": rows})
             raise SystemExit("a kernel disagrees with its plain version at "
                              "the pool's shapes")
+    if load is not None:
+        for r in rows:
+            r["load_launches"] = load_launches[r["name"]]
     emit({"kernels": rows})
     return rows
 
@@ -3127,17 +3525,24 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "stream,overlap,server,pool,clone,int8,train,cli,"
-                         "profile,sweep "
+                         "stream,overlap,server,pool,clone,int8,load,train,"
+                         "cli,profile,sweep "
                          "(default all = every phase but profile and sweep)")
+    ap.add_argument("--rss_probe", metavar="DIR",
+                    help="only load the HF-format LM directory DIR to the "
+                         "card and print its host peak RSS (the load "
+                         "phase runs this in a fresh process)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 1
+    if args.rss_probe:
+        return rss_probe(args.rss_probe)
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
-               "overlap", "server", "pool", "clone", "int8", "train", "cli"}
+               "overlap", "server", "pool", "clone", "int8", "load", "train",
+               "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -3168,7 +3573,7 @@ def main(argv=None) -> int:
     if "reference" in phases:
         reference_check()
     main_line = longform = clone_line = stream_line = pool_line = None
-    pipe = None
+    load_line = pipe = None
     if "main" in phases:
         pipe, main_line = main_path()
         if "logits" in phases:
@@ -3177,7 +3582,7 @@ def main(argv=None) -> int:
             profile_decode("main_path", *decode_state(pipe, load_items()))
     # streaming, the overlap, the servers and the pool run the main path's
     # pipeline
-    if phases & {"stream", "overlap", "server", "pool"}:
+    if phases & {"stream", "overlap", "server", "pool", "load"}:
         if pipe is None:
             pipe = build_full_pipeline()[0]
         if "stream" in phases:
@@ -3189,6 +3594,9 @@ def main(argv=None) -> int:
             continuous_server_part(pipe)
         if "pool" in phases:
             pool_line = pool_phase(pipe)
+        if "load" in phases:
+            _release()
+            load_line = load_phase(pipe, smi_line)
     del pipe
     _release()
     if "clone" in phases:
@@ -3199,7 +3607,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "kernels" in phases and main_line is not None:
         kernel_table(main_line, longform, checks, clone_line, stream_line,
-                     "sweep" in phases, pool_line)
+                     "sweep" in phases, pool_line, load_line)
         torch.cuda.empty_cache()
     elif pool_line is not None:
         # --phases pool alone: the pool's kernel entries on their own line

@@ -4,8 +4,10 @@ wavs and save the reconstructions (port of
 
 ``--metrics`` also scores each file: the log-mel L1 at the codec's own
 Whisper-mel frontend and the SI-SNR, both at 16 kHz, with a summary JSON.
-Runs on the CUDA card unless ``--platform cpu``; ``--tiny`` uses a random
-tiny codec (no checkpoint needed).
+Runs on the CUDA card unless ``--platform cpu``; ``--config`` /
+``--checkpoint`` load the XY-Tokenizer's yaml and checkpoint (fp32, as the
+reference runs it); ``--tiny`` uses a random tiny codec (no checkpoint
+needed).
 
     python -m moss_ttsd_torch.cli.codec_roundtrip --input_dir examples \\
         --output_dir outputs/recon --tiny --platform cpu --metrics out.json
@@ -80,16 +82,20 @@ def main(argv=None):
 
     if args.debug != 0:
         p.error("--debug is not yet ported to moss_ttsd_torch")
-    if not args.tiny:
-        p.error("loading a codec checkpoint (--config/--checkpoint) is not "
-                "yet ported to moss_ttsd_torch; use --tiny")
+    if not args.tiny and not (args.config and args.checkpoint):
+        p.error("--config and --checkpoint are required without --tiny")
 
     from ..core.config import CodecConfig
     from ..models.codec.model import XYTokenizer
     from ..utils.audio_io import read_wav, to_mono_16k, write_wav
 
     device = "cpu" if args.platform == "cpu" else "cuda"
-    spt = XYTokenizer.init_random(CodecConfig().tiny(), seed=0, device=device)
+    if args.tiny:
+        spt = XYTokenizer.init_random(CodecConfig().tiny(), seed=0,
+                                      device=device)
+    else:
+        spt = XYTokenizer.load_from_checkpoint(args.config, args.checkpoint,
+                                               device=device)
 
     files = find_audio_files(args.input_dir)
     if not files:

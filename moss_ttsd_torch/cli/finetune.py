@@ -15,9 +15,10 @@ from the newest).
     python -m moss_ttsd_torch.cli.finetune --data_dir processed_data \\
         --output_dir finetune_out --tiny --platform cpu --max_steps 4
 
-Not ported, and refused: a real checkpoint (``--model_path`` without
-``--tiny``; the inference CLI refuses it too), ``pipeline_stages`` > 1 and
-``sequence_parallel`` > 1 (multi-device training).
+``--model_path`` (without ``--tiny``) finetunes a real checkpoint: the
+HF-format directory's weights as fp32 masters and its tokenizer (which
+needs ``transformers``). Not ported, and refused: ``pipeline_stages`` > 1
+and ``sequence_parallel`` > 1 (multi-device training).
 """
 
 from __future__ import annotations
@@ -71,10 +72,8 @@ def main(argv=None):
           "target_modules": list(DEFAULT_TARGETS)}
     lc.update(_read_config(args.lora_config, parser))
 
-    if not args.tiny:
-        parser.error(
-            "loading a real checkpoint is not yet ported: it needs the HF LM "
-            f"directory ({args.model_path}) and its Qwen tokenizer; use --tiny")
+    if not args.tiny and not args.model_path:
+        parser.error("--model_path is required without --tiny")
     if int(tc.get("pipeline_stages", 0) or 0) > 1:
         parser.error("pipeline_stages > 1 (pipeline-parallel training) is not "
                      "yet ported to moss_ttsd_torch")
@@ -95,15 +94,31 @@ def main(argv=None):
     from .inference import tiny_lm_config
 
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
-    tokenizer = MockTokenizer()
-    # the inference CLI's tiny LM from the same seed: a voice trained here
-    # serves on the base it was trained on (--lora_adapter)
-    cfg = tiny_lm_config()
+    if args.tiny:
+        tokenizer = MockTokenizer()
+        # the inference CLI's tiny LM from the same seed: a voice trained
+        # here serves on the base it was trained on (--lora_adapter)
+        cfg = tiny_lm_config()
+    else:
+        from ..core.config import LMConfig
+        from ..pipeline.batch import load_tokenizer
+        from ..utils.convert_lm import load_asteroid_checkpoint
+        cfg = LMConfig.from_hf_config_json(
+            os.path.join(args.model_path, "config.json"))
+        tokenizer = load_tokenizer(args.model_path)
     if "bf16" in tc:        # the compute dtype; parameters stay fp32 masters
         cfg = dataclasses.replace(
             cfg, dtype="bfloat16" if tc["bf16"] else "float32")
-    model = AsteroidLM.init_random(cfg, seed=0, device=device,
-                                   dtype=torch.float32)
+    if args.tiny:
+        model = AsteroidLM.init_random(cfg, seed=0, device=device,
+                                       dtype=torch.float32)
+    else:
+        with torch.device("meta"):
+            model = AsteroidLM(cfg)
+        model.load_state_dict(load_asteroid_checkpoint(
+            args.model_path, cfg, dtype=torch.float32, device=device),
+            assign=True)
+        model = model.eval().requires_grad_(False)
 
     dataset = TrainingDataset(args.data_dir, cfg.channels,
                               tokenizer.pad_token_id, cfg.speech_pad_token)

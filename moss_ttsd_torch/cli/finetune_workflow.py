@@ -8,7 +8,10 @@ from one YAML (``configs/finetune_workflow.yaml``'s keys), as
 ``data_preprocess`` encodes the JSONL's audio with the port's codec
 (``train/data.process_data``) into ``output_dir``; ``--pass_data_preprocess``
 skips that step. ``finetune`` runs ``cli/finetune.py`` on the result.
-``--tiny`` uses the tiny random codec, the mock tokenizer and the tiny LM.
+``--tiny`` uses the tiny random codec, the mock tokenizer and the tiny LM;
+without it ``data_preprocess`` names the checkpoint (``model_path`` for
+the tokenizer, ``spt_config`` / ``spt_checkpoint`` for the codec, which
+runs in fp32) and ``finetune.model_path`` the LM to train.
 """
 
 from __future__ import annotations
@@ -38,21 +41,33 @@ def main(argv=None):
     processed_dir = data_cfg.get("output_dir", "processed_data")
 
     if not args.pass_data_preprocess:
-        if not args.tiny:
-            p.error("loading the real tokenizer and codec checkpoint is not "
-                    "yet ported; use --tiny")
-        from ..core.config import CodecConfig
         from ..models.codec.model import XYTokenizer
         from ..train.data import process_data
-        from ..utils.mock_tokenizer import MockTokenizer
-        from .inference import TINY_SPEECH_OFFSET
-        spt = XYTokenizer.init_random(
-            CodecConfig().tiny(), seed=0,
-            device="cpu" if args.platform == "cpu" else "cuda")
-        process_data(data_cfg["jsonl"], MockTokenizer(), spt, processed_dir,
+        device = "cpu" if args.platform == "cpu" else "cuda"
+        if args.tiny:
+            from ..core.config import CodecConfig
+            from ..utils.mock_tokenizer import MockTokenizer
+            from .inference import TINY_SPEECH_OFFSET
+            tokenizer = MockTokenizer()
+            spt = XYTokenizer.init_random(CodecConfig().tiny(), seed=0,
+                                          device=device)
+            speech_offset = TINY_SPEECH_OFFSET
+        else:
+            missing = [k for k in ("model_path", "spt_config",
+                                   "spt_checkpoint") if not data_cfg.get(k)]
+            if missing:
+                p.error(f"{args.config}: data_preprocess needs "
+                        f"{', '.join(missing)} without --tiny")
+            from ..pipeline.batch import load_tokenizer
+            tokenizer = load_tokenizer(data_cfg["model_path"])
+            spt = XYTokenizer.load_from_checkpoint(
+                data_cfg["spt_config"], data_cfg["spt_checkpoint"],
+                device=device)
+            speech_offset = 151665       # the reference's speech token range
+        process_data(data_cfg["jsonl"], tokenizer, spt, processed_dir,
                      data_name=data_cfg.get("data_name", "processed_data"),
                      use_normalize=data_cfg.get("use_normalize", True),
-                     speech_offset=TINY_SPEECH_OFFSET)
+                     speech_offset=speech_offset)
 
     from .finetune import main as finetune_main
     ft_args = ["--data_dir", processed_dir,

@@ -4,6 +4,10 @@ Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
 --platform --quant --restricted_text_head --profile_dir --lora_adapter
 --adapter_alpha). Runs on the CUDA card unless ``--platform cpu``.
+``--model_path`` (an HF-format LM directory with its tokenizer, which
+needs ``transformers``), ``--spt_config`` and ``--spt_ckpt`` (the
+XY-Tokenizer yaml and checkpoint) load real weights through
+``TTSPipeline.load``; ``--dtype fp32`` runs the codec in fp32.
 ``--tiny`` runs tiny random-weight models (no checkpoint needed). Items
 with prompt audio clone their voices: the prompt wavs are encoded by the
 codec into the prompt's speech codes. ``--lora_adapter NAME=PATH``
@@ -136,10 +140,12 @@ def main(argv=None):
             seed=args.seed or 0, device=device, quant=args.quant,
             restricted_text_head=args.restricted_text_head)
     else:
-        raise SystemExit(
-            "loading a real checkpoint is not yet ported: it needs the HF LM "
-            f"directory ({args.model_path}), its Qwen tokenizer and the "
-            f"XY-Tokenizer checkpoint ({args.spt_ckpt}); use --tiny")
+        from ..pipeline.batch import TTSPipeline
+        pipe = TTSPipeline.load(
+            args.model_path, args.spt_config, args.spt_ckpt, quant=args.quant,
+            codec_dtype="bfloat16" if args.dtype == "bf16" else None,
+            restricted_text_head=args.restricted_text_head or None,
+            attn_impl=args.attn_impl, device=device)
 
     from ..utils.convert_lora import parse_adapter_specs
     for name, (tree, alpha, rslora) in parse_adapter_specs(

@@ -404,6 +404,14 @@ class CodecConfig:
         return self.input_sample_rate / self.encoder_downsample_rate  # 12.5 Hz
 
     @classmethod
+    def from_yaml(cls, path: str) -> "CodecConfig":
+        """Build from the reference codec yaml's ``generator_params``, read
+        by the port's YAML-subset reader (no ``pyyaml``)."""
+        from ..utils import config_yaml
+        return cls.from_generator_params(
+            config_yaml.load(path)["generator_params"])
+
+    @classmethod
     def from_generator_params(cls, gp: dict) -> "CodecConfig":
         """Build from a reference-format generator_params dict."""
         def sub(cfg_cls, key):

@@ -26,7 +26,7 @@ from ...ops.dsp import log_mel_spectrogram
 from .rvq import ResidualVQ
 from .transformer import (AdapterTransformer, AudioDecoder, AudioEncoder,
                           GatedDownsample, Upsample)
-from .vocos import Vocos
+from .vocos import Vocos, mel_scale
 
 
 class XYTokenizerModule(nn.Module):
@@ -102,15 +102,18 @@ def _cast_infer_params(module: XYTokenizerModule, dtype: torch.dtype) -> None:
 
 def _init_random(module: XYTokenizerModule, seed: int, device) -> None:
     """Seeded random weights made on ``device``: matrices N(0, 1/fan_in),
-    codebooks N(0, 1), LayerNorm 1/0, biases 0, layer-scale gammas kept."""
+    codebooks N(0, 1), LayerNorm 1/0, biases 0; the layer-scale gammas and
+    the AdaLayerNorm tables keep their constructed values, and the
+    IMDCT-symexp head's mel-scale init is applied on top."""
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if name == "quantizer.codebook":
                 p.normal_(0.0, 1.0, generator=gen)
-            elif leaf == "gamma":
-                p.fill_(1.0 / module.cfg.vocos.num_layers)
+            elif ".gamma" in name or name.endswith(("norm.scale",
+                                                    "norm.shift")):
+                continue
             elif leaf in ("bias", "q_b", "v_b", "o_b"):
                 p.zero_()
             elif p.ndim == 1:                        # LayerNorm weights
@@ -124,6 +127,11 @@ def _init_random(module: XYTokenizerModule, seed: int, device) -> None:
                 else:
                     fan_in = int(np.prod(p.shape[1:]))
                 p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        vc = module.cfg.vocos
+        if vc.head == "imdct_symexp" and vc.head_sample_rate is not None:
+            w = module.vocos.head.out.weight
+            w.mul_(torch.as_tensor(mel_scale(vc.head_sample_rate,
+                                             w.shape[0]), device=device)[:, None])
 
 
 class XYTokenizer:
@@ -181,6 +189,29 @@ class XYTokenizer:
         module = module.to(dev)              # the position tables too
         _init_random(module, seed, dev)
         return cls(cfg, module, dtype=dtype, device=dev)
+
+    @classmethod
+    def load_from_checkpoint(cls, config_path: str, ckpt_path: str,
+                             dtype: Optional[str] = None,
+                             device: DeviceLike = "cuda") -> "XYTokenizer":
+        """The reference's yaml (``generator_params``) and a torch
+        checkpoint (``.ckpt`` / ``.pt`` / ``.bin``, through
+        ``utils/convert_codec``), or a native ``.npz`` (the JAX tree; a
+        pre-scan per-layer tree is restacked). ``dtype`` None runs the
+        codec in fp32, as the reference does; ``"bfloat16"`` is the
+        serving configuration."""
+        from ...utils.convert_codec import (convert_codec_checkpoint,
+                                            restack_legacy_pytree)
+        from ...utils.convert_jax import codec_state_from_jax
+        cfg = CodecConfig.from_yaml(config_path)
+        if ckpt_path.endswith((".ckpt", ".pt", ".bin")):
+            params = convert_codec_checkpoint(cfg, ckpt_path)
+        else:
+            from ...core.checkpoint import load_pytree
+            params = restack_legacy_pytree(load_pytree(ckpt_path))
+        state = codec_state_from_jax(params, cfg)
+        del params
+        return cls(cfg, state, dtype=dtype, device=device)
 
     @torch.no_grad()
     def encode(self, wav_list: List[np.ndarray], overlap_seconds: int = 10):

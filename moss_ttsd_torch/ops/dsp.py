@@ -7,7 +7,8 @@ reassociation), the slaney mel filterbank and the Whisper-style log-mel.
 Synthesis side (the vocoder): the "same"-padded ISTFT, whose overlap-add
 keeps the JAX formulation — with hop | win the output is the sum of
 R = win / hop statically shifted frame streams (a pad + add, no scatter);
-the inverse FFT is ``torch.fft.irfft``. Host side (prompt audio): the
+the inverse FFT is ``torch.fft.irfft``; the MDCT and IMDCT of the Vocos
+IMDCT heads are real matmuls. Host side (prompt audio): the
 polyphase windowed-sinc resampler in numpy.
 """
 
@@ -205,6 +206,81 @@ def istft_same(re: torch.Tensor, im: torch.Tensor, n_fft: int,
     # sample 0 and the trim keeps that sample
     y = torch.where(env > 1e-11, y / env.clamp_min(1e-11), 0.0)
     return y[..., pad:y.shape[-1] - pad]
+
+
+# ---------------------------------------------------------------------------
+# MDCT / IMDCT (the Vocos IMDCT heads; reference modules.py:795-937)
+# ---------------------------------------------------------------------------
+
+def _cosine_window(M: int) -> np.ndarray:
+    """scipy.signal.windows.cosine: w(n) = sin(pi (n + 0.5) / M)."""
+    return np.sin(np.pi * (np.arange(M) + 0.5) / M).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _mdct_basis(frame_len: int) -> np.ndarray:
+    """Real MDCT basis (frame_len, N): windowed frames @ basis == MDCT (the
+    reference's twiddles and FFT folded into one real matmul)."""
+    N = frame_len // 2
+    n0 = (N + 1) / 2
+    n = np.arange(frame_len)[:, None].astype(np.float64)
+    k = np.arange(N)[None, :].astype(np.float64)
+    pre = np.exp(-1j * np.pi * n / frame_len)
+    post = np.exp(-1j * np.pi * n0 * (k + 0.5) / N)
+    fourier = np.exp(-2j * np.pi * n * k / frame_len)
+    basis = np.real(pre * fourier * post) * np.sqrt(1.0 / N) * np.sqrt(2)
+    return basis.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _imdct_basis(frame_len: int) -> np.ndarray:
+    """Real IMDCT basis (N, frame_len): X @ basis == the windowless IMDCT
+    frames (the mirrored spectrum [X, -flip(X)], the IFFT and both
+    twiddles folded into one real matmul)."""
+    N = frame_len // 2
+    n0 = (N + 1) / 2
+    k = np.arange(2 * N)[:, None].astype(np.float64)
+    m = np.arange(2 * N)[None, :].astype(np.float64)
+    pre = np.exp(1j * np.pi * n0 * k / N)
+    post = np.exp(1j * np.pi * (m + n0) / (2 * N))
+    fourier = np.exp(2j * np.pi * k * m / (2 * N)) / (2 * N)
+    C = np.real(pre * fourier * post) * np.sqrt(N) * np.sqrt(2)
+    D = C[:N] - C[N:][::-1]
+    return D.astype(np.float32)
+
+
+def _mdct_pad(frame_len: int, padding: str) -> int:
+    if padding not in ("center", "same"):
+        raise ValueError("padding must be 'center' or 'same'")
+    return frame_len // 2 if padding == "center" else frame_len // 4
+
+
+def mdct(audio: torch.Tensor, frame_len: int,
+         padding: str = "same") -> torch.Tensor:
+    """Modified DCT of (..., T) -> (..., L, frame_len // 2), in fp32: the
+    cosine window, a lapped transform with hop frame_len // 2; "same" pads
+    frame_len // 4 a side, "center" frame_len // 2."""
+    pad = _mdct_pad(frame_len, padding)
+    x = F.pad(audio.to(torch.float32), (pad, pad))
+    window = torch.as_tensor(_cosine_window(frame_len), device=x.device)
+    frames = x.unfold(-1, frame_len, frame_len // 2) * window
+    return frames @ torch.as_tensor(_mdct_basis(frame_len), device=x.device)
+
+
+def imdct(X: torch.Tensor, frame_len: int,
+          padding: str = "same") -> torch.Tensor:
+    """Inverse MDCT of (..., L, N) -> (..., L * N) ("same") or
+    (..., (L - 1) * N) ("center"), in fp32: the mirrored-spectrum inverse,
+    the cosine window and a hop-N overlap-add."""
+    pad = _mdct_pad(frame_len, padding)
+    N = frame_len // 2
+    if X.shape[-1] != N:
+        raise ValueError(f"expected {N} bins, got {X.shape[-1]}")
+    y = X.to(torch.float32) @ torch.as_tensor(_imdct_basis(frame_len),
+                                              device=X.device)
+    y = y * torch.as_tensor(_cosine_window(frame_len), device=X.device)
+    audio = overlap_add(y.transpose(-1, -2), N)         # (..., (L + 1) N)
+    return audio[..., pad:audio.shape[-1] - pad]
 
 
 # ---------------------------------------------------------------------------

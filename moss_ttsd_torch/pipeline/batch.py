@@ -43,6 +43,19 @@ SYSTEM_PROMPT = ("You are a speech synthesizer that generates natural, "
                  "text.")
 
 
+def load_tokenizer(model_path: str):
+    """The checkpoint's text tokenizer (MOSS-TTSD's Qwen BPE), read from
+    ``model_path`` by transformers' ``AutoTokenizer`` from local files only.
+    Every entry point that loads a checkpoint gets its tokenizer here."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            "loading a checkpoint's tokenizer needs the 'transformers' "
+            "package, which is not installed") from e
+    return AutoTokenizer.from_pretrained(model_path, local_files_only=True)
+
+
 @dataclasses.dataclass
 class PhaseTimings:
     """Per-phase wall times (host clock; the device phases end in a
@@ -213,6 +226,56 @@ class TTSPipeline:
         self.encode_cache_size = encode_cache_size
         self._encode_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
         self._encode_cache_lock = threading.Lock()
+
+    @classmethod
+    def load(cls, model_path: str, spt_config_path: str, spt_ckpt_path: str,
+             sampling: Optional[SamplingConfig] = None, mesh=None,
+             quant: Optional[str] = None,
+             codec_dtype: Optional[str] = "bfloat16",
+             restricted_text_head: Optional[bool] = None,
+             attn_impl: Optional[str] = None,
+             restricted_audit_every: Optional[int] = None,
+             device: DeviceLike = "cuda") -> "TTSPipeline":
+        """Load from an HF-format LM directory (``config.json``, the
+        weights, ``generation_config.json`` when present, the tokenizer)
+        and the codec's yaml + checkpoint (the reference's load_model).
+
+        The LM's weights are read tensor by tensor, cast once to its
+        compute dtype and moved to ``device`` as they are read.
+        ``codec_dtype="bfloat16"`` (the default, the serving configuration)
+        runs the codec in bf16 with its fp32 islands; None runs it in fp32
+        as the reference does. ``mesh`` (multi-device serving) is not
+        ported and is refused."""
+        import os
+        from ..core.device import torch_dtype
+        from ..utils.convert_lm import load_asteroid_checkpoint
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (multi-device serving) is not yet ported to "
+                "moss_ttsd_torch")
+        dev = resolve_device(device)
+        cfg_path = os.path.join(model_path, "config.json")
+        if not os.path.exists(cfg_path):
+            raise FileNotFoundError(
+                f"no config.json in {model_path!r}: expected an HF-format "
+                f"checkpoint directory")
+        lm_cfg = LMConfig.from_hf_config_json(cfg_path)
+        if attn_impl is not None:
+            lm_cfg = dataclasses.replace(lm_cfg, attn_impl=attn_impl)
+        tokenizer = load_tokenizer(model_path)
+        lm_params = load_asteroid_checkpoint(
+            model_path, lm_cfg, dtype=torch_dtype(lm_cfg.dtype), device=dev)
+        spt = XYTokenizer.load_from_checkpoint(spt_config_path, spt_ckpt_path,
+                                               dtype=codec_dtype, device=dev)
+        if sampling is None:
+            gen_cfg = os.path.join(model_path, "generation_config.json")
+            if os.path.exists(gen_cfg):
+                sampling = SamplingConfig.from_generation_config_json(
+                    gen_cfg, lm_cfg.channels)
+        return cls(tokenizer, lm_cfg, lm_params, spt, sampling, quant=quant,
+                   restricted_text_head=restricted_text_head,
+                   restricted_audit_every=restricted_audit_every,
+                   device=dev)
 
     def _prepare_text(self, item: dict, use_normalize: bool):
         """Text half of item preparation -> (final_text, meta, wav-or-None)."""

@@ -29,6 +29,9 @@ Standard library only (http.server + threading).
     python -m moss_ttsd_torch.serve.server --tiny --platform cpu --port 8000 \\
         --scheduler continuous --lora_adapter narrator=lora_factors.npz
 
+``--model_path DIR --spt_config YAML --spt_ckpt CKPT`` serves a real
+checkpoint (``TTSPipeline.load``; the tokenizer needs ``transformers``).
+
 Multi-chip meshes are not ported (ROADMAP A13): ``--mesh`` is refused.
 """
 
@@ -953,17 +956,21 @@ def main(argv=None):
     from ..utils.convert_lora import parse_adapter_specs
     lora_adapters = parse_adapter_specs(args.lora_adapter,
                                         args.adapter_alpha, p.error)
-    if args.model_path and not args.tiny:
-        raise SystemExit(
-            "loading a real checkpoint is not yet ported: it needs the HF LM "
-            f"directory ({args.model_path}), its Qwen tokenizer and the "
-            f"XY-Tokenizer checkpoint ({args.spt_ckpt}); use --tiny")
-
-    from ..cli.inference import build_tiny_pipeline
-    pipeline = build_tiny_pipeline(
-        device="cpu" if args.platform == "cpu" else "cuda", quant=args.quant,
-        restricted_text_head=args.restricted_text_head,
-        restricted_audit_every=args.restricted_audit_every or None)
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    if args.tiny or not args.model_path:
+        from ..cli.inference import build_tiny_pipeline
+        pipeline = build_tiny_pipeline(
+            device=device, quant=args.quant,
+            restricted_text_head=args.restricted_text_head,
+            restricted_audit_every=args.restricted_audit_every or None)
+    else:
+        from ..pipeline.batch import TTSPipeline
+        pipeline = TTSPipeline.load(
+            args.model_path, args.spt_config, args.spt_ckpt, quant=args.quant,
+            restricted_text_head=args.restricted_text_head or None,
+            attn_impl=args.attn_impl,
+            restricted_audit_every=args.restricted_audit_every or None,
+            device=device)
     if args.restricted_audit_every and args.scheduler == "continuous":
         print("note: --restricted_audit_every audits only the requests the "
               "window scheduler or the overflow worker serves; the pool "

@@ -1,12 +1,14 @@
 """A reader for the small YAML subset of the repository's configs
 (``configs/training_config.yaml``, ``lora_config.yaml``,
-``finetune_workflow.yaml``), so the port needs no ``pyyaml``.
+``finetune_workflow.yaml``) and of the XY-Tokenizer's codec config (its
+``generator_params`` nest keyword mappings two levels deep), so the port
+needs no ``pyyaml``.
 
 It reads what those files use and raises ``ValueError`` on anything else
 rather than guess:
   * ``# comments``, whole-line or after a value;
-  * ``key: value`` mappings, and one level of nesting (``key:`` then lines
-    indented under it);
+  * ``key: value`` mappings, nested to any depth (``key:`` then lines
+    indented under it, each mapping's keys at one indentation);
   * scalars as YAML 1.1 (``yaml.safe_load``) types them: ints (``0`` or no
     leading zero), floats with a dot (``1.0e-4``, ``0.1``; the exponent
     needs its sign), ``true`` / ``false``, ``null`` / ``~``, and strings,
@@ -19,7 +21,7 @@ Plain scalars that YAML 1.1 reads some other way (``yes``, ``0x1f``,
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _INT = re.compile(r"[-+]?(0|[1-9][0-9]*)")
 _FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+)([eE][-+][0-9]+)?")
@@ -96,8 +98,10 @@ def _value(text: str, lineno: int, line: str) -> Any:
 def loads(text: str) -> Dict[str, Any]:
     """The YAML subset -> a dict (an empty document -> {})."""
     root: Dict[str, Any] = {}
-    nested: Optional[Dict[str, Any]] = None      # the mapping being filled
-    nested_indent = None
+    # the open mappings, outermost first: [indent of their keys, mapping];
+    # a mapping just opened by "key:" has no indent until its first line
+    stack: List[list] = [[0, root]]
+    opened: Optional[tuple] = None       # (parent, key, parent's indent)
     for lineno, line in enumerate(text.splitlines(), 1):
         if "\t" in line[:len(line) - len(line.lstrip())]:
             _fail(lineno, line, "tab indentation")
@@ -110,29 +114,29 @@ def loads(text: str) -> Dict[str, Any]:
         key, sep, rest = body.strip().partition(":")
         if not sep or not _KEY.fullmatch(key) or (rest and rest[0] != " "):
             _fail(lineno, line, "expected 'key: value'")
-        if indent == 0:
-            nested = nested_indent = None
-            if key in root:
-                _fail(lineno, line, f"duplicate key {key!r}")
-            if rest.strip():
-                root[key] = _value(rest, lineno, line)
-            else:
-                nested = root[key] = {}
-            continue
-        if nested is None:
-            _fail(lineno, line, "indented line outside a mapping")
-        if nested_indent is None:
-            nested_indent = indent
-        if indent != nested_indent:
-            _fail(lineno, line, "only one level of nesting is supported")
-        if not rest.strip():
-            _fail(lineno, line, "only one level of nesting is supported")
-        if key in nested:
+        if opened is not None:
+            parent, pkey, pindent = opened
+            opened = None
+            if indent > pindent:
+                stack[-1][0] = indent
+            else:                       # "key:" with nothing under it
+                stack.pop()
+                parent[pkey] = None
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            _fail(lineno, line, "inconsistent indentation")
+        mapping = stack[-1][1]
+        if key in mapping:
             _fail(lineno, line, f"duplicate key {key!r}")
-        nested[key] = _value(rest, lineno, line)
-    for k, v in root.items():
-        if v == {}:
-            root[k] = None          # "key:" with nothing under it
+        if rest.strip():
+            mapping[key] = _value(rest, lineno, line)
+        else:
+            mapping[key] = {}
+            stack.append([None, mapping[key]])
+            opened = (mapping, key, indent)
+    if opened is not None:
+        opened[0][opened[1]] = None
     return root
 
 

@@ -13,16 +13,20 @@
     and ``LoraRegistry`` all read it.
   * ``load_reference_lm_state_dict``: the reference checkpoint's names
     (``model.embedding_list.{i}``, ``model.language_model.layers.{l}.*``;
-    the layout of ``moss_ttsd_tpu/utils/convert_lm.py``) -> ``AsteroidLM``.
+    the layout of ``utils/convert_lm.py``) -> ``AsteroidLM``, cast once to
+    the dtype asked for.
   * ``codec_state_from_jax``: the JAX ``XYTokenizerModule`` tree (encode
-    and decode sides) -> ``XYTokenizerModule``. Flax ``Conv`` kernels are (k, in, out)
+    and decode sides, every Vocos backbone and head) ->
+    ``XYTokenizerModule``; ``utils/convert_codec.py`` makes that tree from
+    a reference checkpoint. Flax ``Conv`` kernels are (k, in, out)
     -> torch (out, in, k); flax ``ConvTranspose`` kernels (k, in, out) are a
     correlation without the kernel flip torch's transposed conv applies, so
     they are flipped along k -> torch (in, out, k).
 
 Arrays are accepted as numpy (or anything ``np.asarray`` takes); the
 results are fp32 (int8 for quantized weights) CPU tensors, ready for
-``load_state_dict``.
+``load_state_dict`` (``load_reference_lm_state_dict``: in the dtype and on
+the device asked for).
 """
 
 from __future__ import annotations
@@ -133,25 +137,39 @@ def lm_state_to_jax(sd: Mapping[str, torch.Tensor], cfg: LMConfig) -> dict:
     return {"params": p}
 
 
-def load_reference_lm_state_dict(sd: Mapping, cfg: LMConfig) -> StateDict:
+def _as(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor or array -> ``dtype`` on ``device``, cast once (the tensor
+    itself when it is already there)."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        x = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return x.to(device=device, dtype=dtype)
+
+
+def load_reference_lm_state_dict(sd: Mapping, cfg: LMConfig,
+                                 dtype: torch.dtype = torch.float32,
+                                 device="cpu") -> StateDict:
     """Reference-format names (torch (out, in) weights) -> ``AsteroidLM``
-    state dict. The tied ``lm_heads.*`` and the unused inner
-    ``embed_tokens`` are ignored."""
+    state dict in ``dtype`` on ``device``, each tensor cast once. The tied
+    ``lm_heads.*`` and the unused inner ``embed_tokens`` are ignored."""
+    def get(name):
+        return _as(sd[name], dtype, device)
+
     out: StateDict = {
-        "embed_text": _t(sd["model.embedding_list.0.weight"]),
+        "embed_text": get("model.embedding_list.0.weight"),
         "embed_speech": torch.stack(
-            [_t(sd[f"model.embedding_list.{i}.weight"])
+            [get(f"model.embedding_list.{i}.weight")
              for i in range(1, cfg.channels)]),
-        "final_norm.weight": _t(sd["model.language_model.norm.weight"])}
+        "final_norm.weight": get("model.language_model.norm.weight")}
     for l in range(cfg.num_hidden_layers):
         src, dst = f"model.language_model.layers.{l}.", f"layers.{l}."
         for n, ref in _REF_NORM.items():
-            out[dst + n + ".weight"] = _t(sd[src + ref + ".weight"])
+            out[dst + n + ".weight"] = get(src + ref + ".weight")
         for n, ref in _REF_PROJ.items():
-            out[dst + n + ".weight"] = _t(sd[src + ref + ".weight"])
+            out[dst + n + ".weight"] = get(src + ref + ".weight")
             if cfg.attention_bias and n in ("q_proj", "k_proj", "v_proj",
                                             "o_proj"):
-                out[dst + n + ".bias"] = _t(sd[src + ref + ".bias"])
+                out[dst + n + ".bias"] = get(src + ref + ".bias")
     return out
 
 
@@ -245,17 +263,42 @@ def codec_state_from_jax(params_np: Mapping, cfg: CodecConfig) -> StateDict:
     _deconv(sd, "acoustic_decoder.deconv1", d["deconv1"])
     _deconv(sd, "acoustic_decoder.deconv2", d["deconv2"])
 
-    bb = p["vocos"]["backbone"]
-    _conv(sd, "vocos.backbone.embed", bb["embed"])
-    _ln(sd, "vocos.backbone.norm", bb["norm"])
-    _ln(sd, "vocos.backbone.final_ln", bb["final_ln"])
-    blk = bb["blocks"]["block"]
-    for i in range(cfg.vocos.num_layers):
-        pre = f"vocos.backbone.blocks.{i}"
-        _conv(sd, pre + ".dwconv", blk["dwconv"], i)
-        _ln(sd, pre + ".norm", blk["norm"], i)
-        _dense(sd, pre + ".pwconv1", blk["pwconv1"], i)
-        _dense(sd, pre + ".pwconv2", blk["pwconv2"], i)
-        sd[pre + ".gamma"] = _t(np.asarray(blk["gamma"])[i])
-    _dense(sd, "vocos.head.out", p["vocos"]["head"]["out"])
+    _vocos(sd, p["vocos"], cfg.vocos)
     return sd
+
+
+def _norm(sd: StateDict, pre: str, tree: Mapping, idx=None) -> None:
+    """A LayerNorm, or an AdaLayerNorm's ``scale`` / ``shift`` tables."""
+    if "shift" not in tree:
+        _ln(sd, pre, tree, idx)
+        return
+    for n in ("scale", "shift"):
+        a = np.asarray(tree[n])
+        sd[f"{pre}.{n}"] = _t(a if idx is None else a[idx])
+
+
+def _vocos(sd: StateDict, tree: Mapping, vc) -> None:
+    """The Vocos backbone ``vc`` names (ConvNeXt, its norms plain or
+    adaptive, or ResNet, whose folded convs and (dim,) gammas come as they
+    are) and the head's linear ``out``."""
+    bb = tree["backbone"]
+    _conv(sd, "vocos.backbone.embed", bb["embed"])
+    if vc.backbone == "resnet":
+        for i in range(vc.num_blocks):
+            blk, pre = bb[f"resblock_{i}"], f"vocos.backbone.resnet.{i}"
+            for j in range(3):
+                _conv(sd, f"{pre}.convs1.{j}", blk[f"conv1_{j}"])
+                _conv(sd, f"{pre}.convs2.{j}", blk[f"conv2_{j}"])
+                sd[f"{pre}.gamma.{j}"] = _t(blk[f"gamma_{j}"])
+    else:
+        _norm(sd, "vocos.backbone.norm", bb["norm"])
+        _ln(sd, "vocos.backbone.final_ln", bb["final_ln"])
+        blk = bb["blocks"]["block"]
+        for i in range(vc.num_layers):
+            pre = f"vocos.backbone.blocks.{i}"
+            _conv(sd, pre + ".dwconv", blk["dwconv"], i)
+            _norm(sd, pre + ".norm", blk["norm"], i)
+            _dense(sd, pre + ".pwconv1", blk["pwconv1"], i)
+            _dense(sd, pre + ".pwconv2", blk["pwconv2"], i)
+            sd[pre + ".gamma"] = _t(np.asarray(blk["gamma"])[i])
+    _dense(sd, "vocos.head.out", tree["head"]["out"])

@@ -13,7 +13,8 @@ serve per request without touching the base weights.
 ``adapter_model.safetensors`` is read by ``read_safetensors``, a small
 reader of the format (an 8-byte little-endian header length, a JSON header
 of dtype / shape / byte offsets, then the raw bytes): no ``safetensors``
-package is needed.
+package is needed. ``write_safetensors`` writes the format (the LM
+checkpoint export, ``utils/convert_lm.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import math
 import os
 import re
 import struct
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +40,10 @@ _KEY = re.compile(
     r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)"
     r"\.lora_(A|B)(?:\.[\w]+)?\.weight$")
 
-# the float types adapter factors are saved in, and I64
+# the float types checkpoints and adapter factors are saved in, and I64
 _ST_DTYPES = {"F32": torch.float32, "F16": torch.float16,
               "BF16": torch.bfloat16, "I64": torch.int64}
+_ST_TAGS = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def lora_scale(rank: int, alpha: float, use_rslora: bool = True) -> float:
@@ -49,37 +51,83 @@ def lora_scale(rank: int, alpha: float, use_rslora: bool = True) -> float:
     return alpha / math.sqrt(rank) if use_rslora else alpha / rank
 
 
-def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.safetensors`` file -> {name: CPU tensor} (the header's
-    ``__metadata__`` entry is skipped)."""
+def read_safetensors(path: str, dtype: Optional[torch.dtype] = None,
+                     device=None, keep: Optional[Callable[[str], bool]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> {name: tensor} (the header's
+    ``__metadata__`` entry is skipped). Tensors are read one at a time
+    into their own buffers, then cast once to ``dtype`` (floating tensors
+    only) and moved to ``device``, so the host never holds more than the
+    result and one tensor's bytes. ``keep(name)`` False skips a tensor
+    without reading it."""
+    size = os.path.getsize(path)
     with open(path, "rb") as f:
-        raw = f.read()
-    if len(raw) < 8:
-        raise ValueError(f"{path}: not a safetensors file (too short)")
-    (n,) = struct.unpack("<Q", raw[:8])
-    if 8 + n > len(raw):
-        raise ValueError(f"{path}: header length {n} past the end of file")
-    header = json.loads(raw[8:8 + n])
-    data = memoryview(raw)[8 + n:]
-    out: Dict[str, torch.Tensor] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = _ST_DTYPES.get(info["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: tensor {name!r} has unsupported "
-                             f"dtype {info['dtype']}")
-        begin, end = info["data_offsets"]
-        shape = list(info["shape"])
-        count = math.prod(shape)
-        if end - begin != count * dtype.itemsize or end > len(data):
-            raise ValueError(f"{path}: tensor {name!r} offsets {begin}:"
-                             f"{end} do not fit {info['dtype']} {shape}")
-        buf = bytearray(data[begin:end])
-        t = (torch.frombuffer(buf, dtype=dtype, count=count) if count
-             else torch.empty(0, dtype=dtype))
-        out[name] = t.reshape(shape)
+        raw = f.read(8)
+        if len(raw) < 8:
+            raise ValueError(f"{path}: not a safetensors file (too short)")
+        (n,) = struct.unpack("<Q", raw)
+        if 8 + n > size:
+            raise ValueError(f"{path}: header length {n} past the end of file")
+        header = json.loads(f.read(n))
+        base = 8 + n
+        out: Dict[str, torch.Tensor] = {}
+        for name, info in header.items():
+            if name == "__metadata__" or (keep is not None and not keep(name)):
+                continue
+            st_dtype = _ST_DTYPES.get(info["dtype"])
+            if st_dtype is None:
+                raise ValueError(f"{path}: tensor {name!r} has unsupported "
+                                 f"dtype {info['dtype']}")
+            begin, end = info["data_offsets"]
+            shape = list(info["shape"])
+            count = math.prod(shape)
+            if end - begin != count * st_dtype.itemsize or base + end > size:
+                raise ValueError(f"{path}: tensor {name!r} offsets {begin}:"
+                                 f"{end} do not fit {info['dtype']} {shape}")
+            buf = torch.empty(end - begin, dtype=torch.uint8)
+            f.seek(base + begin)
+            if f.readinto(buf.numpy()) != end - begin:
+                raise ValueError(f"{path}: tensor {name!r} is truncated")
+            t = buf.view(st_dtype).reshape(shape)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            out[name] = t.to(device) if device is not None else t
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor],
+                      dtype: Optional[torch.dtype] = None,
+                      metadata: Optional[Dict[str, str]] = None) -> int:
+    """Write {name: tensor} as one ``.safetensors`` file, tensor by tensor
+    (each copied to the host and cast to ``dtype``, floating tensors only,
+    as it is written). bf16 is written as torch's bytes under the ``BF16``
+    tag. A tensor under two names is written under each. Returns the
+    bytes of tensor data written."""
+    def out_dtype(t):
+        return dtype if dtype is not None and t.is_floating_point() \
+            else t.dtype
+
+    header: Dict[str, dict] = {"__metadata__": dict(metadata or {})}
+    offset = 0
+    for name, t in tensors.items():
+        dt = out_dtype(t)
+        if dt not in _ST_TAGS:
+            raise ValueError(f"tensor {name!r}: dtype {dt} has no "
+                             f"safetensors tag here")
+        nbytes = t.numel() * dt.itemsize
+        header[name] = {"dtype": _ST_TAGS[dt], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)      # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            t = t.detach().to("cpu", out_dtype(t)).contiguous()
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy())
+    return offset
 
 
 def _to_np(t) -> np.ndarray:

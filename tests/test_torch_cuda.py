@@ -721,3 +721,99 @@ def test_tiny_train_steps_on_card_match_cpu(cuda, lora):
         outside = int((err > 1e-4 * want.abs() + 1e-6).sum())
         assert outside <= max(4, want.numel() // 1000), (k, outside)
         assert float(err.max()) <= lr, (k, float(err.max()))
+
+
+def _greedy_sampling(channels: int, n: int = 12):
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             SamplingConfig)
+    return SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=False, temperature=None, top_k=None, top_p=None)
+        for _ in range(channels)], max_new_tokens=n)
+
+
+@pytest.mark.parametrize("policy", [{}, dict(quant="int8", kv_quant="int8")])
+def test_loaded_lm_on_card_equals_in_memory(cuda, tmp_path, policy):
+    """A checkpoint directory written by ``save_asteroid_checkpoint`` and
+    read by ``load_asteroid_checkpoint`` straight onto the card gives the
+    greedy tokens of the in-memory model (fp32; and int8 serving)."""
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.utils.convert_lm import (load_asteroid_checkpoint,
+                                                  save_asteroid_checkpoint)
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny()
+    model = AsteroidLM.init_random(cfg, seed=1, device="cuda")
+    save_asteroid_checkpoint(model, cfg, str(tmp_path), shards=2)
+    state = load_asteroid_checkpoint(str(tmp_path), cfg, device="cuda")
+    assert all(v.device.type == "cuda" for v in state.values())
+    rng = np.random.default_rng(1)
+    prompt = np.full((2, 20, cfg.channels), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = rng.integers(1, 90, (2, 20))
+    mask = np.ones((2, 20), np.int64)
+    mask[1, :6] = 0
+    toks = [GenerationEngine(cfg, w, _greedy_sampling(cfg.channels),
+                             bucket=32, device="cuda", **policy
+                             ).generate(prompt, mask, 12).tokens
+            for w in (model, state)]
+    np.testing.assert_array_equal(toks[1], toks[0])
+
+
+def test_loaded_codec_on_card_matches_cpu(cuda, tmp_path):
+    """The reference-format codec .ckpt loaded on the card and on the CPU
+    (fp32, TF32 off): identical codes; the card's bf16 decode of those
+    codes within the codec's bf16 contract (3 % relative RMS) of its fp32
+    decode."""
+    import pathlib
+    import torch_ref_codec
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.utils.audio_io import read_wav
+    yaml_path, ckpt = torch_ref_codec.write_reference_codec(
+        str(tmp_path), CodecConfig().tiny(), seed=0)
+    ex = pathlib.Path(__file__).resolve().parents[1] / "examples"
+    wavs = [read_wav(str(ex / n))[0][0] for n in ("voice_s1.wav",
+                                                   "voice_both.wav")]
+    spts = [XYTokenizer.load_from_checkpoint(yaml_path, ckpt, device=d)
+            for d in ("cpu", "cuda")]
+    codes = [s.encode(wavs)["codes_list"] for s in spts]
+    for a, b in zip(*codes):
+        np.testing.assert_array_equal(a, b)
+    b16 = XYTokenizer.load_from_checkpoint(yaml_path, ckpt,
+                                           dtype="bfloat16", device="cuda")
+    for a, b in zip(spts[1].decode(codes[1])["syn_wav_list"],
+                    b16.decode(codes[1])["syn_wav_list"]):
+        assert np.isfinite(b).all() and a.shape == b.shape
+        assert np.linalg.norm(a - b) / (np.linalg.norm(a) + 1e-9) < 0.03
+
+
+@pytest.mark.parametrize("vocos_kw", [
+    dict(backbone="resnet", num_blocks=2, head="imdct_symexp",
+         head_sample_rate=24000),
+    dict(head="imdct_cos", padding="center"),
+    dict(adanorm_num_embeddings=3, head="imdct_symexp", clip_audio=True)],
+    ids=["resnet-symexp", "cos-center", "adanorm-symexp-clip"])
+def test_vocos_variants_on_card_match_cpu(cuda, vocos_kw):
+    """Each Vocos variant on the card (fp32, TF32 off) against the same
+    weights on the CPU: wav within 1e-4, lengths equal."""
+    import dataclasses
+    from moss_ttsd_torch.core.config import VocosConfig
+    from moss_ttsd_torch.models.codec.vocos import Vocos
+    cfg = VocosConfig(input_channels=80, dim=64, intermediate_dim=128,
+                      num_layers=3, **vocos_kw)
+    torch.manual_seed(0)
+    cpu = Vocos(cfg).eval()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    gpu = Vocos(dataclasses.replace(cfg)).to("cuda").eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 50, 80)
+    lens = torch.tensor([50, 31])
+    cond = (None if cfg.adanorm_num_embeddings is None
+            else torch.tensor([[0], [2]]))
+    with torch.no_grad():
+        w_c, l_c = cpu(x, lens, cond)
+        w_g, l_g = gpu(x.cuda(), lens.cuda(),
+                       None if cond is None else cond.cuda())
+    assert torch.equal(l_g.cpu(), l_c)
+    assert float((w_g.cpu() - w_c).abs().max()) <= 1e-4

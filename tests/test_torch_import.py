@@ -41,7 +41,7 @@ def test_importing_every_module_leaves_jax_out():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ref_codec.py"]))
 def test_no_jax_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -137,7 +137,9 @@ def test_cli_unported_flags_fail_loudly(tmp_path):
                   ["--lora_adapter", "a=b"], ["--quant", "int4"]):
         with pytest.raises(SystemExit):
             main(["--tiny", "--platform", "cpu", *extra])
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # without --tiny the CLI loads the checkpoint (TTSPipeline.load): the
+    # default --model_path is no directory here
+    with pytest.raises(FileNotFoundError, match="fnlp/MOSS-TTSD-v0.5"):
         main(["--platform", "cpu", "--output_dir", str(tmp_path)])
 
 
@@ -169,10 +171,14 @@ def test_codec_roundtrip_cli_refuses_unported_flags(tmp_path):
     from moss_ttsd_torch.cli.codec_roundtrip import main
     base = ["--input_dir", str(ROOT / "examples"), "--output_dir",
             str(tmp_path)]
-    for extra in (["--config", "c.yaml", "--checkpoint", "c.ckpt"],
-                  ["--tiny", "--debug", "1"], ["--tiny", "--debug"]):
+    for extra in (["--config", "c.yaml"], ["--tiny", "--debug", "1"],
+                  ["--tiny", "--debug"]):
         with pytest.raises(SystemExit):
             main([*base, "--platform", "cpu", *extra])
+    # --config / --checkpoint load the codec (XYTokenizer.load_from_checkpoint)
+    with pytest.raises(FileNotFoundError, match="c.yaml"):
+        main([*base, "--platform", "cpu", "--config", "c.yaml",
+              "--checkpoint", "c.ckpt"])
     assert not list(tmp_path.iterdir())
 
 
@@ -222,7 +228,7 @@ def test_finetune_cli_without_cuda_raises(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("config,extra", [
-    ("", []),                                      # no --tiny: A16
+    ("", []),                      # no --tiny and no --model_path
     ("pipeline_stages: 2\n", ["--tiny"]),
     ("sequence_parallel: 2\n", ["--tiny"]),
     ("learning_rate: 1e-4\n", ["--tiny"]),         # YAML 1.1 reads a string

@@ -173,7 +173,8 @@ def test_continuous_scheduler_and_lora_voices_are_refused():
     """Since the continuous scheduler and LoRA voices are ported, what is
     still refused: an unknown scheduler, an empty or missing adapter, a
     malformed --lora_adapter, an unknown --pool_kv_quant, --mesh,
-    --attn_impl xla, --jax_cache_dir and a real checkpoint."""
+    --attn_impl xla, --jax_cache_dir and a checkpoint directory that is
+    not there."""
     pipe = build_tiny_pipeline(device="cpu")
     with pytest.raises(ValueError, match="unknown scheduler"):
         SpeechServer(pipe, host="127.0.0.1", port=0, scheduler="round")
@@ -186,7 +187,8 @@ def test_continuous_scheduler_and_lora_voices_are_refused():
                  ["--jax_cache_dir", "x"]):
         with pytest.raises(SystemExit):
             main(["--tiny", "--platform", "cpu", *argv])
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # --model_path loads the checkpoint (TTSPipeline.load): none is there
+    with pytest.raises(FileNotFoundError, match="some/dir"):
         main(["--model_path", "some/dir", "--platform", "cpu"])
 
 

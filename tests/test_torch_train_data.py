@@ -215,6 +215,7 @@ def test_yaml_reader_matches_safe_load(name):
     "a: 1\nb: -2\nc: 0.1\nd: 1.0e-4\ne: .5\nf: true\ng: False\nh: null\n"
     "i: ~\nj: path/to/x.jsonl # note\nk: 'q p'\nl: \"x\"\nm: []\n"
     "n: [q_proj, 3, 2.5]\no:\n  p: 1\n  q: [a, b]\nr:\n# c\n",
+    "a:\n  b:\n    c: 1\n    d:\n  e: x\nf:\n  g:\n      h: 0.5\n",
     "# only comments\n\n"])
 def test_yaml_reader_subset_equals_safe_load(text):
     assert config_yaml.loads(text) == (yaml.safe_load(text) or {})
@@ -222,7 +223,7 @@ def test_yaml_reader_subset_equals_safe_load(text):
 
 @pytest.mark.parametrize("text", [
     "a: 1e-4", "a: yes", "a: 0x1f", "a: 012", "a: 1:30", "a: 2020-01-01",
-    "a: 1_000", "a: .inf", "a: &x 1", "a: |", "a:\n  b:\n    c: 1",
+    "a: 1_000", "a: .inf", "a: &x 1", "a: |", "a:\n  b:\n    c: 1\n   d: 2",
     "a: {b: 1}", "- x", "a: x: y", "a: [a, [b]]", "a: 1\na: 2",
     "  a: 1", "a:\n  b: 1\n   c: 2", "a: 'unterminated"])
 def test_yaml_reader_refuses_what_it_does_not_read(text):
