@@ -88,6 +88,19 @@ Phases, each printing one JSON line:
      of examples_only_text.jsonl for 64 steps (finite wavs, 28 B1 launches
      a prefill, 28 B2 launches a step); a tiny fp32 model's 3 full and 3
      LoRA steps on the card against the CPU;
+ 11b. codec_train — codec training at the full XY-Tokenizer width
+     (CodecConfig(), 524 M fp32 parameters, TF32 off): a reference-format
+     .ckpt of random weights loaded through convert_codec +
+     codec_state_from_jax; one batch of 2 x 10 s (examples/*.wav tiled,
+     row 1 padded past 7.5 s); a k-means bootstrap and 6 steps (AdamW 1e-4,
+     cosine over 100 steps), one more profiled (launches, idle share) and
+     one FLOP-counted: losses, grad norms, s/step,
+     codec_train_audio_sec_per_s, the fp32 peak share, peak memory; finite
+     losses, grad_norm > 0, codebook_usage > 0, the codebook and the
+     semantic encoder moved, no serving kernel launched; the trained codec
+     written as the JAX npz tree, loaded by load_from_checkpoint (codes =
+     the in-memory module's) and the codec round-trip CLI; the tiny codec's
+     bootstrap and 2 steps, every draw pinned, on the card against the CPU;
  10c. load    — real checkpoints through every loader, from files the phase
      writes at the full width: the main path's LM as an HF-format
      directory (bf16 safetensors over two shards by
@@ -2371,8 +2384,9 @@ def profile_train_step(run, state, step_fn, batch):
     """torch.profiler over one more optimizer step (``run`` names it):
     device busy ms (the sum of kernel times, one stream), the idle share of
     the step's wall time, kernel launches and the kernels that take the
-    most device time. Profiler overhead inflates the host time, so the
-    idle share is an upper bound."""
+    most device time, emitted as a ``profile`` line and returned. Profiler
+    overhead inflates the host time, so the idle share is an upper
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2386,7 +2400,10 @@ def profile_train_step(run, state, step_fn, batch):
     for e in prof.key_averages():
         t = (getattr(e, "self_device_time_total", 0)
              or getattr(e, "self_cuda_time_total", 0))
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (``Optimizer.step#AdamW.step``) spans kernels
+        # already counted
+        if (t > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             kern.append((e.key, t, e.count))
     host_ops = sum(1 for e in prof.events()
                    if e.name.startswith("aten::") and (
@@ -2394,13 +2411,15 @@ def profile_train_step(run, state, step_fn, batch):
                        or not e.cpu_parent.name.startswith("aten::")))
     busy_us = sum(t for _, t, _ in kern)
     kern.sort(key=lambda x: -x[1])
-    emit({"phase": "profile", "run": run, "step_s": wall,
-          "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1.0 - busy_us / (wall * 1e6),
-          "kernel_launches": sum(c for _, _, c in kern),
-          "top_level_aten_ops": host_ops,
-          "top": [{"kernel": k[:80], "ms": t / 1e3, "calls": c}
-                  for k, t, c in kern[:12]]})
+    line = {"phase": "profile", "run": run, "step_s": wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / (wall * 1e6),
+            "kernel_launches": sum(c for _, _, c in kern),
+            "top_level_aten_ops": host_ops,
+            "top": [{"kernel": k[:80], "ms": t / 1e3, "calls": c}
+                    for k, t, c in kern[:12]]}
+    emit(line)
+    return line
 
 
 def _train_numbers(losses, norms, times, sup_tokens, tokens, n_params,
@@ -2672,6 +2691,233 @@ def train_phase(card: str, profile: bool = False):
     emit(line)
     if problems:
         raise SystemExit(f"train phase failed: {problems}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: codec training at the full XY-Tokenizer width
+# ---------------------------------------------------------------------------
+
+CODEC_TRAIN_STEPS = 6
+CODEC_TRAIN_LENGTHS = (160000, 120000)      # 10 s and 7.5 s at 16 kHz
+CODEC_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_codec_train")
+PEAK_FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+
+
+def codec_train_batch():
+    """examples/*.wav read by the port's audio IO, mono at 16 kHz, one
+    after another and tiled into two rows of 10 s; row 1 keeps 7.5 s and
+    is zero-padded past them."""
+    import glob
+    import numpy as np
+    from moss_ttsd_torch.utils.audio_io import read_wav, to_mono_16k
+    audio = np.concatenate([to_mono_16k(*read_wav(p)) for p in
+                            sorted(glob.glob(os.path.join(EXAMPLES,
+                                                          "*.wav")))])
+    n = CODEC_TRAIN_LENGTHS[0]
+    wav = np.resize(audio.astype(np.float32), 2 * n).reshape(2, n).copy()
+    wav[1, CODEC_TRAIN_LENGTHS[1]:] = 0.0
+    return wav, np.array(CODEC_TRAIN_LENGTHS, np.int64)
+
+
+def codec_train_reference():
+    """The tiny codec's k-means bootstrap and 2 steps with every draw
+    pinned (``tests/torch_codec_train_ref.pinned_run``), fp32 with TF32
+    off, on the card and on the CPU: losses and grad norms within rel
+    1e-5, the EMA state within 1e-5, the parameters by ``_params_gap``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_codec_train_ref as tref
+    cpu, gpu = tref.pinned_run("cpu"), tref.pinned_run("cuda")
+    metric_gap = max(float(np.max(np.abs(gpu[k] - cpu[k])
+                                  / np.maximum(np.abs(cpu[k]), 1e-30)))
+                     for k in ("loss", "wave_l1", "mel_l1", "grad_norm"))
+    ema_gap = max(float(np.abs(gpu[k] - cpu[k]).max()) for k in (
+        "cluster_size", "embed_avg", "param/quantizer.codebook"))
+    params = _params_gap(
+        {k: torch.from_numpy(v) for k, v in gpu.items()
+         if k.startswith("param/") and k != "param/quantizer.codebook"},
+        {k: torch.from_numpy(v) for k, v in cpu.items()}, tref.LR)
+    return {"losses_cpu": cpu["loss"].tolist(),
+            "losses_cuda": gpu["loss"].tolist(),
+            "grad_norms_cpu": cpu["grad_norm"].tolist(),
+            "grad_norms_cuda": gpu["grad_norm"].tolist(),
+            "metric_max_rel_gap": metric_gap, "ema_max_abs_gap": ema_gap,
+            "params": params,
+            "tol": "metrics rel 1e-5; EMA state atol 1e-5; params rel 1e-4 "
+                   "(atol 1e-6) but max(4, n/1000) elements within lr",
+            "ok": metric_gap <= 1e-5 and ema_gap <= 1e-5 and params["ok"]}
+
+
+def codec_train_phase(card: str):
+    """Codec training at the full XY-Tokenizer width (``CodecConfig()``,
+    524 M fp32 parameters, TF32 off): the reference-format ``.ckpt`` of
+    random weights (``tests/torch_ref_codec.write_reference_codec``) loaded
+    through ``convert_codec`` + ``codec_state_from_jax`` as a finetuning
+    user loads the published one; one batch of 2 x 10 s (examples/*.wav,
+    row 1 padded past 7.5 s); AdamW 1e-4 with the cosine schedule over 100
+    steps; one k-means bootstrap, then ``CODEC_TRAIN_STEPS`` steps, one
+    more under torch.profiler (launches, idle share) and one under
+    ``FlopCounterMode`` (matmul and convolution FLOPs from the op shapes).
+    Checks: finite losses and grad norms, grad_norm > 0, codebook_usage >
+    0, the codebook and the semantic encoder's first weight moved,
+    cluster_size sums above 0, no serving kernel launched. The trained
+    codec goes out as the JAX tree (``codec_state_to_jax`` +
+    ``save_pytree``), comes back through ``XYTokenizer.load_from_checkpoint``
+    (its codes for one example equal the in-memory module's) and the codec
+    round-trip CLI; then the tiny card-vs-CPU reference."""
+    import math
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from moss_ttsd_torch.cli import codec_roundtrip as cli_codec
+    from moss_ttsd_torch.core.checkpoint import save_pytree
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.train.codec_step import (init_codec_train_state,
+                                                  kmeans_bootstrap,
+                                                  make_codec_train_step)
+    from moss_ttsd_torch.train.step import make_optimizer
+    from moss_ttsd_torch.utils.convert_codec import convert_codec_checkpoint
+    from moss_ttsd_torch.utils.convert_jax import (codec_state_from_jax,
+                                                   codec_state_to_jax)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_ref_codec import write_reference_codec
+
+    problems, line = [], {"phase": "codec_train", "card": card}
+    shutil.rmtree(CODEC_TRAIN_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        yaml_path, ckpt = write_reference_codec(CODEC_TRAIN_DIR,
+                                                CodecConfig(), seed=0)
+        line["ckpt_write_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg = CodecConfig.from_yaml(yaml_path)
+        sd = codec_state_from_jax(convert_codec_checkpoint(cfg, ckpt), cfg)
+        opt = make_optimizer(learning_rate=1e-4, total_steps=100)
+        state = init_codec_train_state(cfg, opt, params=sd, device="cuda")
+        del sd
+        torch.cuda.synchronize()
+        line["ckpt_load_s"] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in state.params.values())
+        np_wav, np_lens = codec_train_batch()
+        batch = {"wav": torch.from_numpy(np_wav).cuda(),
+                 "lengths": torch.from_numpy(np_lens).cuda()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        audio_s = float(np_lens.sum()) / cfg.input_sample_rate
+        line.update(params=n_params, batch=2, samples=list(map(int, np_lens)),
+                    audio_s_per_step=audio_s, dtype="float32", tf32=False,
+                    lr="1e-4 cosine over 100 steps, 10 warmup")
+
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        kmeans_bootstrap(cfg, state, batch["wav"], batch["lengths"], gen)
+        torch.cuda.synchronize()
+        line["kmeans_bootstrap_s"] = time.perf_counter() - t0
+        cb0 = state.module.quantizer.codebook.detach().clone()
+        enc = state.module.semantic_encoder.conv1.weight
+        enc0 = enc.detach().clone()
+
+        step = make_codec_train_step(cfg, opt)
+        losses, norms, times, metrics = [], [], [], []
+        for _ in range(CODEC_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            m = {k: float(v) for k, v in m.items()}
+            metrics.append(m)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        s_step = sorted(times[1:])[len(times[1:]) // 2]
+        line.update(losses=losses, grad_norms=norms, step_s=times,
+                    metrics=metrics, first_step_s=times[0],
+                    s_per_step=s_step,
+                    codec_train_audio_sec_per_s=audio_s / s_step,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        prof = profile_train_step("codec_train", state,
+                                  lambda st, b: step(st, b, gen), batch)
+        line.update(launches_per_step=prof["kernel_launches"],
+                    device_idle_share=prof["device_idle_share"],
+                    device_busy_ms=prof["device_busy_ms"],
+                    profiled_step_s=prof["step_s"])
+        with FlopCounterMode(display=False) as fc:
+            step(state, batch, gen)
+        flops = fc.get_total_flops()
+        line.update(flops_per_step=flops,
+                    fp32_peak_share=flops / s_step / PEAK_FP32_FLOPS,
+                    fp32_peak_flops=PEAK_FP32_FLOPS)
+        line["library_launches"] = fa.launch_counts()
+        if any(line["library_launches"].values()):
+            problems.append("the codec train step ran a serving kernel")
+        if not all(math.isfinite(x) for x in losses + norms):
+            problems.append(f"non-finite loss or grad norm: {losses} {norms}")
+        if not min(norms) > 0:
+            problems.append(f"grad_norm not above 0: {norms}")
+        if not all(m["codebook_usage"] > 0 for m in metrics):
+            problems.append("codebook_usage 0")
+        moved = {"codebook": float((state.module.quantizer.codebook.detach()
+                                    - cb0).abs().max()),
+                 "semantic_encoder.conv1.weight":
+                     float((enc.detach() - enc0).abs().max())}
+        line["moved_max_abs"] = moved
+        if not all(v > 0 for v in moved.values()):
+            problems.append(f"did not move: {moved}")
+        line["cluster_size_sum"] = float(state.cluster_size.sum())
+        if not line["cluster_size_sum"] > 0:
+            problems.append("cluster_size sums to 0")
+
+        # served back: the JAX tree, XYTokenizer.load_from_checkpoint, CLI
+        sd = {k: v.detach() for k, v in state.module.state_dict().items()}
+        del state, step, cb0, enc0
+        _release()
+        npz = os.path.join(CODEC_TRAIN_DIR, "codec_trained.npz")
+        t0 = time.perf_counter()
+        save_pytree(npz, codec_state_to_jax(sd, cfg))
+        line["npz_write_s"] = time.perf_counter() - t0
+        memory = XYTokenizer(cfg, sd)
+        del sd
+        one = [np_wav[0, :CODEC_TRAIN_LENGTHS[0]]]
+        want = memory.encode(one)["codes_list"][0]
+        del memory
+        _release()
+        t0 = time.perf_counter()
+        loaded = XYTokenizer.load_from_checkpoint(yaml_path, npz)
+        torch.cuda.synchronize()
+        line["npz_load_s"] = time.perf_counter() - t0
+        got = loaded.encode(one)["codes_list"][0]
+        del loaded
+        _release()
+        same = got.shape == want.shape and bool(np.array_equal(got, want))
+        line["served_back"] = {"codes_shape": list(got.shape),
+                               "loaded_codes_eq_in_memory": same}
+        if not same:
+            problems.append("the loaded codec's codes differ from the "
+                            "trained module's")
+        out = os.path.join(CODEC_TRAIN_DIR, "recon")
+        t0 = time.perf_counter()
+        rc = cli_codec.main(["--input_dir", EXAMPLES, "--config", yaml_path,
+                             "--checkpoint", npz, "--output_dir", out])
+        wavs = sorted(f for f in os.listdir(out) if f.endswith(".wav"))
+        line["served_back"]["cli"] = {"rc": rc, "wavs": wavs,
+                                      "seconds": time.perf_counter() - t0}
+        if rc != 0 or wavs != ["voice_both_recon.wav", "voice_s1_recon.wav",
+                               "voice_s2_recon.wav"]:
+            problems.append(f"codec round-trip CLI: {rc} {wavs}")
+        _release()
+    finally:
+        shutil.rmtree(CODEC_TRAIN_DIR, ignore_errors=True)
+    reference = codec_train_reference()
+    if not reference["ok"]:
+        problems.append("card vs CPU codec training reference disagrees")
+    line.update(reference=reference, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"codec_train phase failed: {problems}")
     return line
 
 
@@ -3526,7 +3772,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
                          "stream,overlap,server,pool,clone,int8,load,train,"
-                         "cli,profile,sweep "
+                         "codec_train,cli,profile,sweep "
                          "(default all = every phase but profile and sweep)")
     ap.add_argument("--rss_probe", metavar="DIR",
                     help="only load the HF-format LM directory DIR to the "
@@ -3542,7 +3788,7 @@ def main(argv=None) -> int:
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
                "overlap", "server", "pool", "clone", "int8", "load", "train",
-               "cli"}
+               "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -3618,6 +3864,9 @@ def main(argv=None) -> int:
                              "the pool's shapes")
     if "train" in phases:
         train_phase(smi_line, "profile" in phases)
+        _release()
+    if "codec_train" in phases:
+        codec_train_phase(smi_line)
         _release()
     if "cli" in phases:
         cli_check()

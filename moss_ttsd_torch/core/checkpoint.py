@@ -7,7 +7,8 @@
   * The train state: ``torch.save`` of {step, trainable state dict,
     optimizer state dict} under ``<ckpt_dir>/step_<n>/state.pt``, with
     ``keep`` rotation (the JAX package uses Orbax here; neither package
-    reads the other's train state).
+    reads the other's train state). A codec train state adds its EMA
+    ``cluster_size`` and ``embed_avg`` to the same file.
 """
 
 from __future__ import annotations
@@ -73,10 +74,15 @@ def _steps(root: str):
                   if d.startswith("step_") and d.split("_")[1].isdigit())
 
 
+_EMA = ("cluster_size", "embed_avg")
+
+
 def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0) -> None:
     """Save ``state`` (``train.step.TrainState``: its step, the trainable
-    parameters and the optimizer) under <ckpt_dir>/step_<step>. ``keep`` > 0
-    keeps only the ``keep`` highest steps (HF ``save_total_limit``)."""
+    parameters and the optimizer; ``train.codec_step.CodecTrainState``: the
+    same and its EMA ``cluster_size`` and ``embed_avg``) under
+    <ckpt_dir>/step_<step>. ``keep`` > 0 keeps only the ``keep`` highest
+    steps (HF ``save_total_limit``)."""
     root = os.path.abspath(ckpt_dir)
     path = os.path.join(root, f"step_{step}")
     os.makedirs(path, exist_ok=True)
@@ -84,6 +90,9 @@ def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0) -> None:
                "params": {k: v.detach().cpu()
                           for k, v in state.params.items()},
                "optimizer": state.optimizer.state_dict()}
+    for k in _EMA:
+        if hasattr(state, k):
+            payload[k] = getattr(state, k).detach().cpu()
     tmp = os.path.join(path, "state.pt.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, "state.pt"))
@@ -95,7 +104,8 @@ def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0) -> None:
 
 def restore_train_state(ckpt_dir: str, step: int, state):
     """Load <ckpt_dir>/step_<step> into ``state`` (built as for a fresh
-    run: the same model and optimizer) in place; returns it."""
+    run: the same model and optimizer; a codec state's EMA tensors too) in
+    place; returns it."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}",
                         "state.pt")
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -105,6 +115,9 @@ def restore_train_state(ckpt_dir: str, step: int, state):
             raise ValueError(f"{path}: its parameters are not this model's")
         for k, p in params.items():
             p.copy_(payload["params"][k])
+        for k in _EMA:
+            if hasattr(state, k):
+                getattr(state, k).copy_(payload[k])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = payload["step"]
     return state

@@ -50,15 +50,19 @@ class XYTokenizerModule(nn.Module):
         self.acoustic_decoder = AudioDecoder(c.acoustic_decoder)
         self.vocos = Vocos(c.vocos)
 
-    def _encode_latents(self, wav: torch.Tensor, lengths: torch.Tensor):
+    def _encode_latents(self, wav: torch.Tensor, lengths: torch.Tensor,
+                        cast_compute_dtype: bool = True):
         """wav (B, samples) 16 kHz + valid lengths -> (down (B, T', D * r),
-        down_len): the fp32 log-mel, cast to the compute dtype at the stack
-        boundary, through both encoders, the adapters and the downsample."""
+        down_len): the fp32 log-mel through both encoders, the adapters and
+        the downsample. Inference casts the mel to the compute dtype at the
+        stack boundary; training runs fp32 weights and skips the cast."""
         fe = self.cfg.feature_extractor
         mel = log_mel_spectrogram(wav, n_fft=fe.n_fft, hop=fe.hop_length,
                                   num_mels=fe.feature_size,
                                   sampling_rate=fe.sampling_rate)
-        mel = mel.transpose(1, 2).to(torch_dtype(self.cfg.dtype))  # (B, T, M)
+        mel = mel.transpose(1, 2)                                  # (B, T, M)
+        if cast_compute_dtype:
+            mel = mel.to(torch_dtype(self.cfg.dtype))
         mel_lengths = -(-lengths // fe.hop_length)
         sem, sem_len = self.semantic_encoder(mel, mel_lengths)     # 100 -> 50 Hz
         sem, sem_len = self.semantic_encoder_adapter(sem, sem_len)
@@ -83,6 +87,42 @@ class XYTokenizerModule(nn.Module):
         h, h_len = self.acoustic_decoder(h, h_len)         # 50 -> 100 Hz
         wav, wav_len = self.vocos(h, h_len)                # 100 Hz -> 24 kHz
         return {"wav": wav, "wav_lengths": wav_len}
+
+    def forward(self, wav: torch.Tensor, lengths: torch.Tensor):
+        """The inference round trip: ``tokenize`` then ``detokenize``."""
+        tok = self.tokenize(wav, lengths)
+        return {**tok, **self.detokenize(tok["codes"], tok["codes_lengths"])}
+
+    def train_forward(self, wav: torch.Tensor, lengths: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      group=None, **draws):
+        """The training round trip in fp32: the encoder stack, the RVQ in
+        train mode (``ResidualVQ.train_call``; ``draws`` are its overrides)
+        and the decoder stack on the straight-through zq, so gradients reach
+        the encoders through the commitment and reconstruction losses.
+        Returns dict(wav, wav_lengths, codes, commit_losses (nq,),
+        vq_stats)."""
+        down, down_len = self._encode_latents(wav, lengths,
+                                              cast_compute_dtype=False)
+        zq, codes, commits, q_len, stats = self.quantizer.train_call(
+            down, down_len, generator, group=group, **draws)
+        h, h_len = self.post_rvq_adapter(zq, q_len)
+        h, h_len = self.upsample(h, h_len)
+        h, h_len = self.acoustic_decoder(h, h_len)
+        wav24, wav_len = self.vocos(h, h_len)
+        return {"wav": wav24, "wav_lengths": wav_len, "codes": codes,
+                "commit_losses": commits, "vq_stats": stats}
+
+    @torch.no_grad()
+    def kmeans_init_codebooks(self, wav: torch.Tensor, lengths: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              init_idx_override: Optional[torch.Tensor] = None):
+        """The encoder stack, then k-means of every RVQ stage from this
+        batch. Returns (new_codebook (nq, K, D), cluster_sizes (nq, K))."""
+        down, down_len = self._encode_latents(wav, lengths,
+                                              cast_compute_dtype=False)
+        return self.quantizer.kmeans_init_call(
+            down, down_len, generator, init_idx_override=init_idx_override)
 
     def detokenize16(self, codes: torch.Tensor, codes_lengths: torch.Tensor):
         """int16-PCM variant: quantized on the device (half the readback

@@ -8,8 +8,9 @@ Synthesis side (the vocoder): the "same"-padded ISTFT, whose overlap-add
 keeps the JAX formulation — with hop | win the output is the sum of
 R = win / hop statically shifted frame streams (a pad + add, no scatter);
 the inverse FFT is ``torch.fft.irfft``; the MDCT and IMDCT of the Vocos
-IMDCT heads are real matmuls. Host side (prompt audio): the
-polyphase windowed-sinc resampler in numpy.
+IMDCT heads are real matmuls. Resampling: the polyphase windowed-sinc
+resampler in numpy on the host (prompt audio) and in torch on the input's
+device (``resample_torch``, the codec training's 24 kHz target).
 """
 
 from __future__ import annotations
@@ -284,7 +285,8 @@ def imdct(X: torch.Tensor, frame_len: int,
 
 
 # ---------------------------------------------------------------------------
-# Resampling (host side, numpy): the prompt-audio path
+# Resampling: numpy on the host (prompt audio), torch on the device
+# (the codec training's target)
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=32)
@@ -332,3 +334,22 @@ def resample(x: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:
     target_len = int(np.ceil(new_freq * length / orig_freq))
     out = out[:, :target_len]
     return out.reshape(lead + (target_len,))
+
+
+def resample_torch(x: torch.Tensor, orig_freq: int,
+                   new_freq: int) -> torch.Tensor:
+    """``resample`` in torch on ``x``'s device, fp32: (..., T) ->
+    (..., ceil(T * new / orig)); the codec train step's 24 kHz target."""
+    if orig_freq == new_freq:
+        return x
+    kernel, width, of_r, _ = _resample_kernel(int(orig_freq), int(new_freq))
+    length = x.shape[-1]
+    lead = x.shape[:-1]
+    xf = F.pad(x.reshape(-1, length).to(torch.float32),
+               (width, width + of_r))
+    num_out_blocks = -(-length // of_r)
+    frames = xf.unfold(-1, kernel.shape[1], of_r)[:, :num_out_blocks]
+    out = frames @ torch.as_tensor(kernel, device=x.device).T
+    out = out.reshape(xf.shape[0], -1)
+    target_len = -(-new_freq * length // orig_freq)
+    return out[:, :target_len].reshape(lead + (target_len,))

@@ -22,6 +22,10 @@
     -> torch (out, in, k); flax ``ConvTranspose`` kernels (k, in, out) are a
     correlation without the kernel flip torch's transposed conv applies, so
     they are flipped along k -> torch (in, out, k).
+  * ``codec_state_to_jax``: the inverse, ``XYTokenizerModule``'s state dict
+    -> {"params": the JAX tree} of numpy arrays (fp32): a trained codec,
+    written by ``core/checkpoint.save_pytree``, is the native npz tree that
+    both packages' ``load_from_checkpoint`` read.
 
 Arrays are accepted as numpy (or anything ``np.asarray`` takes); the
 results are fp32 (int8 for quantized weights) CPU tensors, ready for
@@ -302,3 +306,132 @@ def _vocos(sd: StateDict, tree: Mapping, vc) -> None:
             _dense(sd, pre + ".pwconv2", blk["pwconv2"], i)
             sd[pre + ".gamma"] = _t(np.asarray(blk["gamma"])[i])
     _dense(sd, "vocos.head.out", tree["head"]["out"])
+
+
+# -- the codec, back to the JAX tree ------------------------------------------
+
+def _np(sd: Mapping, name: str) -> np.ndarray:
+    return np.asarray(to_numpy(sd[name]), dtype=np.float32)
+
+
+def _dense_out(sd: Mapping, pre: str) -> dict:
+    out = {"kernel": _np(sd, pre + ".weight").T}
+    if pre + ".bias" in sd:
+        out["bias"] = _np(sd, pre + ".bias")
+    return out
+
+
+def _ln_out(sd: Mapping, pre: str) -> dict:
+    return {"scale": _np(sd, pre + ".weight"), "bias": _np(sd, pre + ".bias")}
+
+
+def _conv_out(sd: Mapping, pre: str) -> dict:
+    """torch Conv1d (out, in/groups, k) -> flax Conv (k, in/groups, out)."""
+    out = {"kernel": np.transpose(_np(sd, pre + ".weight"), (2, 1, 0))}
+    if pre + ".bias" in sd:
+        out["bias"] = _np(sd, pre + ".bias")
+    return out
+
+
+def _deconv_out(sd: Mapping, pre: str) -> dict:
+    """torch ConvTranspose1d (in, out, k) -> flax ConvTranspose (k, in,
+    out), unflipped."""
+    k = np.transpose(_np(sd, pre + ".weight"), (2, 0, 1))[::-1]
+    out = {"kernel": np.ascontiguousarray(k)}
+    if pre + ".bias" in sd:
+        out["bias"] = _np(sd, pre + ".bias")
+    return out
+
+
+def _stacked(per_layer) -> dict:
+    """A list of per-layer trees -> one tree of (L, ...) leaves."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: _stacked([t[k] for t in per_layer]) for k in first}
+    return np.stack(per_layer)
+
+
+def _stack_out(sd: Mapping, pre: str, num_layers: int) -> dict:
+    layers = []
+    for i in range(num_layers):
+        p = f"{pre}.layers.{i}"
+        layers.append({
+            "attn_ln": _ln_out(sd, p + ".attn_ln"),
+            "ffn_ln": _ln_out(sd, p + ".ffn_ln"),
+            "attn": {n: _np(sd, f"{p}.attn.{n}") for n in (
+                "q_w", "q_b", "k_w", "v_w", "v_b", "o_w", "o_b")},
+            "fc1": _dense_out(sd, p + ".fc1"),
+            "fc2": _dense_out(sd, p + ".fc2")})
+    return {"layers": {"layer": _stacked(layers)},
+            "final_ln": _ln_out(sd, pre + ".final_ln")}
+
+
+def _adapter_out(sd: Mapping, pre: str, num_layers: int) -> dict:
+    tree = _stack_out(sd, pre, num_layers)
+    for n in ("in_proj", "out_proj"):
+        if f"{pre}.{n}.weight" in sd:
+            tree[n] = _dense_out(sd, f"{pre}.{n}")
+    return tree
+
+
+def _norm_out(sd: Mapping, pre: str) -> dict:
+    if pre + ".shift" in sd:
+        return {n: _np(sd, f"{pre}.{n}") for n in ("scale", "shift")}
+    return _ln_out(sd, pre)
+
+
+def _vocos_out(sd: Mapping, vc) -> dict:
+    bb = {"embed": _conv_out(sd, "vocos.backbone.embed")}
+    if vc.backbone == "resnet":
+        for i in range(vc.num_blocks):
+            pre, blk = f"vocos.backbone.resnet.{i}", {}
+            for j in range(3):
+                blk[f"conv1_{j}"] = _conv_out(sd, f"{pre}.convs1.{j}")
+                blk[f"conv2_{j}"] = _conv_out(sd, f"{pre}.convs2.{j}")
+                blk[f"gamma_{j}"] = _np(sd, f"{pre}.gamma.{j}")
+            bb[f"resblock_{i}"] = blk
+    else:
+        bb["norm"] = _norm_out(sd, "vocos.backbone.norm")
+        bb["final_ln"] = _ln_out(sd, "vocos.backbone.final_ln")
+        blocks = []
+        for i in range(vc.num_layers):
+            pre = f"vocos.backbone.blocks.{i}"
+            blocks.append({"dwconv": _conv_out(sd, pre + ".dwconv"),
+                           "norm": _norm_out(sd, pre + ".norm"),
+                           "pwconv1": _dense_out(sd, pre + ".pwconv1"),
+                           "pwconv2": _dense_out(sd, pre + ".pwconv2"),
+                           "gamma": _np(sd, pre + ".gamma")})
+        bb["blocks"] = {"block": _stacked(blocks)}
+    return {"backbone": bb, "head": {"out": _dense_out(sd, "vocos.head.out")}}
+
+
+def codec_state_to_jax(sd: Mapping[str, torch.Tensor],
+                       cfg: CodecConfig) -> dict:
+    """``XYTokenizerModule``'s state dict -> {"params": JAX tree} of fp32
+    numpy arrays, the inverse of ``codec_state_from_jax``."""
+    p: dict = {}
+    for name in ("semantic_encoder", "acoustic_encoder"):
+        e = _stack_out(sd, name, getattr(cfg, name).encoder_layers)
+        e["conv1"] = _conv_out(sd, name + ".conv1")
+        e["conv2"] = _conv_out(sd, name + ".conv2")
+        p[name] = e
+    for name in ("semantic_encoder_adapter", "pre_rvq_adapter"):
+        p[name] = _adapter_out(sd, name, getattr(cfg, name).encoder_layers)
+    p["downsample"] = {"gate_proj": _conv_out(sd, "downsample.gate_proj"),
+                       "up_proj": _conv_out(sd, "downsample.up_proj"),
+                       "down_proj": _dense_out(sd, "downsample.down_proj"),
+                       "ln": _ln_out(sd, "downsample.ln")}
+    q = {"codebook": _np(sd, "quantizer.codebook")}
+    for n in ("input_proj", "output_proj"):
+        if f"quantizer.{n}.weight" in sd:
+            q[n] = _dense_out(sd, f"quantizer.{n}")
+    p["quantizer"] = q
+    p["post_rvq_adapter"] = _adapter_out(sd, "post_rvq_adapter",
+                                         cfg.post_rvq_adapter.encoder_layers)
+    p["upsample"] = {"up_conv": _deconv_out(sd, "upsample.up_conv")}
+    d = _stack_out(sd, "acoustic_decoder", cfg.acoustic_decoder.decoder_layers)
+    d["deconv1"] = _deconv_out(sd, "acoustic_decoder.deconv1")
+    d["deconv2"] = _deconv_out(sd, "acoustic_decoder.deconv2")
+    p["acoustic_decoder"] = d
+    p["vocos"] = _vocos_out(sd, cfg.vocos)
+    return {"params": p}

@@ -2,7 +2,8 @@
 ``quantize_kv`` on the card against the CPU, and the tiny LM engine (bf16
 path and int8 serving) on the card (kernels) against the same engine on the
 CPU (plain versions), the tiny codec encode on the card against the CPU,
-and full and LoRA training steps on the card against the CPU. Imports no
+full and LoRA training steps and the tiny codec's train steps on the card
+against the CPU. Imports no
 JAX, so it runs on a machine with the card
 and no JAX:
 
@@ -10,6 +11,8 @@ and no JAX:
 
 Every test carries the ``cuda`` marker and skips without a CUDA device (the
 kernels have no CPU mode)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -721,6 +724,29 @@ def test_tiny_train_steps_on_card_match_cpu(cuda, lora):
         outside = int((err > 1e-4 * want.abs() + 1e-6).sum())
         assert outside <= max(4, want.numel() // 1000), (k, outside)
         assert float(err.max()) <= lr, (k, float(err.max()))
+
+
+def test_tiny_codec_train_steps_on_card_match_cpu(cuda):
+    """The codec's k-means bootstrap and two train steps (dropout, skip,
+    dead-code replacement; AdamW and the EMA codebooks) in fp32 with TF32
+    off, every draw pinned, on the card and on the CPU from the same
+    weights: losses and grad norms within rel 1e-5, the EMA state within
+    1e-5, every parameter as in the LM's card-vs-CPU test."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_codec_train_ref as tref
+    cpu, gpu = tref.pinned_run("cpu"), tref.pinned_run("cuda")
+    for k in ("loss", "wave_l1", "mel_l1", "commit", "grad_norm"):
+        np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    for k in ("cluster_size", "embed_avg", "param/quantizer.codebook"):
+        np.testing.assert_allclose(gpu[k], cpu[k], atol=1e-5, err_msg=k)
+    for k, want in cpu.items():
+        if k.startswith("param/"):
+            err = np.abs(gpu[k] - want)
+            outside = int((err > 1e-4 * np.abs(want) + 1e-6).sum())
+            assert outside <= max(4, want.size // 1000), (k, outside)
+            assert float(err.max()) <= tref.LR, (k, float(err.max()))
 
 
 def _greedy_sampling(channels: int, n: int = 12):

@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX or the JAX package, and its entry
 points refuse to run on the CPU unless asked to."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -41,7 +42,8 @@ def test_importing_every_module_leaves_jax_out():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ref_codec.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ref_codec.py",
+       ROOT / "tests" / "torch_codec_train_ref.py"]))
 def test_no_jax_import_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -52,6 +54,23 @@ def test_no_jax_import_in_source(path):
             names = [node.module]
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, f"{path} imports {n}"
+
+
+@pytest.mark.parametrize("module", ["moss_ttsd_torch.train.codec_step",
+                                    "moss_ttsd_torch.parallel.distributed"])
+def test_codec_training_imports_without_jax_cuda_or_triton(module):
+    """Codec training and the process-group init import with JAX and
+    Triton unimportable and no card visible."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'triton'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n"
+            "import torch\n"
+            "assert not torch.cuda.is_available()\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 @pytest.fixture
@@ -95,6 +114,25 @@ def test_codec_without_cuda_raises(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         XYTokenizer.init_random(CodecConfig().tiny())
     XYTokenizer.init_random(CodecConfig().tiny(), device="cpu")
+
+
+def test_codec_training_without_cuda_raises(no_cuda, monkeypatch):
+    """The codec train state is made on the card unless asked for the CPU;
+    the process-group init has nothing to do without an address and would
+    join an nccl group on the card."""
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.parallel.distributed import initialize_multihost
+    from moss_ttsd_torch.train.codec_step import init_codec_train_state
+    from moss_ttsd_torch.train.step import make_optimizer
+    opt = make_optimizer(total_steps=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_codec_train_state(CodecConfig().tiny(), opt)
+    state = init_codec_train_state(CodecConfig().tiny(), opt, device="cpu")
+    assert state.cluster_size.device.type == "cpu"
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert initialize_multihost() is False
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_multihost("localhost:1", 2, 0)
 
 
 def test_lm_without_cuda_raises(no_cuda):
