@@ -51,6 +51,19 @@ Phases, each printing one JSON line:
      overlap_vocode off and on: the overlap branch ran (two segments, the
      first ending at step 382), identical tokens, byte-identical wavs, the
      same vocode calls;
+ 9b. podcast  — the podcast generator over the same pipeline: a short
+     English .txt through podcast.process_input_to_audio (the detected
+     language, the offline fallback script, both default voices cloned in
+     one encode, 256 steps at batch 1): 28 B1 + 28 x steps B2 launches, a
+     finite 24 kHz wav of frames x 1920 samples, e2e s, tokenize_s,
+     prefill ms, steps/s, RTF, peak GiB beside the serving_memory
+     estimate (each of main path, int8 long form and pool lines carries
+     its own estimate_gib too); the gradio callbacks synthesize_single,
+     synthesize_role and synthesize_single_stream at 256 steps (int16
+     audio at 24 kHz, the English status strings, more than one finite
+     streamed chunk whose samples are frames x 1920, the stream's time to
+     first audio); create_gradio_interface raises an ImportError naming
+     gradio where gradio is absent, and builds the Blocks where it is not;
  10. server   — the window-scheduler SpeechServer over the same pipeline on
      127.0.0.1: /health, three concurrent wav requests in one batch, a
      voice-cloning request (a base64 reference wav), a streamed request
@@ -118,11 +131,12 @@ Phases, each printing one JSON line:
      real-checkpoint flags write their wavs; write and load seconds, the
      host peak RSS the streamed loader adds (a fresh process; fails above
      the largest tensor + 0.5 GiB), the card's peak, RTF and steps/s;
- 12. cli      — the --tiny CLIs on the card write wavs, five processes at
+ 12. cli      — the --tiny CLIs on the card write wavs, six processes at
      once: inference plain, with --profile_dir (a torch.profiler trace),
      with --quant int8
      --restricted_text_head, and cloning the voices of
      examples/examples.jsonl; the codec round trip over examples/; the
+     podcast generator over a .txt (its JSON line has JAX's keys); the
      finetune workflow over the examples' voices (the port's codec encodes
      them), full finetuning checkpointed and resumed, LoRA finetuning;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
@@ -976,6 +990,8 @@ def main_path():
             "vocode_s": tm.vocode_s, "e2e_s": e2e_s,
             "audio_s": audio_s, "rtf": audio_s / e2e_s,
             "wav_samples": wav_lens, "peak_mem_gib": peak / 2 ** 30,
+            "estimate_gib": memory_estimate_gib(cfg, st["batch"],
+                                                st["steps"], st["base"]),
             "host_syncs_per_step": syncs, "launches": counts,
             "prefill_in_path_ms": prefill_ms,
             "ok": not problems, "problems": problems}
@@ -1241,6 +1257,8 @@ def int8_phase(profile: bool = False):
             "decode_steps_per_s": res.steps / st["decode_s"],
             "generate_s": wall, "decode_rtf": res.steps / st["decode_s"] / 12.5,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "estimate_gib": memory_estimate_gib(cfg, 1, steps, res.base,
+                                                "int8", cache_bytes=1),
             "host_syncs_per_step": count_syncs_per_step(
                 *engine_state(eng, ids, mask, steps)),
             "launches": counts, "ok": not problems, "problems": problems}
@@ -1675,6 +1693,227 @@ def server_phase(pipe, max_tokens: int = 128):
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: the podcast generator and the gradio app's synthesis paths
+# ---------------------------------------------------------------------------
+
+PODCAST_SOURCE = (
+    "Speech codecs turn a second of audio into a dozen frames of discrete "
+    "tokens. A language model writes those tokens the way it writes text, "
+    "and the codec turns them back into sound.\n")
+
+
+def memory_estimate_gib(cfg, batch: int, steps: int, prompt_len: int,
+                        quant=None, cache_bytes: int = 2) -> float:
+    """``utils/memory.serving_memory`` at a run's shape, in GiB. It counts
+    neither the codec nor activations: information beside the measured
+    peak, not a check."""
+    from moss_ttsd_torch.utils.memory import FRAME_RATE, serving_memory
+    est = serving_memory(cfg, batch, steps / FRAME_RATE, prompt_len, quant,
+                         cache_bytes)
+    return est.total_gb * 1e9 / 2 ** 30
+
+
+def _gradio_calls(pipe):
+    """The three gradio callbacks over the pipeline (loader=lambda: pipe,
+    the module's pipeline reset before each) at its step budget: each
+    call's seconds, the stream's chunks and time to first audio. Returns
+    (line, problems)."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.serve import gradio_app as ga
+
+    def first_item(name):
+        with open(os.path.join(EXAMPLES, name)) as f:
+            return json.loads(f.readline())
+
+    single, role = (first_item(n) for n in
+                    ("examples_single_reference.jsonl", "examples.jsonl"))
+    voice = lambda it, k: os.path.join(EXAMPLES, it[k])
+    en = ga.UI_STRINGS["en"]
+    eng = pipe.engine
+    steps = eng.sampling.max_new_tokens
+    problems, line = [], {"steps": steps}
+    streamed, runs = [], []
+    orig_stream = pipe.stream_item
+
+    def stream_item(*a, **kw):                 # records the float chunks
+        for chunk, sr in orig_stream(*a, **kw):
+            streamed.append(chunk)
+            yield chunk, sr
+
+    pipe.stream_item = stream_item
+    _spy_stream(eng, runs)
+    try:
+        for name, call in (
+                ("single", lambda: ga.synthesize_single(
+                    single["text"], single["prompt_text"],
+                    voice(single, "prompt_audio"), loader=lambda: pipe)),
+                ("role", lambda: ga.synthesize_role(
+                    role["text"], role["prompt_text_speaker1"],
+                    voice(role, "prompt_audio_speaker1"),
+                    role["prompt_text_speaker2"],
+                    voice(role, "prompt_audio_speaker2"),
+                    loader=lambda: pipe))):
+            ga._PIPELINE = None
+            t0 = time.perf_counter()
+            out, status = call()
+            torch.cuda.synchronize()
+            line[f"{name}_s"] = time.perf_counter() - t0
+            ok = (out is not None and out[0] == 24000
+                  and out[1].dtype == np.int16 and out[1].ndim == 1
+                  and len(out[1]) > 0
+                  and status.startswith(en["status_generated"].format(
+                      seconds=len(out[1]) / 24000)))
+            line[f"{name}_samples"] = None if out is None else len(out[1])
+            line[f"{name}_status"] = status[:80]
+            if not ok:
+                problems.append(f"gradio {name}: {status!r}")
+        ga._PIPELINE = None
+        chunks, t_first = [], None
+        t0 = time.perf_counter()
+        for out, status in ga.synthesize_single_stream(
+                single["text"], single["prompt_text"],
+                voice(single, "prompt_audio"), loader=lambda: pipe):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            chunks.append(out)
+            if not status.startswith(en["status_streaming"][:9]):
+                problems.append(f"gradio stream status {status!r}")
+        torch.cuda.synchronize()
+        line["stream_s"] = time.perf_counter() - t0
+    finally:
+        del eng.generate_stream, pipe.stream_item
+        ga._PIPELINE = None
+    last = runs[-1][2][-1]
+    frames = int(pipe.unshift_end(last.tokens, last.base)[1][0])
+    samples = sum(len(c[1]) for c in chunks if c is not None)
+    line.update(stream_chunks=len(chunks), stream_ttfa_s=t_first,
+                stream_frames=frames, stream_samples=samples,
+                stream_steps=last.steps)
+    if len(chunks) < 2 or any(c is None or c[0] != 24000
+                              or c[1].dtype != np.int16 for c in chunks):
+        problems.append(f"gradio stream gave {len(chunks)} chunks")
+    if not all(np.isfinite(c).all() for c in streamed):
+        problems.append("non-finite streamed chunk")
+    if samples != frames * 1920:
+        problems.append(f"gradio stream: {samples} samples for {frames} "
+                        "frames")
+    if last.steps != steps:
+        problems.append(f"gradio stream ran {last.steps} steps")
+    return line, problems
+
+
+def podcast_phase(pipe):
+    """The podcast generator at the main path's width over its pipeline: a
+    short English .txt through ``podcast.process_input_to_audio`` (the
+    language detected, the offline fallback script, the default voices
+    cloned, 256 steps, batch 1), checked for the language, the script,
+    one encode of both voices, 28 B1 + 28 x steps B2 launches, a finite
+    24 kHz wav of frames x 1920 samples and its ``duration_s``; e2e s,
+    ``tokenize_s``, prefill ms, steps/s, RTF, peak GiB beside the
+    ``serving_memory`` estimate. Then the gradio callbacks
+    (``_gradio_calls``) and ``create_gradio_interface``: an ImportError
+    naming gradio where gradio is absent, the Blocks built (not launched)
+    where it is there."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.serve import gradio_app as ga
+    from moss_ttsd_torch.serve import podcast as pod
+    from moss_ttsd_torch.utils.audio_io import read_wav, to_mono_16k
+    root = os.path.join(ROOT, "build", "chip_smoke_podcast")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    txt, out_wav = (os.path.join(root, n) for n in ("notes.txt",
+                                                    "podcast.wav"))
+    with open(txt, "w") as f:
+        f.write(PODCAST_SOURCE)
+    os.environ.pop("PODCAST_LLM_BASE", None)
+    eng, spt, cfg = pipe.engine, pipe.spt, pipe.lm_cfg
+    L, steps = cfg.num_hidden_layers, eng.sampling.max_new_tokens
+    base = pod.default_asset_base()
+    voices = pod.DEFAULT_VOICES["en"]
+    # warm-up at this item's shapes (the clone path's first encode), then
+    # an empty prompt-encode LRU, so the counted run encodes the voices
+    pipe.process_batch([{"base_path": base, "text": pod.FALLBACK_SCRIPT_EN,
+                         **voices}], max_new_tokens=16, seed=1)
+    pipe._encode_cache.clear()
+    encodes, generates = [], []
+    _spy(spt, "encode", encodes)
+    _spy(eng, "generate", generates)
+    try:
+        pipe.timings.__init__()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        info = pod.process_input_to_audio(txt, pipe, out_wav)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        counts, peak = fa.launch_counts(), torch.cuda.max_memory_allocated()
+    finally:
+        del spt.encode, eng.generate
+    st, tm = dict(eng.last_stats), pipe.timings.as_dict()
+    res = generates[-1][1]
+    problems = _launch_problems(counts, L, 1, res.steps)
+    if res.steps != steps:
+        problems.append(f"decode ran {res.steps} of {steps} steps")
+    if info["language"] != "en" or pod.detect_language(PODCAST_SOURCE) != "en":
+        problems.append(f"language {info['language']}")
+    if info["script"] != pod.FALLBACK_SCRIPT_EN:
+        problems.append("the script is not the fallback script")
+    want = sum(len(to_mono_16k(*read_wav(os.path.join(base, voices[k]))))
+               for k in ("prompt_audio_speaker1", "prompt_audio_speaker2"))
+    enc = [[len(w) for w in a[0]] for a, _ in encodes]
+    codes = encodes[-1][1]["codes_list"][0] if encodes else None
+    # one encode of both voices: 16 kHz at 12.5 codec frames a second
+    if enc != [[want]] or codes is None or codes.shape[1] != want // 1280:
+        problems.append(f"voice encodes {enc} (want one of {want} samples)")
+    frames = pipe.extract_codes(res)[0].shape[1]
+    wav, sr = read_wav(out_wav)
+    if not (sr == 24000 and np.isfinite(wav).all()
+            and wav.shape[-1] == frames * 1920):
+        problems.append(f"wav {wav.shape} at {sr} Hz for {frames} frames")
+    if info["duration_s"] != wav.shape[-1] / sr:
+        problems.append(f"duration_s {info['duration_s']} for "
+                        f"{wav.shape[-1]} samples")
+    audio_s = wav.shape[-1] / sr
+    line = {"phase": "podcast", "layers": L, "batch": 1, "base": res.base,
+            "buf_steps": st["buf_steps"], "steps": res.steps,
+            "language": info["language"], "script_chars": len(info["script"]),
+            "prompt_codes": None if codes is None else list(codes.shape),
+            "tokenize_s": tm["tokenize_s"],
+            "prefill_ms": st["prefill_s"] * 1e3, "decode_s": st["decode_s"],
+            "decode_steps_per_s": res.steps / st["decode_s"],
+            "vocode_s": tm["vocode_s"], "e2e_s": e2e_s, "audio_s": audio_s,
+            "rtf": audio_s / e2e_s, "wav_samples": wav.shape[-1],
+            "peak_mem_gib": peak / 2 ** 30,
+            "estimate_gib": memory_estimate_gib(cfg, 1, res.steps, res.base),
+            "launches": counts}
+    line["gradio"], bad = _gradio_calls(pipe)
+    problems += bad
+    try:
+        import gradio  # noqa: F401
+    except ImportError:
+        try:
+            ga.create_gradio_interface(loader=lambda: pipe)
+            problems.append("create_gradio_interface without gradio")
+        except ImportError as e:
+            line["gradio"]["interface"] = f"ImportError: {str(e)[:60]}"
+            if "gradio" not in str(e):
+                problems.append(f"the ImportError names no gradio: {e}")
+    else:
+        ga.create_gradio_interface(loader=lambda: pipe)
+        line["gradio"]["interface"] = "built"
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"podcast phase failed: {problems}")
+    shutil.rmtree(root, ignore_errors=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase: pool (the continuous slot pool, multi-LoRA)
 # ---------------------------------------------------------------------------
 
@@ -1982,6 +2221,8 @@ def throughput_run(pipe, adapters, prompts):
      line["launch_calls_per_step"]) = _launches_per_step(cb, 8)
     _run_to_end(cb, 8)
     line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    line["estimate_gib"] = memory_estimate_gib(cfg, 8, 2048, 512,
+                                               cache_bytes=1)
     for s, _ in cb.poll():
         cb.collect(s)
     prefill_ms, prefill_launches = {}, {}
@@ -3361,12 +3602,13 @@ def _run_all(runs):
 
 
 def cli_check():
-    """The --tiny CLIs on the card, as five processes at once (each its own
+    """The --tiny CLIs on the card, as six processes at once (each its own
     output directory, so their seconds are wall times of runs sharing the
     card and the host): inference plain, with --profile_dir, with int8
     serving, and cloning the voices of examples/examples.jsonl (one item,
     one wav); the codec round trip over examples/ (three wavs and their
-    metrics). The native audio library is built first, once."""
+    metrics); the podcast generator over a .txt (one wav, its JSON line
+    with JAX's keys). The native audio library is built first, once."""
     from moss_ttsd_torch.utils import native
     if not native.available():
         raise SystemExit(f"the native audio library did not build: "
@@ -3402,6 +3644,15 @@ def cli_check():
                   os.path.join(codec_out, "metrics.json")], codec_out,
                  ["voice_both_recon.wav", "voice_s1_recon.wav",
                   "voice_s2_recon.wav"]))
+    pod_out = os.path.join(root, "podcast")
+    os.makedirs(pod_out)
+    with open(os.path.join(pod_out, "notes.txt"), "w") as f:
+        f.write(PODCAST_SOURCE)
+    runs.append(("podcast",
+                 [sys.executable, "-m", "moss_ttsd_torch.serve.podcast",
+                  "--tiny", "--input", os.path.join(pod_out, "notes.txt"),
+                  "--output", os.path.join(pod_out, "podcast.wav")],
+                 pod_out, ["podcast.wav"]))
     for (name, cmd, out_dir, want), proc, seconds in _run_all(runs):
         kernel_events = None
         files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
@@ -3409,6 +3660,12 @@ def cli_check():
         ok = proc.returncode == 0 and wavs == want
         if name == "codec_roundtrip":
             ok = ok and "metrics.json" in files
+        if name == "podcast":
+            try:
+                info = json.loads(proc.stdout.strip().splitlines()[-1])
+            except (ValueError, IndexError):
+                info = {}
+            ok = ok and sorted(info) == ["duration_s", "language", "output"]
         if name == "text_profile_dir":
             trace_dir = os.path.join(out_dir, "trace")
             traces = (os.listdir(trace_dir) if os.path.isdir(trace_dir)
@@ -3771,8 +4028,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "stream,overlap,server,pool,clone,int8,load,train,"
-                         "codec_train,cli,profile,sweep "
+                         "stream,overlap,podcast,server,pool,clone,int8,"
+                         "load,train,codec_train,cli,profile,sweep "
                          "(default all = every phase but profile and sweep)")
     ap.add_argument("--rss_probe", metavar="DIR",
                     help="only load the HF-format LM directory DIR to the "
@@ -3787,8 +4044,8 @@ def main(argv=None) -> int:
         return rss_probe(args.rss_probe)
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
-               "overlap", "server", "pool", "clone", "int8", "load", "train",
-               "codec_train", "cli"}
+               "overlap", "podcast", "server", "pool", "clone", "int8",
+               "load", "train", "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -3826,15 +4083,17 @@ def main(argv=None) -> int:
             logits_check(pipe)
         if "profile" in phases:
             profile_decode("main_path", *decode_state(pipe, load_items()))
-    # streaming, the overlap, the servers and the pool run the main path's
-    # pipeline
-    if phases & {"stream", "overlap", "server", "pool", "load"}:
+    # streaming, the overlap, the podcast, the servers and the pool run the
+    # main path's pipeline
+    if phases & {"stream", "overlap", "podcast", "server", "pool", "load"}:
         if pipe is None:
             pipe = build_full_pipeline()[0]
         if "stream" in phases:
             stream_line = stream_phase(pipe)
         if "overlap" in phases:
             overlap_phase(pipe)
+        if "podcast" in phases:
+            podcast_phase(pipe)
         if "server" in phases:
             server_phase(pipe)
             continuous_server_part(pipe)

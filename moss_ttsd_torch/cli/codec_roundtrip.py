@@ -7,7 +7,8 @@ Whisper-mel frontend and the SI-SNR, both at 16 kHz, with a summary JSON.
 Runs on the CUDA card unless ``--platform cpu``; ``--config`` /
 ``--checkpoint`` load the XY-Tokenizer's yaml and checkpoint (fp32, as the
 reference runs it); ``--tiny`` uses a random tiny codec (no checkpoint
-needed).
+needed). ``--debug 1`` blocks at start until a debugpy client attaches
+on ``--debug_ip``:``--debug_port``.
 
     python -m moss_ttsd_torch.cli.codec_roundtrip --input_dir examples \\
         --output_dir outputs/recon --tiny --platform cpu --metrics out.json
@@ -20,21 +21,10 @@ import json
 import os
 import sys
 import time
-from typing import List
 
 import numpy as np
 
-AUDIO_EXTENSIONS = (".wav", ".flac", ".mp3", ".ogg", ".m4a")
-
-
-def find_audio_files(directory: str) -> List[str]:
-    """Recursively list audio files, sorted within each directory."""
-    out: List[str] = []
-    for root, _, files in os.walk(directory):
-        for f in sorted(files):
-            if f.lower().endswith(AUDIO_EXTENSIONS):
-                out.append(os.path.join(root, f))
-    return out
+from ..utils.helpers import find_audio_files
 
 
 def recon_metrics(inp16: np.ndarray, recon: np.ndarray, out_sr: int) -> dict:
@@ -75,13 +65,16 @@ def main(argv=None):
     p.add_argument("--platform", choices=["default", "cpu"],
                    default="default",
                    help="default = the CUDA card; cpu = run on the CPU")
-    # flag of the JAX CLI that this port does not implement: accepted so
-    # that it fails loudly instead of being silently ignored
+    # remote-attach debug flags: --debug 1 blocks until a debugpy client
+    # attaches on --debug_ip:--debug_port
     p.add_argument("--debug", type=int, default=0, nargs="?")
+    p.add_argument("--debug_ip", default="localhost")
+    p.add_argument("--debug_port", type=int, default=5678)
     args = p.parse_args(argv)
 
-    if args.debug != 0:
-        p.error("--debug is not yet ported to moss_ttsd_torch")
+    if args.debug == 1:
+        from ..utils.helpers import waiting_for_debug
+        waiting_for_debug(args.debug_ip, args.debug_port)
     if not args.tiny and not (args.config and args.checkpoint):
         p.error("--config and --checkpoint are required without --tiny")
 

@@ -8,7 +8,9 @@ Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 needs ``transformers``), ``--spt_config`` and ``--spt_ckpt`` (the
 XY-Tokenizer yaml and checkpoint) load real weights through
 ``TTSPipeline.load``; ``--dtype fp32`` runs the codec in fp32.
-``--tiny`` runs tiny random-weight models (no checkpoint needed). Items
+``--tiny`` runs tiny random-weight models (no checkpoint needed).
+``MOSS_TTSD_DEBUG=host:port`` (or ``port``) blocks at start until a
+debugpy client attaches. Items
 with prompt audio clone their voices: the prompt wavs are encoded by the
 codec into the prompt's speech codes. ``--lora_adapter NAME=PATH``
 (repeatable) registers a LoRA voice, a finetune CLI lora_factors.npz or a
@@ -122,6 +124,9 @@ def main(argv=None):
     parser.add_argument("--mesh", default=None)
     parser.add_argument("--attn_impl", default=None)
     args = parser.parse_args(argv)
+
+    from ..utils.helpers import maybe_debug_attach
+    maybe_debug_attach()
 
     if args.mesh:
         _not_yet(parser, "--mesh")

@@ -24,7 +24,9 @@ hold go to a lazy window-scheduler worker (``server_routed_overflow``).
 The HTTP threads never touch tensors; the worker threads queue their
 kernels on the card's one CUDA stream, in order; the host-side counters
 they share (``metrics``, ``pipeline.timings``) update under locks.
-Standard library only (http.server + threading).
+Standard library only (http.server + threading). ``MOSS_TTSD_DEBUG=
+host:port`` (or ``port``) makes ``main`` block at start until a debugpy
+client attaches.
 
     python -m moss_ttsd_torch.serve.server --tiny --platform cpu --port 8000 \\
         --scheduler continuous --lora_adapter narrator=lora_factors.npz
@@ -945,6 +947,9 @@ def main(argv=None):
     p.add_argument("--mesh", default=None)
     p.add_argument("--jax_cache_dir", default=None)
     args = p.parse_args(argv)
+
+    from ..utils.helpers import maybe_debug_attach
+    maybe_debug_attach()
 
     for flag, val in (("--mesh", args.mesh),
                       ("--jax_cache_dir", args.jax_cache_dir)):

@@ -843,3 +843,48 @@ def test_vocos_variants_on_card_match_cpu(cuda, vocos_kw):
                        None if cond is None else cond.cuda())
     assert torch.equal(l_g.cpu(), l_c)
     assert float((w_g.cpu() - w_c).abs().max()) <= 1e-4
+
+
+def test_podcast_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """process_input_to_audio on a .txt source (the fallback script, both
+    default voices cloned) with the tiny fp32 greedy pipeline: the same
+    prompt ids and tokens on the card (kernels) as on the CPU (plain
+    versions), TF32 off, and a finite wav of frames x the codec's hop."""
+    from moss_ttsd_torch.cli.inference import tiny_lm_config
+    from moss_ttsd_torch.core.config import CodecConfig
+    from moss_ttsd_torch.models.codec.model import XYTokenizer
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.serve import podcast
+    from moss_ttsd_torch.utils.audio_io import read_wav
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    monkeypatch.delenv("PODCAST_LLM_BASE", raising=False)
+    src = tmp_path / "notes.txt"
+    src.write_text("A short note about speech codecs and language models.")
+    cfg, ccfg = tiny_lm_config(), CodecConfig().tiny()
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    spt = XYTokenizer.init_random(ccfg, seed=0, device="cpu")
+    runs = []
+    for dev in ("cpu", "cuda"):
+        pipe = TTSPipeline(
+            MockTokenizer(), cfg, model,
+            XYTokenizer(ccfg, {k: v.clone() for k, v in
+                               spt.module.state_dict().items()}, device=dev),
+            _greedy_sampling(cfg.channels, 24), bucket=32, device=dev)
+        seen = []
+        orig = pipe.engine.generate
+        pipe.engine.generate = lambda *a, **kw: seen.append(
+            (np.asarray(a[0]), orig(*a, **kw))) or seen[-1][1]
+        fa.reset_launch_counts()
+        info = podcast.process_input_to_audio(
+            str(src), pipe, str(tmp_path / f"{dev}.wav"))
+        runs.append((info, seen[-1], fa.launch_counts()))
+    (info, (ids, res), _), (ginfo, (gids, gres), counts) = runs
+    assert info["script"] == ginfo["script"] == podcast.FALLBACK_SCRIPT_EN
+    np.testing.assert_array_equal(gids, ids)
+    np.testing.assert_array_equal(gres.tokens, res.tokens)
+    assert counts["flash_prefill"] > 0 and counts["flash_decode_hs"] > 0
+    wav, sr = read_wav(str(tmp_path / "cuda.wav"))
+    assert sr == 24000 and np.isfinite(wav).all()
+    assert wav.shape[-1] == round(ginfo["duration_s"] * sr) > 0
+    assert wav.shape[-1] % 1920 == 0

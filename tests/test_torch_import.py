@@ -209,10 +209,10 @@ def test_codec_roundtrip_cli_refuses_unported_flags(tmp_path):
     from moss_ttsd_torch.cli.codec_roundtrip import main
     base = ["--input_dir", str(ROOT / "examples"), "--output_dir",
             str(tmp_path)]
-    for extra in (["--config", "c.yaml"], ["--tiny", "--debug", "1"],
-                  ["--tiny", "--debug"]):
-        with pytest.raises(SystemExit):
-            main([*base, "--platform", "cpu", *extra])
+    # --debug 1 waits for a debugger, as the JAX CLI's does
+    # (tests/test_torch_helpers.py)
+    with pytest.raises(SystemExit):
+        main([*base, "--platform", "cpu", "--config", "c.yaml"])
     # --config / --checkpoint load the codec (XYTokenizer.load_from_checkpoint)
     with pytest.raises(FileNotFoundError, match="c.yaml"):
         main([*base, "--platform", "cpu", "--config", "c.yaml",

@@ -551,14 +551,25 @@ def test_pool_cancel_frees_slot(stream):
         req = _Request({"text": "[S1]cancel me please[S2]ok"}, 60, 0, False)
         if stream:
             req.stream_q = queue.Queue()
+        else:
+            # the handler gives up once the request holds its slot: cancel
+            # from the worker thread as it joins, since the tiny request
+            # can run to its end between two polls of this thread
+            join, joined = worker._join, threading.Event()
+
+            def join_then_cancel(r, slot):
+                join(r, slot)
+                if r is req:
+                    r.cancelled = True
+                    joined.set()
+
+            worker._join = join_then_cancel
         before = metrics.get("server_cancelled")
         worker.submit(req)
         if stream:
             assert not isinstance(req.stream_q.get(timeout=300), str)
         else:
-            deadline = time.time() + 120
-            while time.time() < deadline and worker.cb.free_slots == 2:
-                time.sleep(0.05)
+            assert joined.wait(120)
         req.cancelled = True
         deadline = time.time() + 120
         while time.time() < deadline and worker.cb.free_slots < 2:
