@@ -39,7 +39,8 @@ Phases, each printing one JSON line:
   7. int8     — int8 serving at the same width, the weights quantized inside
      the engine: TTSPipeline(quant="int8"); the same with the restricted text
      head and its audit; the long-form engine (quant and kv_quant "int8",
-     batch 1, 1500 steps) whose every decode step runs flash_decode_int8_hs;
+     batch 1, 800 decode steps in a 1500-step cache) whose every decode
+     step runs flash_decode_int8_hs;
   8. stream   — TTSPipeline.stream_item over item 0 of
      examples_only_text.jsonl at the main path's width (batch 1, 256 steps,
      chunks of 25 steps after a first one of 12): time to first audio,
@@ -1188,8 +1189,8 @@ def int8_phase(profile: bool = False):
     with the restricted text head and its audit under the speech window
     (151665, 152695) of bench.py; (3) the long-form engine of bench_full.py
     (quant and kv_quant "int8", bucket 64, step_bucket 1500, batch 1, a
-    64-row random text prompt, 1500 steps). ``profile``: a decode profile
-    of runs 1 and 3 besides."""
+    64-row random text prompt, 800 of the 1500 steps the cache holds).
+    ``profile``: a decode profile of runs 1 and 3 besides."""
     import numpy as np
     import torch
     from moss_ttsd_torch.core.config import LMConfig
@@ -1221,10 +1222,10 @@ def int8_phase(profile: bool = False):
     lines.append(int8_pipeline_run("restricted_head_audit16", pipe, items))
     del pipe, spt
 
-    steps = 1500
+    steps = 800
     sampling.max_new_tokens = steps
     eng = GenerationEngine(cfg, model, sampling, bucket=64, quant="int8",
-                           kv_quant="int8", step_bucket=steps, device="cuda")
+                           kv_quant="int8", step_bucket=1500, device="cuda")
     del model
     rng = np.random.default_rng(0)
     ids = np.full((1, 64, C), cfg.speech_pad_token, np.int64)
@@ -1257,7 +1258,8 @@ def int8_phase(profile: bool = False):
             "decode_steps_per_s": res.steps / st["decode_s"],
             "generate_s": wall, "decode_rtf": res.steps / st["decode_s"] / 12.5,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "estimate_gib": memory_estimate_gib(cfg, 1, steps, res.base,
+            "estimate_gib": memory_estimate_gib(cfg, 1, st["buf_steps"],
+                                                res.base,
                                                 "int8", cache_bytes=1),
             "host_syncs_per_step": count_syncs_per_step(
                 *engine_state(eng, ids, mask, steps)),
@@ -2288,7 +2290,7 @@ def pool_phase(pipe):
 
 
 
-def pool_decode_times(gen, valid, ext, kind, SETS):
+def pool_decode_times(gen, valid, ext, kind, SETS, H=16, Hkv=8):
     """flash_decode_hs (kind "bf16") or flash_decode_int8_hs ("int8") at the
     pool's (8, 2560) with its (B,) int32 extent and ring-addressed valid
     bits, over a SETS-layer stack read through the layer index (as the
@@ -2301,7 +2303,7 @@ def pool_decode_times(gen, valid, ext, kind, SETS):
     import torch.nn.functional as F
     from moss_ttsd_torch.ops import flash_attention as fa
     B, S = valid.shape
-    H, Hkv, D = 16, 8, 128
+    D = 128
     bf = torch.bfloat16
     scale = D ** -0.5
     q = _rand(gen, (B, 1, H, D), bf)
@@ -3690,6 +3692,493 @@ def cli_check():
 
 
 # ---------------------------------------------------------------------------
+# phase 13: mesh — tensor-parallel serving, data-parallel finetuning
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+MESH_STEPS = {"fp32": 32, "bf16": 64, "int8": 64}
+MESH_POOL = {"slots": 8, "base": 512, "max_steps": 2048, "steps": 32}
+# the DP LoRA step against one process: the loss and grad norm within one
+# bf16 ulp (2^-8) relative; the ranks run their row alone, so the bf16
+# GEMMs see other shapes and round elsewhere, and the loss averages those
+# roundings over ~4000 supervised tokens
+MESH_TRAIN_REL = 2.0 ** -8
+
+
+def mesh_cfg(dtype: str):
+    """LMConfig() at the main path's whole-vocab speech range, fp32
+    parameters, ``dtype`` compute."""
+    from moss_ttsd_torch.core.config import LMConfig
+    cfg = LMConfig()
+    return LMConfig.from_dict({**cfg.to_dict(),
+                               "speech_token_range": [0, cfg.vocab_size],
+                               "dtype": dtype, "param_dtype": "float32"})
+
+
+def mesh_prompts(cfg):
+    """The main path's two text items as a left-padded (B, L, C) batch (the
+    pipeline's prompt assembly with the mock tokenizer), and the shifted
+    prompts."""
+    import types
+    from moss_ttsd_torch.pipeline import prompt as pp
+    from moss_ttsd_torch.pipeline.batch import SYSTEM_PROMPT, TTSPipeline
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    host = types.SimpleNamespace(tokenizer=MockTokenizer(), lm_cfg=cfg)
+    shifted = [TTSPipeline._assemble(
+        host, TTSPipeline._prepare_text(host, it, False)[0], None,
+        SYSTEM_PROMPT) for it in load_items()]
+    batch, mask = pp.left_pad_batch(shifted, host.tokenizer.pad_token_id,
+                                    cfg.speech_pad_token)
+    return batch, mask, shifted
+
+
+def mesh_engine(state, mode, mesh=None):
+    """The greedy engine of ``mode``: "fp32", "bf16", or "int8" (w8a16
+    weights and the int8 KV cache)."""
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    cfg = mesh_cfg("float32" if mode == "fp32" else "bfloat16")
+    kw = dict(quant="int8", kv_quant="int8") if mode == "int8" else {}
+    return GenerationEngine(cfg, state, _greedy(cfg.channels, 64),
+                            bucket=128, device="cuda", mesh=mesh, **kw)
+
+
+def mesh_run(eng, batch, mask, steps, mesh=None):
+    """The first step's logits (the prefill's last hidden through the tied
+    heads), then one counted generate: tokens, launches, the host clock
+    a decode step and, on a mesh, its collectives a step."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    ids, m, base = eng._bucket_prompt(batch, mask)
+    st = eng.prefill(torch.as_tensor(ids, device="cuda"),
+                     torch.as_tensor(m, device="cuda"), base, 8)
+    t, s = eng.model.logits_all(st.hidden_last)
+    logits = (t[:, 0].cpu(), s[:, 0].cpu())
+    del st
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    c0 = 0 if mesh is None else mesh.collectives
+    res = eng.generate(batch, mask, max_new_tokens=steps, seed=0)
+    torch.cuda.synchronize()
+    stats = eng.last_stats
+    out = {"tokens": res.tokens, "steps": res.steps, "logits": logits,
+           "launches": fa.launch_counts(), "base": stats["base"],
+           "buf_steps": stats["buf_steps"], "left_pad": stats["left_pad"],
+           "prefill_s": stats["prefill_s"],
+           "decode_s_per_step": stats["decode_s"] / max(res.steps, 1)}
+    if mesh is not None:
+        out["collectives_per_step"] = ((mesh.collectives - c0)
+                                       / max(res.steps, 1))
+    return out
+
+
+def mesh_pool_run(state, mesh):
+    """The TP pool at the server's default geometry (8 slots, base 512,
+    2048 steps, the int8 KV cache), one LoRA voice registered: a burst of
+    8 joins (every other one on the voice), then 32 pool steps."""
+    import torch
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.ops import flash_attention as fa
+    cfg = mesh_cfg("bfloat16")
+    P = MESH_POOL
+    cb = ContinuousBatcher(cfg, state, _greedy(cfg.channels), slots=P["slots"],
+                           base=P["base"], max_steps=P["max_steps"],
+                           device="cuda", kv_quant="int8", mesh=mesh)
+    cb.register_adapter("voice", pool_adapter(cfg, 3), alpha=32.0)
+    shifted = mesh_prompts(cfg)[2]
+    reqs = [(shifted[j % len(shifted)], 64, j, "voice" if j % 2 else None)
+            for j in range(P["slots"])]
+    fa.reset_launch_counts()
+    c0 = mesh.collectives
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = cb.submit_many(reqs)
+    ran = cb.run(steps=P["steps"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    toks = cb.state.tokens[:, P["base"]:P["base"] + ran].cpu().numpy()
+    return {"joins": len(slots), "steps": ran, "seconds": secs,
+            "launches": fa.launch_counts(), "tokens": toks,
+            "collectives_per_step": (mesh.collectives - c0) / max(ran, 1),
+            "finite": bool(torch.isfinite(cb.state.hidden_last.float()
+                                          ).all())}
+
+
+def mesh_lora_setup(group=None, mesh=None):
+    """The full-width layerwise LoRA step (rank 16, alpha 32, rslora, the
+    seven projections; fp32 masters, bf16 compute, remat) of the train
+    phase, at a constant 1e-4, accumulation 1; under ``mesh`` over its
+    data group."""
+    import dataclasses
+    import torch
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.train.lora import (graft_lora_params,
+                                            init_lora_state,
+                                            make_layerwise_lora_step)
+    from moss_ttsd_torch.train.step import make_optimizer, shard_train_step
+    cfg = mesh_cfg("bfloat16")
+    lcfg = dataclasses.replace(cfg, lora_rank=16, lora_alpha=32.0,
+                               lora_rslora=True)
+    model = AsteroidLM.init_random(cfg, seed=0, device="cuda",
+                                   dtype=torch.float32)
+    model = graft_lora_params(model, lcfg, seed=1)
+    opt = make_optimizer(learning_rate=1e-4, total_steps=100,
+                         lr_scheduler_type="constant")
+    state = init_lora_state(model, opt)
+    kw = dict(remat=True, ce_chunks=8)
+    step = (make_layerwise_lora_step(lcfg, opt, **kw) if mesh is None else
+            shard_train_step(make_layerwise_lora_step, mesh, lcfg, opt, **kw))
+    return state, step
+
+
+def mesh_train_batch(rows=slice(None)):
+    """The train phase's batch of two T 2048 rows as one micro batch
+    (accumulation 1), or its ``rows``."""
+    batch, _ = train_batch(0)
+    return {k: v.reshape((2,) + v.shape[2:])[rows] for k, v in batch.items()}
+
+
+def mesh_refs(path):
+    """The unsharded references, in this process on the same seeded
+    weights: each mode's first-step logits and tokens, and 3 LoRA steps of
+    one process on the whole batch."""
+    import torch
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    state = AsteroidLM.init_random(mesh_cfg("float32"), seed=0,
+                                   device="cuda",
+                                   dtype=torch.float32).state_dict()
+    batch, mask, _ = mesh_prompts(mesh_cfg("float32"))
+    refs = {}
+    for mode, steps in MESH_STEPS.items():
+        eng = mesh_engine(state, mode)
+        r = mesh_run(eng, batch, mask, steps)
+        refs[mode] = {k: r[k] for k in ("tokens", "steps", "logits",
+                                        "decode_s_per_step")}
+        del eng
+        torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    st, step = mesh_lora_setup()
+    b = mesh_train_batch()
+    st, losses, norms, times = _train_steps(st, step, b, 3)
+    refs["lora"] = {"loss": losses, "grad_norm": norms, "s_per_step": times}
+    del st, step
+    _release()
+    torch.save(refs, path)
+
+
+def _rank_init(rank, world, init, backend):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from moss_ttsd_torch.parallel.distributed import initialize_multihost
+    initialize_multihost(init, world, rank, device="cuda", backend=backend,
+                         timeout_s=600)
+
+
+def mesh_tp_rank(rank, world, init, out):
+    """One of two ranks sharing the card over gloo: the (1, 2) engine in
+    fp32, bf16 and int8 + int8 KV, the TP pool, then the (2, 1) DP LoRA
+    step on this rank's row. Saves what it measured to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.parallel.mesh import make_mesh
+    _rank_init(rank, world, init, "gloo")
+    res = {}
+    mesh = make_mesh(1, 2, device_type="cuda")
+    state = AsteroidLM.init_random(mesh_cfg("float32"), seed=0,
+                                   device="cuda",
+                                   dtype=torch.float32).state_dict()
+    batch, mask, _ = mesh_prompts(mesh_cfg("float32"))
+    for mode, steps in MESH_STEPS.items():
+        eng = mesh_engine(state, mode, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        res[mode] = mesh_run(eng, batch, mask, steps, mesh)
+        res[mode]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del eng
+        torch.cuda.empty_cache()
+    res["pool"] = mesh_pool_run(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    dp = make_mesh(2, 1, device_type="cuda")
+    st, step = mesh_lora_setup(mesh=dp)
+    b = mesh_train_batch(slice(rank, rank + 1))
+    st, losses, norms, times = _train_steps(st, step, b, 3)
+    res["lora"] = {"loss": losses, "grad_norm": norms, "s_per_step": times}
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def mesh_nccl_rank(rank, world, init, out):
+    """World size 1 over NCCL: ``--mesh 1x1`` through
+    ``TTSPipeline.process_batch`` at the full width (bf16, greedy, B 2,
+    64 steps) against the unsharded engine on the same weights; then 2
+    full-finetuning steps over the mesh's data group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.parallel.mesh import parse_mesh_arg
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step,
+                                            shard_train_step)
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    _rank_init(rank, world, init, "nccl")
+    res = {"backend": dist.get_backend()}
+    mesh = parse_mesh_arg("1x1", device_type="cuda")
+    cfg, model, spt, _ = full_width_parts()
+    sampling = _greedy(cfg.channels, 64)
+    pipe = TTSPipeline(MockTokenizer(), cfg, model, spt, sampling,
+                       bucket=128, device="cuda", mesh=mesh)
+    seen = []
+    real = pipe.engine.generate
+    pipe.engine.generate = lambda *a, **k: seen.append(real(*a, **k)) or \
+        seen[-1]
+    items = load_items()
+    texts, audio = pipe.process_batch(items, max_new_tokens=64, seed=0)
+    problems, _, _ = audio_problems(texts, audio, seen[-1].steps, 8)
+    _, batch, mask = decode_inputs(pipe, items)
+    ref = GenerationEngine(cfg, model, sampling, bucket=128,
+                           device="cuda").generate(batch, mask, 64, seed=0)
+    res["pipeline"] = {"steps": seen[-1].steps, "ref_steps": ref.steps,
+                       "tokens_equal": bool(np.array_equal(
+                           seen[-1].tokens, ref.tokens)),
+                       "audio_problems": problems}
+    del pipe, model, spt, real, seen
+    _release()
+    fcfg = mesh_cfg("bfloat16")
+    opt = make_optimizer(learning_rate=1e-4, total_steps=100,
+                         lr_scheduler_type="constant")
+    state = init_train_state(fcfg, opt, seed=0, device="cuda")
+    step = shard_train_step(make_train_step, mesh, fcfg, opt, remat=True,
+                            ce_chunks=8)
+    state, losses, norms, times = _train_steps(state, step,
+                                               mesh_train_batch(), 2)
+    res["full"] = {"loss": losses, "grad_norm": norms, "s_per_step": times,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, world, tag):
+    """``fn`` in ``world`` spawned processes on this card; a rank that
+    exits non-zero or outlives its time fails the phase. Returns their
+    saved results."""
+    import multiprocessing
+    import torch
+    from moss_ttsd_torch.parallel.distributed import local_init_method
+    ctx = multiprocessing.get_context("spawn")
+    init = local_init_method()
+    outs = [os.path.join(MESH_DIR, f"{tag}_rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=fn, args=(r, world, init, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    if codes != [0] * world:
+        raise SystemExit(f"mesh: {tag} ranks exited {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _rel_rms(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def mesh_phase(smi_line: str):
+    """The references in this process, then the (1, 2) TP ranks and the
+    (2, 1) DP LoRA step over gloo (two processes on this card), then the
+    NCCL world of one. Every check of every rank must hold."""
+    import numpy as np
+    import torch
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    ref_path = os.path.join(MESH_DIR, "refs.pt")
+    mesh_refs(ref_path)
+    refs = torch.load(ref_path, weights_only=False)
+    t_refs = time.perf_counter() - t0
+    tp = _spawn_ranks(mesh_tp_rank, 2, "tp")
+    t_tp = time.perf_counter() - t0 - t_refs
+    nccl, = _spawn_ranks(mesh_nccl_rank, 1, "nccl")
+    problems = []
+    L = 28
+    # the bf16 error scale: the unsharded bf16 logits against fp32's
+    e_bf16 = max(_rel_rms(refs["bf16"]["logits"][i],
+                          refs["fp32"]["logits"][i]) for i in (0, 1))
+    line = {"phase": "mesh", "nvidia_smi": smi_line,
+            "mesh": {"tp": [1, 2], "dp_train": [2, 1], "nccl": [1, 1]},
+            "backend": {"tp": "gloo (two processes, one card)",
+                        "nccl": nccl["backend"]},
+            "bf16_error_scale": e_bf16,
+            "logit_tolerance": "rel RMS <= 2 x bf16_error_scale (the "
+                               "unsharded bf16 logits against fp32)",
+            "ranks": []}
+    for r, res in enumerate(tp):
+        rank = {"rank": r}
+        for mode, steps in MESH_STEPS.items():
+            got, ref = res[mode], refs[mode]
+            agree = float((got["tokens"] == ref["tokens"]).mean()) \
+                if got["tokens"].shape == ref["tokens"].shape else 0.0
+            entry = {"steps": got["steps"], "agreement": agree,
+                     "launches": got["launches"],
+                     "collectives_per_step": got["collectives_per_step"],
+                     "host_ms_per_step": 1e3 * got["decode_s_per_step"],
+                     "unsharded_host_ms_per_step":
+                         1e3 * ref["decode_s_per_step"],
+                     "prefill_s": got["prefill_s"],
+                     "peak_gib": got["peak_gib"]}
+            dec = ("flash_decode_int8_hs" if mode == "int8"
+                   else "flash_decode_hs")
+            want = {"flash_prefill": L, dec: L * got["steps"]}
+            if {k: got["launches"][k] for k in want} != want:
+                problems.append(f"rank {r} {mode}: launches "
+                                f"{got['launches']}, want {want}")
+            if mode == "fp32":
+                if agree != 1.0 or got["steps"] != ref["steps"]:
+                    problems.append(f"rank {r} fp32 greedy tokens differ "
+                                    f"from the unsharded engine's "
+                                    f"(agreement {agree})")
+            else:
+                rel = [_rel_rms(got["logits"][i], ref["logits"][i])
+                       for i in (0, 1)]
+                entry["logits_rel_rms"] = {"text": rel[0], "speech": rel[1]}
+                entry["logits_max_abs"] = [
+                    float((got["logits"][i] - ref["logits"][i]).abs().max())
+                    for i in (0, 1)]
+                if max(rel) > 2 * e_bf16:
+                    problems.append(f"rank {r} {mode}: first-step logits "
+                                    f"rel RMS {rel} > 2 x {e_bf16}")
+            rank[mode] = entry
+        pool = res["pool"]
+        rank["pool"] = {k: pool[k] for k in ("joins", "steps", "seconds",
+                                             "launches", "finite",
+                                             "collectives_per_step")}
+        want = {"flash_decode_int8_hs": L * pool["steps"]}
+        if (pool["joins"] != MESH_POOL["slots"]
+                or pool["steps"] != MESH_POOL["steps"] or not pool["finite"]
+                or pool["launches"]["flash_decode_int8_hs"]
+                != want["flash_decode_int8_hs"]
+                or pool["launches"]["flash_prefill"] < L):
+            problems.append(f"rank {r} pool: {rank['pool']}")
+        lora = res["lora"]
+        rank["lora_dp"] = lora
+        for k in ("loss", "grad_norm"):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(lora[k],
+                                                          refs["lora"][k]))
+            rank["lora_dp"][k + "_rel"] = rel
+            if not rel <= MESH_TRAIN_REL:
+                problems.append(f"rank {r} DP LoRA {k} rel {rel}")
+        line["ranks"].append(rank)
+    if not all(np.array_equal(tp[0]["pool"]["tokens"], t["pool"]["tokens"])
+               for t in tp[1:]):
+        problems.append("the ranks' pool tokens differ")
+    line["lora_one_process"] = refs["lora"]
+    line["nccl"] = nccl
+    if not (nccl["pipeline"]["tokens_equal"]
+            and nccl["pipeline"]["steps"] == nccl["pipeline"]["ref_steps"]
+            and not nccl["pipeline"]["audio_problems"]):
+        problems.append(f"NCCL 1x1 pipeline: {nccl['pipeline']}")
+    if not all(np.isfinite(nccl["full"]["loss"])):
+        problems.append(f"NCCL full finetuning: {nccl['full']}")
+    line["memory_estimate"] = ("utils/memory.serving_memory has no tensor-"
+                               "parallel argument; per-rank peaks only")
+    line["seconds"] = {"refs": t_refs, "tp_ranks": t_tp,
+                       "nccl": time.perf_counter() - t0 - t_refs - t_tp}
+    line["problems"] = problems
+    emit(line)
+    if problems:
+        raise SystemExit(f"mesh phase failed: {problems}")
+    r0 = tp[0]
+    return {"bf16": r0["bf16"], "int8": r0["int8"], "pool": r0["pool"],
+            "launches": {m: r0[m]["launches"] for m in MESH_STEPS}}
+
+
+def mesh_kernel_rows(mesh, checks_ok, SETS):
+    """Each kernel at the tensor-parallel rank's shapes (tp 2: H 8, Hkv 4)
+    of the mesh phase's main-path runs and of the pool's (8, 2560), and one
+    G 1 case (tp 16: H 1, Hkv 1, the KV head replicated), each against
+    its plain version, timed with its plan, bound and library call."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    D = 128
+    bf = torch.bfloat16
+    out = {"flash_prefill": {}, "flash_decode_hs": {},
+           "flash_decode_int8_hs": {}}
+    m = mesh["bf16"]
+    B, base, pads = 2, m["base"], m["left_pad"]
+    S = base + m["buf_steps"]
+    ext = base + (m["steps"] + 1) // 2
+    for tag, H, Hkv in (("tp2", 8, 4), ("g1", 1, 1)):
+        t = prefill_times(gen, B, base, pads, H, Hkv, D, SETS)
+        chk = prefill_case(gen, f"{tag}_main", B, base, H, Hkv, D, bf, pads)
+        # G 1 is a check case: the tp-2 runs launch G 2
+        n = lambda k: m["launches"][k] if tag == "tp2" else 0  # noqa: E731
+        out["flash_prefill"][f"{tag}_main"] = {
+            "shape": [B, base, H, Hkv, D], "left_pad": pads,
+            "launches": n("flash_prefill"),
+            "max_abs_err": chk["max_abs_err"], "pass": chk["ok"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "bytes": t["bytes"],
+            "flops": t["flops"]}
+        checks_ok.append(chk["ok"])
+        spans = [(p, ext) for p in pads]
+        d = decode_times(gen, B, S, ext, pads, H, Hkv, D, SETS)
+        chk = decode_case(gen, f"{tag}_main", B, S, H, Hkv, D, bf, spans, ext)
+        out["flash_decode_hs"][f"{tag}_main"] = {
+            "launches": n("flash_decode_hs"),
+            "max_abs_err": chk["max_abs_err"], "pass": chk["ok"],
+            "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "library_ms": d["library_ms"], **_bound(d["bytes"], d["flops"]),
+            "bytes": d["bytes"], "flops": d["flops"], **d["extra"]}
+        checks_ok.append(chk["ok"])
+        valid = _valid_spans(B, S, spans)
+        e = torch.full((B,), ext, dtype=torch.int32, device="cuda")
+        r = pool_decode_times(gen, valid, e, "int8", SETS, H, Hkv)
+        chk = int8_decode_case(gen, f"{tag}_main", B, S, H, Hkv, D, bf,
+                               spans, ext)
+        r.update(launches=(mesh["int8"]["launches"]["flash_decode_int8_hs"]
+                           if tag == "tp2" else 0),
+                 check_vs_split_plain=chk["ok"])
+        out["flash_decode_int8_hs"][f"{tag}_main"] = r
+        checks_ok += [r["pass"], chk["ok"]]
+    # the TP pool's shapes: a burst's (8, 512) prefill, (8, 2560) decodes
+    P = MESH_POOL
+    pl = mesh["pool"]["launches"]
+    pads8 = [0] * P["slots"]
+    t = prefill_times(gen, P["slots"], P["base"], pads8, 8, 4, D, SETS)
+    chk = prefill_case(gen, "tp2_pool", P["slots"], P["base"], 8, 4, D, bf,
+                       pads8)
+    out["flash_prefill"]["tp2_pool_B8_T512"] = {
+        "shape": [P["slots"], P["base"], 8, 4, D],
+        "launches": pl["flash_prefill"], "max_abs_err": chk["max_abs_err"],
+        "pass": chk["ok"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "bytes": t["bytes"], "flops": t["flops"]}
+    checks_ok.append(chk["ok"])
+    Sp = P["base"] + P["max_steps"]
+    valid = torch.ones((P["slots"], Sp), dtype=torch.bool, device="cuda")
+    e = torch.full((P["slots"],), Sp, dtype=torch.int32, device="cuda")
+    for kind, name in (("bf16", "flash_decode_hs"),
+                       ("int8", "flash_decode_int8_hs")):
+        r = pool_decode_times(gen, valid, e, kind, SETS, 8, 4)
+        r["launches"] = pl.get(name, 0)
+        out[name][f"tp2_pool_B8_S{Sp}_full"] = r
+        checks_ok.append(r["pass"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernels line: times at the main path's shapes, bounds, launches
 # ---------------------------------------------------------------------------
 
@@ -3726,7 +4215,7 @@ def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
 
 
 def kernel_table(main, longform, checks, clone=None, stream=None,
-                 sweep=False, pool=None, load=None):
+                 sweep=False, pool=None, load=None, mesh=None):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs (and the clone run's,
     when it ran), the long-form run's for flash_decode_int8_hs. Each
@@ -3739,7 +4228,8 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
     SWEEP_SHAPES and the stream run's cache (``shape_sweep``). ``pool``:
     each kernel also at the continuous pool's shapes (``pool`` entries,
     ``pool_kernel_rows``). ``load``: each kernel's launches in the load
-    phase's runs (``load_launches``)."""
+    phase's runs (``load_launches``). ``mesh``: each kernel also at a
+    tensor-parallel rank's shapes (``tp`` entries, ``mesh_kernel_rows``)."""
     import torch
     B, base, steps = main["batch"], main["base"], main["steps"]
     H, Hkv, D, L = 16, 8, 128, main["layers"]
@@ -3826,31 +4316,43 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
         rows.append(int8_decode_row(longform, checks, SETS, sweep))
     if pool is not None:
         oks = []
-        extra = pool_kernel_rows(pool, oks, SETS)
-        by_name = {r["name"]: r for r in rows}
-        for name, entries in extra.items():
-            if name in by_name:
-                by_name[name]["pool"] = entries
-            else:              # B3 without the int8 phase: its pool row
-                e = next(iter(entries.values()))
-                rows.append(_row(
-                    name, "moss_ttsd_torch/csrc/flash_decode_int8.cu",
-                    "moss_ttsd_tpu/ops/pallas_attention.py:311 "
-                    "(flash_decode_int8_hs / _decode_int8_kernel)",
-                    e["launches"], {"max_abs_err": e["max_abs_err"],
-                                    "tolerance": e["tolerance"],
-                                    "ok": e["pass"]},
-                    e["ms"], e["plain_ms"], None, e["bytes"], e["flops"],
-                    {"pool": entries}))
+        _add_entries(rows, pool_kernel_rows(pool, oks, SETS), "pool")
         if not all(oks):
             emit({"kernels": rows})
             raise SystemExit("a kernel disagrees with its plain version at "
                              "the pool's shapes")
+    if mesh is not None:
+        oks = []
+        _add_entries(rows, mesh_kernel_rows(mesh, oks, SETS), "tp")
+        if not all(oks):
+            emit({"kernels": rows})
+            raise SystemExit("a kernel disagrees with its plain version at "
+                             "a tensor-parallel rank's shapes")
     if load is not None:
         for r in rows:
             r["load_launches"] = load_launches[r["name"]]
     emit({"kernels": rows})
     return rows
+
+
+def _add_entries(rows, extra, key):
+    """``extra`` {kernel: {entry: ...}} under ``key`` of each kernel's row;
+    a kernel without a row (B3 when the int8 phase did not run) gets one
+    from its first entry."""
+    by_name = {r["name"]: r for r in rows}
+    for name, entries in extra.items():
+        if name in by_name:
+            by_name[name][key] = entries
+            continue
+        e = next(iter(entries.values()))
+        rows.append(_row(
+            name, "moss_ttsd_torch/csrc/flash_decode_int8.cu",
+            "moss_ttsd_tpu/ops/pallas_attention.py:311 "
+            "(flash_decode_int8_hs / _decode_int8_kernel)",
+            e["launches"], {"max_abs_err": e["max_abs_err"],
+                            "tolerance": e["tolerance"], "ok": e["pass"]},
+            e["ms"], e["plain_ms"], None, e["bytes"], e["flops"],
+            {key: entries}))
 
 
 def decode_times(gen, B, S, ext, pads, H, Hkv, D, SETS, sweep=False):
@@ -4029,7 +4531,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
                          "stream,overlap,podcast,server,pool,clone,int8,"
-                         "load,train,codec_train,cli,profile,sweep "
+                         "mesh,load,train,codec_train,cli,profile,sweep "
                          "(default all = every phase but profile and sweep)")
     ap.add_argument("--rss_probe", metavar="DIR",
                     help="only load the HF-format LM directory DIR to the "
@@ -4045,7 +4547,7 @@ def main(argv=None) -> int:
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
                "overlap", "podcast", "server", "pool", "clone", "int8",
-               "load", "train", "codec_train", "cli"}
+               "mesh", "load", "train", "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
@@ -4110,17 +4612,28 @@ def main(argv=None) -> int:
     if "int8" in phases:
         longform = int8_phase("profile" in phases)[-1]
         torch.cuda.empty_cache()
+    mesh_line = None
+    if "mesh" in phases:
+        # the ranks share the card: this process holds nothing of before
+        _release()
+        mesh_line = mesh_phase(smi_line)
+        _release()
     if "kernels" in phases and main_line is not None:
         kernel_table(main_line, longform, checks, clone_line, stream_line,
-                     "sweep" in phases, pool_line, load_line)
+                     "sweep" in phases, pool_line, load_line, mesh_line)
         torch.cuda.empty_cache()
-    elif pool_line is not None:
-        # --phases pool alone: the pool's kernel entries on their own line
-        extra = pool_kernel_rows(pool_line, oks := [], 28)
-        emit({"pool_kernels": extra})
-        if not all(oks):
-            raise SystemExit("a kernel disagrees with its plain version at "
-                             "the pool's shapes")
+    else:
+        # --phases pool or mesh without main: their kernel entries on a
+        # line of their own
+        for line, rows_of, name in ((pool_line, pool_kernel_rows, "pool"),
+                                    (mesh_line, mesh_kernel_rows, "mesh")):
+            if line is None:
+                continue
+            extra = rows_of(line, oks := [], 28)
+            emit({f"{name}_kernels": extra})
+            if not all(oks):
+                raise SystemExit("a kernel disagrees with its plain version "
+                                 f"at the {name} phase's shapes")
     if "train" in phases:
         train_phase(smi_line, "profile" in phases)
         _release()

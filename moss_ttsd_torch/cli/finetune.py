@@ -1,5 +1,6 @@
 """Finetuning CLI for the PyTorch port: full finetuning or layerwise LoRA
-on one CUDA card (``--platform cpu`` runs on the CPU).
+on the CUDA card (``--platform cpu`` runs on the CPU), data-parallel over
+a process group when one is named.
 
 Mirrors ``moss_ttsd_tpu/cli/finetune.py``: the same flags (--model_path
 --data_dir --output_dir --training_config --lora_config --lora --tiny
@@ -17,8 +18,16 @@ from the newest).
 
 ``--model_path`` (without ``--tiny``) finetunes a real checkpoint: the
 HF-format directory's weights as fp32 masters and its tokenizer (which
-needs ``transformers``). Not ported, and refused: ``pipeline_stages`` > 1
-and ``sequence_parallel`` > 1 (multi-device training).
+needs ``transformers``).
+
+Data parallelism: launched as N processes (``python -m
+torch.distributed.run --nproc_per_node N``, or the ``JAX_*`` variables of
+``parallel/distributed.py``), the ranks join one group and one step
+takes ``per_device_train_batch_size`` x N rows (x the accumulation):
+every rank builds the same global batch and trains on its rows, the
+gradients are summed over the group. Rank 0 logs and writes every file;
+the others wait for it. Not ported, and refused: ``pipeline_stages`` > 1
+and ``sequence_parallel`` > 1.
 """
 
 from __future__ import annotations
@@ -82,18 +91,33 @@ def main(argv=None):
                      "not yet ported to moss_ttsd_torch")
 
     import torch
+    import torch.distributed as dist
     from ..core.checkpoint import (latest_step, restore_train_state,
                                    save_pytree, save_train_state)
     from ..core.device import resolve_device
     from ..models.lm import AsteroidLM
+    from ..parallel.distributed import initialize_multihost
+    from ..parallel.mesh import batch_spec, make_mesh
     from ..train.data import Prefetcher, TrainingDataset, collate
-    from ..train.step import init_train_state, make_optimizer, make_train_step
+    from ..train.step import (init_train_state, make_optimizer,
+                              make_train_step, shard_train_step)
     from ..train.telemetry import TrainLogger
     from ..utils.convert_jax import lm_state_to_jax
     from ..utils.mock_tokenizer import MockTokenizer
     from .inference import tiny_lm_config
 
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+    # a launcher (or the JAX variables) names a group: data parallelism
+    mesh = None
+    if initialize_multihost(device=device):
+        mesh = make_mesh(data=dist.get_world_size(), model=1,
+                         device_type=device.type)
+    data_ranks = 1 if mesh is None else mesh.data
+    lead = mesh is None or mesh.data_rank == 0
+
+    def wait_for_lead():
+        if mesh is not None:
+            dist.barrier()
     if args.tiny:
         tokenizer = MockTokenizer()
         # the inference CLI's tiny LM from the same seed: a voice trained
@@ -127,8 +151,8 @@ def main(argv=None):
         return 1
 
     # one step = one optimizer update over grad_accum micro batches of
-    # per_device_train_batch_size rows (one device)
-    micro_bs = int(tc.get("per_device_train_batch_size", 1))
+    # per_device_train_batch_size rows on each data rank
+    micro_bs = int(tc.get("per_device_train_batch_size", 1)) * data_ranks
     grad_accum = max(1, int(tc.get("gradient_accumulation_steps", 1)))
     batch_size = micro_bs * grad_accum
     epochs = int(tc.get("num_train_epochs", 1))
@@ -154,14 +178,17 @@ def main(argv=None):
             lora_targets=tuple(lc["target_modules"]))
         model = graft_lora_params(model, lcfg, seed=1)
         state = init_lora_state(model, optimizer)
-        step_fn = make_layerwise_lora_step(lcfg, optimizer, remat=remat,
-                                           grad_accum_steps=grad_accum)
+        make, step_cfg = make_layerwise_lora_step, lcfg
     else:
         state = init_train_state(cfg, optimizer, model=model)
-        step_fn = make_train_step(cfg, optimizer, remat=remat,
-                                  grad_accum_steps=grad_accum)
+        make, step_cfg = make_train_step, cfg
+    step_kw = dict(remat=remat, grad_accum_steps=grad_accum)
+    step_fn = (make(step_cfg, optimizer, **step_kw) if mesh is None else
+               shard_train_step(make, mesh, step_cfg, optimizer, **step_kw))
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
+    wait_for_lead()
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     save_every = (args.save_steps if args.save_steps is not None
                   else int(tc.get("save_steps", 0) or 0))
@@ -174,7 +201,8 @@ def main(argv=None):
         if last is not None:
             state = restore_train_state(ckpt_dir, last, state)
             start_step = last
-            print(f"resumed from {ckpt_dir}/step_{last}")
+            if lead:
+                print(f"resumed from {ckpt_dir}/step_{last}")
 
     def batch_indices(step: int) -> np.ndarray:
         """Deterministic per-epoch shuffles, so a resumed run sees the data
@@ -201,6 +229,10 @@ def main(argv=None):
             # (K*B, T, ...) -> (K, B, T, ...): one padded length for all
             batch = {k: v.reshape((grad_accum, micro_bs) + v.shape[1:])
                      for k, v in batch.items()}
+        if mesh is not None:        # this data rank's rows of each micro
+            rows = batch_spec(mesh, micro_bs)
+            batch = {k: (v[:, rows] if grad_accum > 1 else v[rows])
+                     for k, v in batch.items()}
         return batch
 
     steps = range(start_step + 1, total_steps + 1)
@@ -211,14 +243,15 @@ def main(argv=None):
     report_to = tc.get("report_to", "tensorboard")
     if isinstance(report_to, str):
         report_to = [report_to]
-    logger = TrainLogger(args.output_dir,
-                         use_tensorboard="tensorboard" in report_to)
+    logger = (TrainLogger(args.output_dir,
+                          use_tensorboard="tensorboard" in report_to)
+              if lead else None)
     t0 = time.perf_counter()
     step = start_step
     try:
         for step, batch in batches:
             state, metrics = step_fn(state, batch)
-            if step % log_every == 0 or step == total_steps:
+            if lead and (step % log_every == 0 or step == total_steps):
                 done = step - start_step
                 sps = done / max(time.perf_counter() - t0, 1e-9)
                 loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -228,12 +261,20 @@ def main(argv=None):
                 print(f"step {step}/{total_steps} loss={loss:.4f} "
                       f"grad_norm={gnorm:.3f} ({1.0 / max(sps, 1e-9):.2f}s/step)")
             if save_every and (step % save_every == 0 or step == total_steps):
-                save_train_state(ckpt_dir, state, step, keep=save_limit)
-                print(f"checkpointed step {step} -> {ckpt_dir}")
+                if lead:
+                    save_train_state(ckpt_dir, state, step, keep=save_limit)
+                    print(f"checkpointed step {step} -> {ckpt_dir}")
+                wait_for_lead()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         if hasattr(batches, "close"):
             batches.close()
+
+    if not lead:
+        wait_for_lead()             # the lead writes the outputs below
+        dist.destroy_process_group()
+        return 0
 
     if args.lora:
         from ..train.lora import fold_lora_tree
@@ -249,6 +290,9 @@ def main(argv=None):
         print(f"Model saved to {args.output_dir}")
     with open(os.path.join(args.output_dir, "train_config.json"), "w") as f:
         json.dump({"steps": step, "lora": args.lora, "config": tc}, f)
+    if mesh is not None:
+        wait_for_lead()
+        dist.destroy_process_group()
     return 0
 
 

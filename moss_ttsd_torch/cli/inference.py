@@ -51,7 +51,7 @@ def tiny_lm_config():
 
 def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
                         quant=None, restricted_text_head: bool = False,
-                        restricted_audit_every=None):
+                        restricted_audit_every=None, mesh=None):
     """Random tiny LM + codec + mock tokenizer wired into the real pipeline
     (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
     from ..core.config import (ChannelSamplingConfig, CodecConfig,
@@ -76,7 +76,21 @@ def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
                        quant=quant,
                        restricted_text_head=restricted_text_head or None,
                        restricted_audit_every=restricted_audit_every,
-                       device=dev)
+                       device=dev, mesh=mesh)
+
+
+def join_mesh(spec: str, device: str, error):
+    """The ("data", "model") mesh of ``--mesh DATAxMODEL``: the process
+    group the launcher (``torch.distributed.run``) or the ``JAX_*``
+    variables name is joined first; a mesh that does not match its world
+    size is an error (``error``, the parser's)."""
+    from ..parallel.distributed import initialize_multihost
+    from ..parallel.mesh import parse_mesh_arg
+    initialize_multihost(device=device, timeout_s=600)
+    try:
+        return parse_mesh_arg(spec, device_type=device)
+    except ValueError as e:
+        error(str(e))
 
 
 def _not_yet(parser, flag: str):
@@ -119,17 +133,19 @@ def main(argv=None):
     parser.add_argument("--adapter_alpha", type=float, default=32.0,
                         help="LoRA alpha of lora_factors.npz adapters (a "
                              "peft directory brings its own)")
+    parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                        help="a (data, model) mesh of processes, e.g. 1x2 "
+                             "under torch.distributed.run --nproc_per_node "
+                             "2: rows split over data, weights over model; "
+                             "rank 0 writes the outputs")
     # flags of the JAX CLI that this port does not implement yet: accepted
     # so they fail loudly instead of being silently ignored
-    parser.add_argument("--mesh", default=None)
     parser.add_argument("--attn_impl", default=None)
     args = parser.parse_args(argv)
 
     from ..utils.helpers import maybe_debug_attach
     maybe_debug_attach()
 
-    if args.mesh:
-        _not_yet(parser, "--mesh")
     if args.attn_impl not in (None, "mixed", "pallas"):
         _not_yet(parser, f"--attn_impl {args.attn_impl}")
     from ..utils import profiling
@@ -140,17 +156,20 @@ def main(argv=None):
             parser.error(str(e))
 
     device = "cpu" if args.platform == "cpu" else "cuda"
+    # every rank of a mesh runs the same pipeline; rank 0 writes
+    mesh = join_mesh(args.mesh, device, parser.error) if args.mesh else None
     if args.tiny:
         pipe = build_tiny_pipeline(
             seed=args.seed or 0, device=device, quant=args.quant,
-            restricted_text_head=args.restricted_text_head)
+            restricted_text_head=args.restricted_text_head, mesh=mesh)
     else:
         from ..pipeline.batch import TTSPipeline
         pipe = TTSPipeline.load(
             args.model_path, args.spt_config, args.spt_ckpt, quant=args.quant,
             codec_dtype="bfloat16" if args.dtype == "bf16" else None,
             restricted_text_head=args.restricted_text_head or None,
-            attn_impl=args.attn_impl, device=device)
+            attn_impl=args.attn_impl, device=device, mesh=mesh)
+    lead = pipe.is_lead
 
     from ..utils.convert_lora import parse_adapter_specs
     for name, (tree, alpha, rslora) in parse_adapter_specs(
@@ -175,6 +194,10 @@ def main(argv=None):
             adapter=adapter)
     if args.profile_dir:
         print(f"Saved profiler trace to {args.profile_dir}")
+    if not lead:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        return 0
 
     if args.summary_file:
         with open(args.summary_file, "w", encoding="utf-8") as f:
@@ -200,6 +223,9 @@ def main(argv=None):
     print(f"Phase timings: {pipe.timings.as_dict()}")
     print(f"Inference completed. Saved {saved}/{len(items)} audio files to "
           f"{args.output_dir}")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -79,8 +79,12 @@ class ContinuousBatcher:
     every row's whole cache (extent S), the reference for the per-row
     extents. ``lora``: a ``LoraRegistry`` to share (a serving engine's, so
     its voices are registered and stored once); by default the pool's
-    engine has its own. ``mesh`` (tensor-parallel serving) is not ported
-    (ROADMAP A13).
+    engine has its own. ``mesh`` (``parallel/mesh.Mesh``): the weights
+    tensor-parallel over its "model" axis (the engine's sharding; a shard
+    is taken as it is), the pool state per rank with the rank's KV heads,
+    the sampled tokens broadcast from the model group's first rank every
+    step; each data replica runs the same whole pool, as the JAX pool's
+    replicated state does.
 
         cb = ContinuousBatcher(cfg, model, sampling, slots=8, device="cuda")
         cb.submit(shifted_prompt, max_new_tokens=200)   # whenever slots free
@@ -97,25 +101,29 @@ class ContinuousBatcher:
                  len_aware: bool = True,
                  restricted_text_head: Optional[bool] = None,
                  lora: Optional[LoraRegistry] = None):
-        if mesh is not None:
-            raise ValueError("mesh: tensor-parallel pools are not ported to "
-                             "moss_ttsd_torch (ROADMAP A13)")
-        # the engine's weight handling (dtype cast, int8 quantization) and
-        # its prefill; the pool never decodes through the engine's loop
+        # the engine's weight handling (dtype cast, int8 quantization,
+        # sharding) and its prefill; the pool never decodes through the
+        # engine's loop
         eng = GenerationEngine(cfg, params, sampling, bucket=base,
                                step_bucket=max_steps, device=device,
                                quant=quant, kv_quant=kv_quant,
-                               restricted_text_head=restricted_text_head)
+                               restricted_text_head=restricted_text_head,
+                               mesh=mesh)
         if lora is not None:
-            if (lora.dtype, lora.device, lora.num_layers) != (
-                    eng.cache_dtype, eng.device, eng.cfg.num_hidden_layers):
+            if (lora.dtype, lora.device, lora.num_layers,
+                    lora.shard is None) != (
+                    eng.cache_dtype, eng.device, eng.cfg.num_hidden_layers,
+                    eng.tp is None):
                 raise ValueError(
                     f"lora registry ({lora.dtype}, {lora.device}, "
-                    f"{lora.num_layers} layers) does not match the pool "
+                    f"{lora.num_layers} layers, sharded "
+                    f"{lora.shard is not None}) does not match the pool "
                     f"({eng.cache_dtype}, {eng.device}, "
-                    f"{eng.cfg.num_hidden_layers} layers)")
+                    f"{eng.cfg.num_hidden_layers} layers, sharded "
+                    f"{eng.tp is not None})")
             eng.lora = lora
         self.engine = eng
+        self.mesh = mesh
         self.cfg = eng.cfg
         self.model = eng.model
         self.sampling = eng.sampling
@@ -157,7 +165,8 @@ class ContinuousBatcher:
             step_r=torch.zeros((B,), **i64),
             max_r=torch.full((B,), self.max_steps, **i64),
             tokens=torch.zeros((B, S, C), **i64),
-            cache=init_cache(cfg, B, S, self.cache_dtype, dev),
+            cache=init_cache(cfg, B, S, self.cache_dtype, dev,
+                             self.model.kv_heads),
             key_valid=torch.zeros((B, S), **no),
             hidden_last=torch.zeros((B, 1, cfg.hidden_size),
                                     dtype=self.cache_dtype, device=dev),
@@ -363,6 +372,8 @@ class ContinuousBatcher:
             st.presence_text, st.presence_speech, srow, eng.ch_params,
             self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
             pad_speech, lo)
+        if eng.tp is not None:      # one draw for the whole model group
+            next_tokens = eng.tp.broadcast(next_tokens)
 
         # adv-gated: a row that does not advance samples garbage (dropped
         # below) and must not arm the flush countdown

@@ -22,6 +22,13 @@ passed to the extent-clamped decode kernel. Each decode step makes exactly
 one host sync, the ``unfinished.any()`` loop test (counted on the card by
 ``chip_smoke.py``). ``generate_stream`` runs the same loop in segments over
 one decode state and one generator, so its tokens are ``generate``'s.
+
+On a ("data", "model") mesh (``parallel/mesh.py``) each process holds its
+model rank's shard of the weights and its data rank's rows; the sampled
+tokens are broadcast from the model group's first rank every step (so the
+ranks' caches never diverge), the loop test is taken over the whole mesh
+(every data rank runs the batch's steps, as the JAX loop does) and the
+tokens are gathered to every rank at the end of each call or segment.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from ..ops.quantize import is_quantized_tree, quantize_lm_params
 from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
+from ..parallel.mesh import batch_spec, shard_params
 from .lora_registry import LoraRegistry
 
 
@@ -169,7 +177,15 @@ class GenerationEngine:
     (``decode/lora_registry.py``); ``generate(adapter=...)`` then runs the
     prefill and every decode step of each row through its adapter. A
     training-time ``cfg.lora_rank`` config is refused (ValueError): a
-    trained voice serves as an adapter (``train/lora.py``)."""
+    trained voice serves as an adapter (``train/lora.py``).
+
+    ``mesh`` (``parallel/mesh.Mesh``): tensor-parallel weights over its
+    "model" axis (the full weights are cast, quantized and then sharded;
+    an ``AsteroidLM`` that is already a shard is taken as it is) and the
+    batch's rows split over its "data" axis (the batch must divide by it).
+    Each data rank seeds its generator from (seed, data rank), so sampled
+    rows draw other noise than without a mesh; greedy tokens are the
+    same."""
 
     def __init__(self, cfg: LMConfig,
                  params: Union[AsteroidLM, Mapping[str, torch.Tensor]],
@@ -178,7 +194,7 @@ class GenerationEngine:
                  device: DeviceLike = "cuda", quant: Optional[str] = None,
                  kv_quant: Optional[str] = None,
                  restricted_text_head: Optional[bool] = None,
-                 restricted_audit_every: Optional[int] = None):
+                 restricted_audit_every: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
@@ -193,6 +209,8 @@ class GenerationEngine:
         _refuse_unported(cfg)
         self.cfg = cfg
         self.text_window = cfg.text_head_window()
+        self.mesh = mesh
+        self.tp = None if mesh is None else mesh.tensor_parallel(cfg)
         self.model = self._build_model(cfg, params)
         self.cache_dtype = torch_dtype(cfg.dtype)
         self.sampling = sampling or SamplingConfig.default(cfg.channels)
@@ -207,9 +225,11 @@ class GenerationEngine:
             for c in self.sampling.channels]
         # host-clock split of the last generate() (prefill / decode loop)
         self.last_stats: dict = {}
-        # multi-LoRA registry: id 0 = the base model
-        self.lora = LoraRegistry(self.cache_dtype, cfg.num_hidden_layers,
-                                 self.device)
+        # multi-LoRA registry: id 0 = the base model; under tensor
+        # parallelism its stacks hold the rank's factor slices
+        self.lora = LoraRegistry(
+            self.cache_dtype, cfg.num_hidden_layers, self.device,
+            shard=None if self.tp is None else self.tp.shard_lora)
 
     def register_adapter(self, name: str, lora: dict, alpha: float = 32.0,
                          use_rslora: bool = True) -> int:
@@ -218,10 +238,13 @@ class GenerationEngine:
         Register every adapter before serving traffic."""
         return self.lora.register(name, lora, alpha, use_rslora)
 
-    def _adapter_operands(self, adapter, batch: int) -> Optional[dict]:
-        """The rows' LoRA factors (``select_adapters``) for ``adapter`` (one
-        name, or a per-row list; None = the base model), or None when
-        every row is on the base model (nothing to add in any projection)."""
+    def _adapter_operands(self, adapter, batch: int,
+                          rows: slice = slice(None)) -> Optional[dict]:
+        """The LoRA factors (``select_adapters``) of the batch's ``rows``
+        for ``adapter`` (one name, or a per-row list over the whole batch;
+        None = the base model), or None when every row is on the base
+        model (nothing to add in any projection). Every name is checked,
+        also those of other data ranks' rows."""
         if not self.lora:
             named = ([adapter] if adapter is None or isinstance(adapter, str)
                      else list(adapter))
@@ -229,7 +252,7 @@ class GenerationEngine:
                 raise ValueError(
                     f"unknown adapter {adapter!r}; none registered")
             return None
-        row_ids = self.lora.row_ids(adapter, batch)
+        row_ids = self.lora.row_ids(adapter, batch)[rows]
         if not any(row_ids):
             return None
         ids = torch.tensor(row_ids, dtype=torch.int64, device=self.device)
@@ -243,18 +266,28 @@ class GenerationEngine:
         that needs no cast."""
         state = (params.state_dict() if isinstance(params, AsteroidLM)
                  else dict(params))
+        shard = isinstance(params, AsteroidLM) and params.tp is not None
+        if shard and (self.tp is None or (params.tp.rank, params.tp.size)
+                      != (self.tp.rank, self.tp.size)):
+            raise ValueError("a tensor-parallel shard needs the engine's "
+                             "mesh to hold the same model rank")
         dev = self.device
         if is_quantized_tree(state):
             if not cfg.quantized:
                 raise ValueError("int8 weights need quant='int8'")
             state = {k: v.to(dev) for k, v in state.items()}
         else:
+            if shard and cfg.quantized:
+                raise ValueError("quantize the full weights, not a shard "
+                                 "(rowwise scales span every rank)")
             state = {k: v.to(device=dev, dtype=torch_dtype(cfg.dtype))
                      for k, v in state.items()}
             if cfg.quantized:
                 state = quantize_lm_params(state)
+        if self.tp is not None and not shard:
+            state = shard_params(state, self.mesh, cfg)
         with torch.device("meta"):
-            model = AsteroidLM(cfg)
+            model = AsteroidLM(cfg, self.tp)
         model.load_state_dict(state, assign=True)
         return model.eval().requires_grad_(False)
 
@@ -311,7 +344,8 @@ class GenerationEngine:
         positions = (torch.cumsum(m, dim=1) - 1).clamp_min(0)
         key_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
         key_valid[:, :base] = m.to(torch.bool)
-        cache = init_cache(cfg, B, S, self.cache_dtype, dev)
+        cache = init_cache(cfg, B, S, self.cache_dtype, dev,
+                           self.model.kv_heads)
         hidden, cache = self.model.backbone(buf[:, :base], positions,
                                             key_valid, cache, 0,
                                             adapters=adapters)
@@ -353,6 +387,8 @@ class GenerationEngine:
             st.presence_speech, s, self.ch_params,
             self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
             pad_speech, lo)                                      # (B, C)
+        if self.tp is not None:     # one draw for the whole model group
+            next_tokens = self.tp.broadcast(next_tokens)
 
         # restricted-head audit: every N-th step stream the full text head
         # once and count the live rows whose best out-of-window raw logit
@@ -405,28 +441,71 @@ class GenerationEngine:
     def run(self, st: DecodeState, base: int, upto: int,
             gen: Optional[torch.Generator],
             adapters: Optional[dict] = None) -> DecodeState:
-        """Decode until step == upto or every row finished. The
-        ``unfinished.any()`` test is the step's one host sync."""
-        while st.step < upto and bool(st.unfinished.any()):
+        """Decode until step == upto or every row finished (on a mesh:
+        every row of every data rank). The ``unfinished.any()`` test is
+        the step's one host sync."""
+        while st.step < upto and self._any(st.unfinished):
             self._step(st, base, gen, adapters)
         return st
+
+    def _any(self, flags: torch.Tensor) -> bool:
+        if self.mesh is None:
+            return bool(flags.any())
+        return self.mesh.any_unfinished(flags)
+
+    def _rows(self, batch: int) -> slice:
+        """This data rank's rows of a ``batch``-row request."""
+        if self.mesh is None:
+            return slice(None)
+        return batch_spec(self.mesh, batch)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``x``."""
+        return x if self.mesh is None else self.mesh.gather_rows(x)
+
+    def _data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A counter summed over the data ranks."""
+        if self.mesh is None:
+            return x
+        return self.mesh.all_reduce(x.clone(), self.mesh.data_group)
+
+    def _seed(self, seed: int) -> int:
+        """Data rank 0 draws from ``seed``; rank d > 0 from (seed, d)."""
+        if self.mesh is None or self.mesh.data_rank == 0:
+            return int(seed)
+        return int(np.random.SeedSequence(
+            [int(seed) % 2 ** 63, self.mesh.data_rank]).generate_state(
+                1, np.uint64)[0] % 2 ** 63)
+
+    def make_pool(self, **kwargs):
+        """A ``ContinuousBatcher`` over this engine's weights, voice
+        registry, policies and mesh (no copy); ``kwargs`` are its geometry
+        (``slots``, ``base``, ``max_steps``, ``kv_quant``, ...)."""
+        from .continuous import ContinuousBatcher
+        return ContinuousBatcher(
+            self.cfg, self.model, self.sampling, device=self.device,
+            quant="int8" if self.cfg.quantized else None,
+            restricted_text_head=self.cfg.restricted_text_head,
+            lora=self.lora, mesh=self.mesh, **kwargs)
 
     def _start(self, input_ids: np.ndarray, attention_mask: np.ndarray,
                max_new_tokens: Optional[int], seed: int, adapter):
         """Budget, adapters, bucketed prompt, seeded generator and
         prefilled state of one request -> (state, base, max_steps,
         buf_steps, gen, bucketed ids, bucketed mask, prefill seconds,
-        adapters)."""
+        adapters). The ids and mask are the whole batch's; the state holds
+        this data rank's rows."""
         max_steps, buf_steps = self._step_budget(max_new_tokens,
                                                  input_ids.shape[1])
-        adapters = self._adapter_operands(adapter, input_ids.shape[0])
+        rows = self._rows(input_ids.shape[0])
+        adapters = self._adapter_operands(adapter, input_ids.shape[0], rows)
         input_ids, attention_mask, base = self._bucket_prompt(input_ids,
                                                               attention_mask)
         dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        gen = torch.Generator(device=dev).manual_seed(self._seed(seed))
         t0 = time.perf_counter()
-        st = self.prefill(torch.as_tensor(input_ids, device=dev),
-                          torch.as_tensor(attention_mask, device=dev),
+        st = self.prefill(torch.as_tensor(input_ids[rows], device=dev),
+                          torch.as_tensor(attention_mask[rows], device=dev),
                           base, buf_steps, adapters)
         if dev.type == "cuda":      # the loop's first any() test syncs anyway
             torch.cuda.synchronize(dev)
@@ -458,13 +537,13 @@ class GenerationEngine:
                         adapter)
         t1 = time.perf_counter()
         st = self.run(st, base, max_steps, gen, ad)
-        tokens = st.tokens.cpu().numpy()
+        tokens = self._gather(st.tokens[:, :base + st.step]).cpu().numpy()
         audit = None
         if self._audit_on():
-            audit = tuple(int(v) for v in
-                          torch.stack([st.audit_rows, st.audit_flagged]).cpu())
+            audit = tuple(int(v) for v in self._data_sum(
+                torch.stack([st.audit_rows, st.audit_flagged])).cpu())
         self._stats(prefill_s, t1, st, base, buf_steps, ids, mask, audit)
-        return GenerateResult(tokens=tokens[:, :base + st.step],
+        return GenerateResult(tokens=tokens,
                               steps=st.step, base=base, audit=audit)
 
     def generate_stream(self, input_ids: np.ndarray,
@@ -507,11 +586,12 @@ class GenerationEngine:
                 upto = min(done + chunk_steps, max_steps)
             st = self.run(st, base, upto, gen, ad)
             steps = st.step
-            parts = [st.tokens[:, base + done:base + steps].reshape(-1),
-                     st.unfinished.to(torch.int64)]
+            parts = [self._gather(st.tokens[:, base + done:base + steps]
+                                  ).reshape(-1),
+                     self._gather(st.unfinished.to(torch.int64))]
             if audit_on:
-                parts += [st.audit_rows.reshape(1),
-                          st.audit_flagged.reshape(1)]
+                parts.append(self._data_sum(
+                    torch.stack([st.audit_rows, st.audit_flagged])))
             vals = torch.cat(parts).cpu().numpy()
             n_new = B * (steps - done) * C
             host[:, base + done:base + steps] = vals[:n_new].reshape(

@@ -30,12 +30,15 @@ class LoraRegistry:
     ``num_layers`` (the model's depth) fixes the stacked L dim: adapters
     that cover only some layers (peft layers_to_transform) zero-pad to it,
     and a factor tree with more layers than the model is refused at
-    registration."""
+    registration. ``shard(target, a, b) -> (a, b)`` cuts each full stack
+    to a tensor-parallel rank's slice before it goes to the device
+    (``parallel/mesh.TensorParallel.shard_lora``)."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  num_layers: Optional[int] = None,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), shard=None):
         self.dtype = dtype
+        self.shard = shard
         self.num_layers = num_layers
         self.device = torch.device(device)
         self.ids: Dict[Optional[str], int] = {None: 0, "": 0}
@@ -148,6 +151,8 @@ class LoraRegistry:
                         f"{fin}->{fout}")
                 A[:a.shape[0], i + 1, :, :a.shape[-1]] = a
                 B[:b.shape[0], i + 1, :b.shape[1]] = b
+            if self.shard is not None:
+                A, B = self.shard(t, A, B)
             stacks[t] = tuple(
                 torch.from_numpy(x).to(device=self.device, dtype=self.dtype)
                 for x in (A, B))

@@ -96,9 +96,11 @@ class QLinear(nn.Module):
                                      requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True
+                ) -> torch.Tensor:
         w = self.weight_q.to(x.dtype) * self.weight_s.to(x.dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        b = (None if self.bias is None or not add_bias
+             else self.bias.to(x.dtype))
         return F.linear(x, w, b)
 
 
@@ -110,7 +112,8 @@ class Dense(nn.Linear):
     ``rank`` > 0 is the JAX ``LoRADense``: y = x W + ((x A) B) * scale
     (+ bias), with A (in, r) and B (r, out) beside the base weight; the
     scale is held at the compute dtype's precision, as JAX's weakly typed
-    Python scale is."""
+    Python scale is. ``add_bias=False`` leaves the bias to the caller (a
+    rowwise tensor-parallel projection adds it after the reduction)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = False, rank: int = 0, scale: float = 1.0):
@@ -121,9 +124,10 @@ class Dense(nn.Linear):
             self.lora_a = nn.Parameter(torch.zeros(in_features, rank))
             self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True
+                ) -> torch.Tensor:
         dt = x.dtype
-        w, bias = self.weight, self.bias
+        w, bias = self.weight, (self.bias if add_bias else None)
         if w.dtype != dt:                  # the serving path casts nothing
             w = w.to(dt)
         if bias is not None and bias.dtype != dt:
@@ -136,13 +140,22 @@ class Dense(nn.Linear):
 
 
 class Qwen3Block(nn.Module):
-    """One decoder layer (JAX ``Qwen3Block``)."""
+    """One decoder layer (JAX ``Qwen3Block``). Under tensor parallelism
+    (``tp``, ``parallel/mesh.TensorParallel``) it holds the rank's query
+    heads, the KV heads they read and its slice of the MLP: q/k/v/gate/up
+    give the rank's outputs, o/down a partial product that one all-reduce
+    sums before their bias is added."""
 
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig, tp=None):
         super().__init__()
         c = cfg
         self.cfg = cfg
+        self.tp = tp
         H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        ffn = c.intermediate_size
+        if tp is not None:
+            H, Hkv, ffn = tp.heads, len(tp.kv_heads), tp.ffn
+        self.heads, self.kv_heads = H, Hkv
         hid, bias = c.hidden_size, c.attention_bias
 
         def dense(fan_in, fan_out, bias, name):
@@ -164,19 +177,27 @@ class Qwen3Block(nn.Module):
         self.q_norm = RMSNorm(D, c.rms_norm_eps)
         self.k_norm = RMSNorm(D, c.rms_norm_eps)
         self.post_ln = RMSNorm(hid, c.rms_norm_eps)
-        self.gate_proj = dense(hid, c.intermediate_size, False, "gate_proj")
-        self.up_proj = dense(hid, c.intermediate_size, False, "up_proj")
-        self.down_proj = dense(c.intermediate_size, hid, False, "down_proj")
+        self.gate_proj = dense(hid, ffn, False, "gate_proj")
+        self.up_proj = dense(hid, ffn, False, "up_proj")
+        self.down_proj = dense(ffn, hid, False, "down_proj")
 
     def _proj(self, name: str, h: torch.Tensor,
               adapters: Optional[dict]) -> torch.Tensor:
         """The projection ``name`` of h (B, T, in), plus the rows' LoRA
         delta when ``adapters`` holds this target: (a (B, in, r), b (B, r,
-        out)) of this layer, the scale folded into b."""
-        y = getattr(self, name)(h)
+        out)) of this layer, the scale folded into b. A rowwise
+        tensor-parallel projection sums the ranks' partial products (the
+        delta's too) and then adds its bias once."""
+        layer = getattr(self, name)
+        partial = self.tp is not None and self.tp.is_rowwise(name)
+        y = layer(h, add_bias=not partial)
         if adapters is not None and name in adapters:
             a, b = adapters[name]
             y = y + torch.bmm(torch.bmm(h, a), b)
+        if partial:
+            y = self.tp.reduce(y)
+            if layer.bias is not None:
+                y = y + layer.bias.to(y.dtype)
         return y
 
     def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
@@ -185,8 +206,7 @@ class Qwen3Block(nn.Module):
                 write_gate: Optional[torch.Tensor] = None,
                 read_extent: Optional[torch.Tensor] = None,
                 adapters: Optional[dict] = None):
-        c = self.cfg
-        H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
         B, T, _ = x.shape
         h = self.input_ln(x)
         q = self._proj("q_proj", h, adapters).reshape(B, T, H, D)
@@ -263,13 +283,21 @@ def select_adapters(stacks: Dict[str, tuple], ids: torch.Tensor
 
 
 class AsteroidLM(nn.Module):
-    """8-channel LM. Channel 0 = text+speech vocab; channels 1-7 speech-only."""
+    """8-channel LM. Channel 0 = text+speech vocab; channels 1-7 speech-only.
 
-    def __init__(self, cfg: LMConfig):
+    ``tp`` (``parallel/mesh.TensorParallel``): the module holds one model
+    rank's shard (``parallel/mesh.shard_params``): its heads and MLP slice
+    in every block, its rows of the text table (a masked lookup summed over
+    the ranks; the tied head's logits gathered to the full fp32 row).
+    ``kv_heads`` is the cache's head count either way."""
+
+    def __init__(self, cfg: LMConfig, tp=None):
         super().__init__()
         c = cfg
         self.cfg = cfg
-        text = (c.vocab_size, c.hidden_size)
+        self.tp = tp
+        v0, v1 = (0, c.vocab_size) if tp is None else tp.vocab
+        text = (v1 - v0, c.hidden_size)
         speech = (c.channels - 1, c.speech_vocab_size, c.hidden_size)
         if c.quantized:
             # int8 tables + fp32 per-row scales (ops/quantize.py)
@@ -282,8 +310,9 @@ class AsteroidLM(nn.Module):
         else:
             self.embed_text = nn.Parameter(torch.empty(text))
             self.embed_speech = nn.Parameter(torch.empty(speech))
-        self.layers = nn.ModuleList(Qwen3Block(c)
+        self.layers = nn.ModuleList(Qwen3Block(c, tp)
                                     for _ in range(c.num_hidden_layers))
+        self.kv_heads = self.layers[0].kv_heads if self.layers else 0
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
 
     @classmethod
@@ -326,8 +355,9 @@ class AsteroidLM(nn.Module):
             input_ids[..., i].clamp(0, c.speech_vocab_size - 1)
             for i in range(1, c.channels)]
         if c.quantized:
-            rows = [self.embed_text_q[ids[0]].to(dtype)
-                    * self.embed_text_s[ids[0]].to(dtype)]
+            rows = [self._text_rows(ids[0], lambda i: (
+                self.embed_text_q[i].to(dtype)
+                * self.embed_text_s[i].to(dtype)))]
             rows += [self.embed_speech_q[i - 1][ids[i]].to(dtype)
                      * self.embed_speech_s[i - 1][ids[i]].to(dtype)
                      for i in range(1, c.channels)]
@@ -335,10 +365,23 @@ class AsteroidLM(nn.Module):
             for r in rows[1:]:
                 x = x + r
             return x
-        x = F.embedding(ids[0], self.embed_text)
+        x = self._text_rows(ids[0], lambda i: F.embedding(i, self.embed_text))
         for i in range(1, c.channels):
             x = x + F.embedding(ids[i], self.embed_speech[i - 1])
         return x.to(dtype)
+
+    def _text_rows(self, ids: torch.Tensor, lookup) -> torch.Tensor:
+        """``lookup`` of the clamped text ids; vocab-parallel: each rank
+        looks up the ids of its rows (the others give 0) and the sum over
+        the ranks is the full lookup (exact: one rank adds a non-zero)."""
+        tp = self.tp
+        if tp is None or not tp.vocab_split:
+            return lookup(ids)
+        v0, v1 = tp.vocab
+        mine = (ids >= v0) & (ids < v1)
+        rows = lookup(torch.where(mine, ids - v0, 0))
+        rows = torch.where(mine[..., None], rows, 0)
+        return tp.reduce(rows)
 
     # -- backbone ------------------------------------------------------------
 
@@ -421,24 +464,41 @@ class AsteroidLM(nn.Module):
 
     def _text_head(self, hidden: torch.Tensor, lo: int, hi: int
                    ) -> torch.Tensor:
-        """Text logits over table rows [lo, hi): (..., hi - lo) fp32."""
+        """Text logits over table rows [lo, hi): (..., hi - lo) fp32.
+        Vocab-parallel: each rank's rows inside the window, gathered."""
         h = self._head_input(hidden)
-        if self.cfg.quantized:
-            w = self.embed_text_q[lo:hi].to(h.dtype)
-            t = matmul_f32_out(h, w.t()) * self.embed_text_s[lo:hi, 0].float()
-        else:
-            t = matmul_f32_out(h, self.embed_text[lo:hi].t())
+        t = self._head_rows(h, lo, hi)
+        if self.tp is not None:
+            t = self.tp.gather_vocab(t, lo, hi)
         return t.reshape(*hidden.shape[:-1], hi - lo)
+
+    def _head_rows(self, h: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """(N, rows) fp32 logits of this module's table rows inside
+        [lo, hi) (all of them without tensor parallelism)."""
+        v0 = 0
+        if self.tp is not None:
+            v0 = self.tp.vocab[0]
+            lo, hi = self.tp.window(lo, hi)
+            hi = max(lo, hi)
+        a, b = lo - v0, hi - v0
+        if self.cfg.quantized:
+            w = self.embed_text_q[a:b].to(h.dtype)
+            return matmul_f32_out(h, w.t()) * self.embed_text_s[a:b, 0].float()
+        return matmul_f32_out(h, self.embed_text[a:b].t())
 
     def text_logits_outside_max(self, hidden: torch.Tensor) -> torch.Tensor:
         """Max channel-0 logit outside the restricted-head window — the
         audit probe of ``cfg.restricted_audit_every``: one full-table head
         product that asks whether the full head would have preferred an
-        ordinary text token. hidden (B, 1, H) -> (B,) fp32."""
+        ordinary text token. hidden (B, 1, H) -> (B,) fp32. Vocab-parallel:
+        each rank's max over its rows, then the max over the ranks."""
         lo, hi = self.cfg.text_head_window()
-        t = self._text_head(hidden, 0, self.cfg.vocab_size)[:, 0]
-        t[:, lo:hi] = float("-inf")
-        return t.amax(dim=-1)
+        v0, v1 = (0, self.cfg.vocab_size) if self.tp is None else \
+            self.tp.window(0, self.cfg.vocab_size)
+        t = self._head_rows(self._head_input(hidden), 0, self.cfg.vocab_size)
+        t[:, max(lo, v0) - v0:max(min(hi, v1), v0) - v0] = float("-inf")
+        m = t.amax(dim=-1)
+        return m if self.tp is None else self.tp.max(m)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None):
@@ -469,15 +529,17 @@ def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+               device: DeviceLike = "cuda",
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Static KV cache, head-major (L, B, Hkv, S, D), on ``device`` (the
     card unless the caller asks for the CPU; no card raises): the decode
     kernels read it directly with no per-step transpose. With
     ``cfg.kv_quant == "int8"`` k/v are int8 and "k_s"/"v_s" hold fp32
-    (L, B, Hkv, S) scales."""
+    (L, B, Hkv, S) scales. ``kv_heads``: a tensor-parallel rank's local
+    head count (``AsteroidLM.kv_heads``) in place of the config's."""
     device = resolve_device(device)
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len,
-             cfg.head_dim)
+    shape = (cfg.num_hidden_layers, batch,
+             kv_heads or cfg.num_key_value_heads, max_len, cfg.head_dim)
     if cfg.kv_quant == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),

@@ -14,6 +14,16 @@ audio is byte-identical to the serial generate-then-vocode branch.
 ``stream_item`` streams one item as PCM chunks through ``StreamVocoder``.
 Phase times go to ``PhaseTimings`` and to the process-wide ``metrics``
 registry (``utils/profiling.py``), which the server exports.
+
+On a ("data", "model") mesh (``parallel/mesh.py``) every rank runs the
+same ``process_batch`` in lockstep (the inference CLI under
+``torch.distributed.run``): the batch is padded with repeats of its last
+row to a multiple of the data axis, the engine shards it, and the codec
+runs on rank 0 only (the prompt voices encoded there and broadcast, the
+audio vocoded and returned there; the other ranks return None for every
+item), as the JAX package's codec is not meshed either. A server's lead
+rank instead mirrors its engine calls to follower ranks
+(``parallel/mirror.py``) and runs the pipeline alone.
 """
 
 from __future__ import annotations
@@ -201,7 +211,7 @@ class TTSPipeline:
                  restricted_audit_every: Optional[int] = None,
                  encode_cache_size: int = 16,
                  overlap_vocode: bool = True,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         """``quant="int8"`` serves w8a16 weights; ``restricted_text_head``
         and ``restricted_audit_every`` set the decode policies of the same
         names (``GenerationEngine``). ``self.lm_cfg`` is the engine's config,
@@ -209,13 +219,19 @@ class TTSPipeline:
         codec encodings of single prompt voices by wav content (a fixed
         voice is encoded once, not on every request); 0 disables it.
         ``overlap_vocode`` vocodes each completed 30 s codec window while
-        the LM keeps decoding (outputs longer than one window only)."""
+        the LM keeps decoding (outputs longer than one window only).
+        ``mesh``: tensor- and data-parallel serving (``parallel/mesh.py``;
+        every rank of the mesh runs ``process_batch`` in lockstep)."""
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
         self.engine = GenerationEngine(
             lm_cfg, lm_params, sampling, bucket=bucket, device=self.device,
             quant=quant, restricted_text_head=restricted_text_head,
-            restricted_audit_every=restricted_audit_every)
+            restricted_audit_every=restricted_audit_every, mesh=mesh)
+        self.mesh = mesh
+        # lockstep: every mesh rank runs process_batch (a server's lead
+        # rank clears it: its followers replay engine calls instead)
+        self.lockstep = mesh is not None
         self.lm_cfg = self.engine.cfg
         self.spt = spt
         self.vocode_rows_per_call = vocode_rows_per_call
@@ -244,15 +260,11 @@ class TTSPipeline:
         compute dtype and moved to ``device`` as they are read.
         ``codec_dtype="bfloat16"`` (the default, the serving configuration)
         runs the codec in bf16 with its fp32 islands; None runs it in fp32
-        as the reference does. ``mesh`` (multi-device serving) is not
-        ported and is refused."""
+        as the reference does. ``mesh``: every rank loads the full weights
+        and keeps its shard (``GenerationEngine``)."""
         import os
         from ..core.device import torch_dtype
         from ..utils.convert_lm import load_asteroid_checkpoint
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (multi-device serving) is not yet ported to "
-                "moss_ttsd_torch")
         dev = resolve_device(device)
         cfg_path = os.path.join(model_path, "config.json")
         if not os.path.exists(cfg_path):
@@ -275,7 +287,7 @@ class TTSPipeline:
         return cls(tokenizer, lm_cfg, lm_params, spt, sampling, quant=quant,
                    restricted_text_head=restricted_text_head,
                    restricted_audit_every=restricted_audit_every,
-                   device=dev)
+                   device=dev, mesh=mesh)
 
     def _prepare_text(self, item: dict, use_normalize: bool):
         """Text half of item preparation -> (final_text, meta, wav-or-None)."""
@@ -355,6 +367,23 @@ class TTSPipeline:
         self._add_time("tokenize_s", time.perf_counter() - t0)
         return codes_list
 
+    @property
+    def is_lead(self) -> bool:
+        """Whether this process runs the codec: always without a lockstep
+        mesh, rank 0 with one."""
+        import torch.distributed as dist
+        return not self.lockstep or dist.get_rank() == 0
+
+    def _encode_shared(self, wavs: List[np.ndarray]) -> List[np.ndarray]:
+        """``_encode_prompts`` on the lead rank, its codes broadcast to the
+        other lockstep ranks."""
+        if not self.lockstep:
+            return self._encode_prompts(wavs)
+        import torch.distributed as dist
+        box = [self._encode_prompts(wavs) if self.is_lead else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     def _add_time(self, phase: str, seconds: float) -> None:
         """One phase's wall time into ``timings`` and ``metrics``."""
         self.timings.add(phase, seconds)
@@ -373,7 +402,8 @@ class TTSPipeline:
         "error" entry in its text metadata; the rest of the batch still
         generates. ``adapter``: a registered LoRA voice for the whole batch,
         or a per-item list of names (None = the base model); an unknown
-        name raises ValueError in the engine."""
+        name raises ValueError in the engine. Under a lockstep mesh only
+        rank 0 returns audio (the others None for every item)."""
         staged, texts_data = [], []   # (i, meta slot, final_text, wav)
         for i, item in enumerate(batch_items):
             try:
@@ -386,7 +416,7 @@ class TTSPipeline:
             staged.append((i, len(texts_data), final_text, wav))
             texts_data.append(meta)
 
-        codes_iter = iter(self._encode_prompts(
+        codes_iter = iter(self._encode_shared(
             [wav for *_, wav in staged if wav is not None]))
         shifted_list, ok_idx = [], []
         for i, slot, final_text, wav in staged:
@@ -414,6 +444,25 @@ class TTSPipeline:
         batch, mask = pp.left_pad_batch(shifted_list,
                                         self.tokenizer.pad_token_id,
                                         self.lm_cfg.speech_pad_token)
+        # a data axis splits the rows: pad with repeats of the last row to
+        # a multiple of it (the extra rows are dropped below)
+        n_real = batch.shape[0]
+        if self.mesh is not None:
+            pad_rows = -n_real % self.mesh.data
+            if pad_rows:
+                batch = np.concatenate(
+                    [batch, np.repeat(batch[-1:], pad_rows, axis=0)])
+                mask = np.concatenate(
+                    [mask, np.repeat(mask[-1:], pad_rows, axis=0)])
+                if isinstance(adapter, (list, tuple)):
+                    adapter = list(adapter) + [adapter[-1]] * pad_rows
+        lead = self.is_lead
+
+        def trim(res):
+            if res.tokens.shape[0] == n_real:
+                return res
+            return res._replace(tokens=res.tokens[:n_real], unfinished=(
+                None if res.unfinished is None else res.unfinished[:n_real]))
 
         t0 = time.perf_counter()
         C, nq = self.lm_cfg.channels, self.spt.nq
@@ -437,12 +486,15 @@ class TTSPipeline:
             for result in self.engine.generate_stream(
                     batch, mask, max_new_tokens, seed=seed,
                     boundaries=bounds, adapter=adapter):
+                result = trim(result)
+                if not lead:        # the codec runs on the lead rank only
+                    continue
                 inc.feed([c if c is not None else np.zeros((nq, 0), np.int64)
                           for c in self.extract_codes(result)],
                          [not bool(u) for u in result.unfinished])
         else:
-            result = self.engine.generate(batch, mask, max_new_tokens,
-                                          seed=seed, adapter=adapter)
+            result = trim(self.engine.generate(batch, mask, max_new_tokens,
+                                               seed=seed, adapter=adapter))
         self._add_time("prefill_decode_s", time.perf_counter() - t0)
         self.timings.add("generated_steps", result.steps)
         metrics.add("generated_steps", result.steps)
@@ -458,7 +510,7 @@ class TTSPipeline:
                 valid_codes.append(codes)
 
         wavs = []
-        if valid_codes:
+        if valid_codes and lead:
             t0 = time.perf_counter()
             if inc is not None and len(valid_codes) == len(final_codes):
                 wavs = inc.finish(final_codes)["syn_wav_list"]

@@ -34,7 +34,12 @@ client attaches.
 ``--model_path DIR --spt_config YAML --spt_ckpt CKPT`` serves a real
 checkpoint (``TTSPipeline.load``; the tokenizer needs ``transformers``).
 
-Multi-chip meshes are not ported (ROADMAP A13): ``--mesh`` is refused.
+``--mesh DATAxMODEL`` serves over a mesh of processes (one a card;
+``python -m torch.distributed.run --nproc_per_node N``, or the ``JAX_*``
+variables of ``parallel/distributed.py``): rank 0 owns HTTP, the
+scheduler and the codec, and its engine and pool calls are replayed in
+order by the other ranks (``parallel/mirror.py``); a follower that fails
+stops the server (exit 1) instead of hanging it.
 """
 
 from __future__ import annotations
@@ -257,7 +262,6 @@ class ContinuousWorker:
     def __init__(self, pipeline, slots: int = 8, base: int = 512,
                  max_steps: int = 2048, segment_steps: int = 25,
                  kv_quant: Optional[str] = "auto", max_queue: int = 64):
-        from ..decode.continuous import ContinuousBatcher
         self.pipeline = pipeline
         eng = pipeline.engine
         if kv_quant == "auto":
@@ -267,13 +271,10 @@ class ContinuousWorker:
             kv_quant = "none"
         elif kv_quant != "int8":
             raise ValueError(f"unknown pool kv_quant {kv_quant!r}")
-        # the pool's engine wraps the pipeline engine's weights and voice
-        # registry (no copy of either)
-        self.cb = ContinuousBatcher(
-            eng.cfg, eng.model, eng.sampling, slots=slots, base=base,
-            max_steps=max_steps, device=eng.device,
-            quant="int8" if eng.cfg.quantized else None, kv_quant=kv_quant,
-            restricted_text_head=eng.cfg.restricted_text_head, lora=eng.lora)
+        # the pool's engine wraps the pipeline engine's weights, voice
+        # registry and mesh (no copy of either)
+        self.cb = eng.make_pool(
+            slots=slots, base=base, max_steps=max_steps, kv_quant=kv_quant)
         self.segment_steps = segment_steps
         self.max_queue = max_queue
         self._queue: List[_Request] = []
@@ -941,20 +942,21 @@ def main(argv=None):
     p.add_argument("--warmup", action="store_true",
                    help="one tiny request through the scheduler before "
                         "accepting traffic")
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="serve over a (data, model) mesh of processes, e.g. "
+                        "1x2 under torch.distributed.run --nproc_per_node 2"
+                        ": rank 0 serves HTTP, the others follow")
     # flags of the JAX server this port does not implement yet: accepted so
     # that they fail loudly instead of being ignored
     p.add_argument("--attn_impl", default=None)
-    p.add_argument("--mesh", default=None)
     p.add_argument("--jax_cache_dir", default=None)
     args = p.parse_args(argv)
 
     from ..utils.helpers import maybe_debug_attach
     maybe_debug_attach()
 
-    for flag, val in (("--mesh", args.mesh),
-                      ("--jax_cache_dir", args.jax_cache_dir)):
-        if val:
-            p.error(f"{flag} is not yet ported to moss_ttsd_torch")
+    if args.jax_cache_dir:
+        p.error("--jax_cache_dir is not yet ported to moss_ttsd_torch")
     if args.attn_impl not in (None, "mixed", "pallas"):
         p.error(f"--attn_impl {args.attn_impl} is not yet ported to "
                 "moss_ttsd_torch")
@@ -962,12 +964,17 @@ def main(argv=None):
     lora_adapters = parse_adapter_specs(args.lora_adapter,
                                         args.adapter_alpha, p.error)
     device = "cpu" if args.platform == "cpu" else "cuda"
+    mesh = None
+    if args.mesh:
+        from ..cli.inference import join_mesh
+        mesh = join_mesh(args.mesh, device, p.error)
     if args.tiny or not args.model_path:
         from ..cli.inference import build_tiny_pipeline
         pipeline = build_tiny_pipeline(
             device=device, quant=args.quant,
             restricted_text_head=args.restricted_text_head,
-            restricted_audit_every=args.restricted_audit_every or None)
+            restricted_audit_every=args.restricted_audit_every or None,
+            mesh=mesh)
     else:
         from ..pipeline.batch import TTSPipeline
         pipeline = TTSPipeline.load(
@@ -975,7 +982,21 @@ def main(argv=None):
             restricted_text_head=args.restricted_text_head or None,
             attn_impl=args.attn_impl,
             restricted_audit_every=args.restricted_audit_every or None,
-            device=device)
+            device=device, mesh=mesh)
+    channel = None
+    if mesh is not None:
+        import torch.distributed as dist
+        from ..parallel.mirror import Channel
+        channel = Channel()
+        if channel.rank != 0:
+            # a follower: replay the lead's engine calls until it stops
+            code = channel.follow(pipeline.engine)
+            dist.destroy_process_group()
+            return code
+        # the lead: its engine calls go through the channel, and its
+        # pipeline runs alone (no lockstep codec broadcast)
+        pipeline.engine = channel.lead(pipeline.engine)
+        pipeline.lockstep = False
     if args.restricted_audit_every and args.scheduler == "continuous":
         print("note: --restricted_audit_every audits only the requests the "
               "window scheduler or the overflow worker serves; the pool "
@@ -995,12 +1016,24 @@ def main(argv=None):
     server.start()
     print(f"serving on {args.host}:{server.port} (scheduler="
           f"{args.scheduler}, max_batch={args.max_batch}, "
-          f"device={pipeline.device})", flush=True)
+          f"device={pipeline.device}"
+          f"{'' if mesh is None else f', mesh={mesh}'})", flush=True)
     try:
-        threading.Event().wait()
+        if channel is None:
+            threading.Event().wait()
+        while channel.failed is None:
+            time.sleep(0.5)
     except KeyboardInterrupt:
         server.stop()
-    return 0
+        if channel is not None:
+            channel.stop()
+            dist.destroy_process_group()
+        return 0
+    # a follower failed: stop serving rather than hang
+    print(f"mesh failure: {channel.failed!r}", file=sys.stderr, flush=True)
+    server.stop()
+    return 1
+
 
 
 if __name__ == "__main__":

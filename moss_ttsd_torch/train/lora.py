@@ -256,14 +256,16 @@ def init_lora_state(model: AsteroidLM, optimizer: ClippedAdamW
 
 def make_layerwise_lora_step(cfg: LMConfig, optimizer: ClippedAdamW,
                              loss_weights=None, remat: bool = True,
-                             ce_chunks: int = 8, grad_accum_steps: int = 1):
+                             ce_chunks: int = 8, grad_accum_steps: int = 1,
+                             group=None):
     """train_step(state, batch) for a model with ``cfg.lora_rank`` > 0 (see
     ``init_lora_state``): the full step's forward, loss and accumulation,
     with gradients only for the factors (the frozen tables still give the
-    loss its heads)."""
+    loss its heads). Under ``group`` (data parallelism) only the factors'
+    gradients are summed over it."""
     if cfg.lora_rank <= 0:
         raise ValueError("cfg.lora_rank must be set for layerwise LoRA")
     return make_train_step(cfg, optimizer,
                            loss_weights or DEFAULT_LOSS_WEIGHTS, remat=remat,
                            ce_chunks=ce_chunks,
-                           grad_accum_steps=grad_accum_steps)
+                           grad_accum_steps=grad_accum_steps, group=group)

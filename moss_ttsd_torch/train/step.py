@@ -1,6 +1,5 @@
 """The training step of AsteroidLM finetuning, PyTorch port of
-``moss_ttsd_tpu/train/step.py`` (the sharding helpers wait for the port's
-parallelism).
+``moss_ttsd_tpu/train/step.py``.
 
 One optimizer step: the cache-free backbone (each block recomputed in the
 backward under ``remat``), the chunked multi-channel loss, exact gradient
@@ -9,6 +8,13 @@ and ``adamw`` as the JAX package chains them: the learning rate of update n
 (counted from 0) is ``schedule(n)``, weight decay is decoupled and applies
 to every trainable tensor, and the reported ``grad_norm`` is the norm before
 clipping.
+
+Data parallelism (``group=``, or ``shard_train_step`` over a mesh's data
+group): each rank runs its rows of the global batch, the CE denominators
+(``valid_label_counts``) are summed over the group so every rank
+normalises by the global count, the gradients are summed after the
+accumulation and before the clip, and the reported loss, per-channel loss
+and grad norm are the global batch's.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import LMConfig
 from ..core.device import DeviceLike, torch_dtype
@@ -172,6 +179,9 @@ def lm_loss(model: AsteroidLM, batch: Mapping[str, torch.Tensor],
     """(total, per-channel) loss of one batch {"input_ids" (B, T, C),
     "labels" (B, T, C), "attention_mask" (B, T)}: the cache-free backbone,
     then the chunked CE against the model's tied tables."""
+    if model.tp is not None:
+        raise NotImplementedError("tensor-parallel training is not ported: "
+                                  "the step is data-parallel only")
     mask = batch["attention_mask"]
     positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
     hidden, _ = model.backbone(batch["input_ids"], positions, mask.bool(),
@@ -181,16 +191,58 @@ def lm_loss(model: AsteroidLM, batch: Mapping[str, torch.Tensor],
                          num_chunks=ce_chunks, counts=counts)
 
 
-def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor]):
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (itself without one)."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def global_label_counts(labels: torch.Tensor, group=None) -> torch.Tensor:
+    """``valid_label_counts`` of the global batch: this rank's, summed over
+    ``group``."""
+    return _sum(valid_label_counts(labels), group)
+
+
+def all_reduce_grads(params, group, bucket_bytes: int = 256 << 20) -> None:
+    """Sum the ``.grad`` of ``params`` over ``group`` in place (a tensor
+    without one counts as zero): flat buckets of at most ``bucket_bytes``,
+    one collective each."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    bucket: list = []
+    size = 0
+    for p in params + [None]:
+        if p is not None and (not bucket or (
+                size + p.grad.nbytes <= bucket_bytes
+                and p.grad.dtype == bucket[0].grad.dtype)):
+            bucket.append(p)
+            size += p.grad.nbytes
+            continue
+        if not bucket:
+            break
+        flat = torch.cat([q.grad.reshape(-1) for q in bucket])
+        dist.all_reduce(flat, group=group)
+        for q, g in zip(bucket, flat.split([q.grad.numel()
+                                            for q in bucket])):
+            q.grad.copy_(g.view_as(q.grad))
+        bucket, size = ([p], p.grad.nbytes) if p is not None else ([], 0)
+
+
+def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor],
+                         group=None):
     """Gradient accumulation over a (K, ...) micro-batched ``batch``.
 
     ``loss_fn(micro_batch, counts) -> (loss, per_channel)`` normalises by
-    the shared ``counts`` (valid_label_counts of the whole superbatch), so
-    the micro losses are linear in the micro batches and the gradients that
-    K ``backward`` calls sum into ``.grad`` equal the one-big-batch gradient
-    up to reduction order. Returns (summed loss, summed per-channel), both
-    detached."""
-    counts = valid_label_counts(batch["labels"])
+    the shared ``counts`` (valid_label_counts of the whole superbatch; over
+    ``group``, of every rank's), so the micro losses are linear in the
+    micro batches and the gradients that K ``backward`` calls sum into
+    ``.grad`` equal the one-big-batch gradient up to reduction order.
+    Returns (summed loss, summed per-channel), both detached: this rank's
+    share of the global ones."""
+    counts = global_label_counts(batch["labels"], group)
     K = batch["labels"].shape[0]
     loss_sum = per_sum = None
     for k in range(K):
@@ -205,7 +257,7 @@ def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor]):
 def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
                     loss_weights: Sequence[float] = DEFAULT_LOSS_WEIGHTS,
                     remat: bool = True, ce_chunks: int = 8,
-                    grad_accum_steps: int = 1):
+                    grad_accum_steps: int = 1, group=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``state.model`` runs the forward and ``state.params`` are what the
@@ -214,7 +266,10 @@ def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
     with ``grad_accum_steps`` K > 1 every leaf gains a leading (K,) micro
     axis and K forward/backwards run before the one update. ``state`` is
     updated in place and returned; metrics are device tensors: "loss",
-    "loss_per_channel" (C,), "grad_norm" (before clipping)."""
+    "loss_per_channel" (C,), "grad_norm" (before clipping). Under
+    ``group`` (data parallelism) ``batch`` is this rank's rows, the
+    gradients of ``state.params`` are summed over the group before the
+    clip, and the metrics are the global batch's."""
     del cfg     # the model carries its config; kept for the JAX signature
 
     def train_step(state: TrainState, batch):
@@ -226,17 +281,61 @@ def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
             return lm_loss(model, b, loss_weights, ce_chunks, remat, counts)
 
         if grad_accum_steps > 1:
-            loss, per = accum_value_and_grad(loss_fn, batch)
+            loss, per = accum_value_and_grad(loss_fn, batch, group)
         else:
-            loss, per = loss_fn(batch)
+            counts = (None if group is None
+                      else global_label_counts(batch["labels"], group))
+            loss, per = loss_fn(batch, counts)
             loss.backward()
             loss, per = loss.detach(), per.detach()
+        if group is not None:
+            all_reduce_grads(state.params.values(), group)
+            parts = _sum(torch.cat([loss.reshape(1), per]), group)
+            loss, per = parts[0], parts[1:]
         norm = optimizer.update(state.optimizer, state.step)
         state.step += 1
         return state, {"loss": loss, "loss_per_channel": per,
                        "grad_norm": norm}
 
     return train_step
+
+
+# -- data parallelism over a mesh ----------------------------------------------
+
+def opt_state_specs(state: TrainState, param_specs: Mapping[str, str]
+                    ) -> Dict[str, Dict[str, str]]:
+    """The layout of the AdamW state (``parallel/mesh.lm_param_specs``
+    kinds): each moment inherits its parameter's kind, the step counters
+    are replicated (JAX ``opt_state_specs``)."""
+    names = {id(p): n for n, p in state.params.items()}
+    out = {}
+    for p, st in state.optimizer.state.items():
+        name = names[id(p)]
+        out[name] = {k: (param_specs[name] if torch.is_tensor(v)
+                         and v.shape == p.shape else "replicated")
+                     for k, v in st.items()}
+    return out
+
+
+def train_state_specs(state: TrainState, param_specs: Mapping[str, str]
+                      ) -> dict:
+    """The whole train state's layout: the step, the parameters and the
+    optimizer state (JAX ``train_state_specs``)."""
+    return {"step": "replicated",
+            "params": {n: param_specs[n] for n in state.params},
+            "opt_state": opt_state_specs(state, param_specs)}
+
+
+def shard_train_step(make_step, mesh, *args, **kwargs):
+    """The step ``make_step(*args, **kwargs)`` (``make_train_step`` or
+    ``train.lora.make_layerwise_lora_step``) over ``mesh``'s data group:
+    the parameters and the AdamW moments replicated on every data rank,
+    the batch's rows split over them (JAX ``shard_train_step``). The model
+    axis must be 1: tensor-parallel training is not ported."""
+    if mesh.model != 1:
+        raise NotImplementedError("tensor-parallel training (a model axis "
+                                  "> 1) is not ported")
+    return make_step(*args, group=mesh.data_group, **kwargs)
 
 
 def init_train_state(cfg: LMConfig, optimizer: ClippedAdamW,

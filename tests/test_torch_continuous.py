@@ -469,7 +469,7 @@ def test_fuzz_random_schedule_matches_isolated(models):
 def test_refusals_come_before_device_work(models):
     """Oversized prompt, over-capacity and zero budgets, an unknown
     adapter: ValueError, the pool untouched; the config default clamps;
-    a mesh is refused."""
+    a mesh that does not fit the process group is refused."""
     jcfg, params, cfg, model = models
     rng = np.random.default_rng(3)
     cb = pool(cfg, model, slots=1, max_steps=16)
@@ -484,7 +484,8 @@ def test_refusals_come_before_device_work(models):
         cb.submit(p, max_new_tokens=4, adapter="nope")
     assert cb.free_slots == 1 and not bool(cb.state.active.any())
     assert cb.submit(p) is not None               # default budget clamps
-    with pytest.raises(ValueError, match="A13"):
-        pool(cfg, model, mesh="1x2")
+    from moss_ttsd_torch.parallel.mesh import parse_mesh_arg
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        pool(cfg, model, mesh=parse_mesh_arg("1x2", device_type="cpu"))
     with pytest.raises(ValueError, match="channels-1"):
         pool(cfg, model, max_steps=cfg.channels - 2)

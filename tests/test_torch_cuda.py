@@ -888,3 +888,76 @@ def test_podcast_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     assert sr == 24000 and np.isfinite(wav).all()
     assert wav.shape[-1] == round(ginfo["duration_s"] * sr) > 0
     assert wav.shape[-1] % 1920 == 0
+
+
+# -- tensor-parallel rank shapes and the NCCL mesh ---------------------------------
+
+@pytest.mark.parametrize("H,Hkv", [(8, 4), (4, 2), (1, 1)],
+                         ids=["tp2", "tp4", "g1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_at_tensor_parallel_rank_shapes(cuda, H, Hkv, dtype):
+    """A rank's heads of the model's 16 / 8 at tp 2 and 4, and G 1 (tp 16:
+    one query head and its replicated KV head): B1, B2 and B3 against
+    their plain versions, B2 and B3 also against the plain split at their
+    own plan (the plans change with Hkv)."""
+    dt = getattr(torch, dtype)
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dt)
+    B, T, S, D = 2, 121, 633, 128
+    q, k, v = rn(B, T, H, D), rn(B, T, Hkv, D), rn(B, T, Hkv, D)
+    valid = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    valid[1, :40] = False
+    out = fa.flash_prefill(q, k, v, valid, D ** -0.5)
+    _close(out, fa.flash_prefill_plain(q, k, v, valid, D ** -0.5,
+                                       out_dtype=torch.float32), dtype)
+    qd, kt, vt = rn(B, 1, H, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
+    kv = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    kv[0, :505] = True
+    kv[1, 92:505] = True
+    kq, ks = _int8_cache(cuda, (B, Hkv, S, D))
+    vq, vs = _int8_cache(cuda, (B, Hkv, S, D))
+    n_split, chunk = fa.decode_split_plan(B, Hkv, S,
+                                          fa.sm_count(torch.device("cuda")))
+    for name, args in (("flash_decode_hs", (qd, kt, vt)),
+                       ("flash_decode_int8_hs", (qd, kq, ks, vq, vs))):
+        a = (*args, kv, D ** -0.5)
+        kw = dict(extent=505, out_dtype=torch.float32, p_dtype=dt)
+        got = getattr(fa, name)(*a, extent=505)
+        _close(got, getattr(fa, name + "_plain")(*a, **kw), dtype)
+        _close(got, getattr(fa, name + "_split_plain")(
+            *a, n_split=n_split, chunk=chunk, **kw), dtype)
+
+
+def test_nccl_mesh_of_one_engine_equals_unsharded(cuda, tmp_path):
+    """A world of one over NCCL: the tiny engine on a 1x1 mesh (parse_mesh_
+    arg) gives the unsharded engine's greedy tokens; the mesh of the
+    wrong size is refused."""
+    import torch.distributed as dist
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             LMConfig, SamplingConfig)
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.parallel.distributed import initialize_multihost
+    from moss_ttsd_torch.parallel.mesh import make_mesh, parse_mesh_arg
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny()
+    greedy = SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=False, temperature=None, top_k=None, top_p=None)
+        for _ in range(cfg.channels)], max_new_tokens=12)
+    rng = np.random.default_rng(1)
+    prompt = np.full((2, 20, cfg.channels), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = rng.integers(1, 90, (2, 20))
+    mask = np.ones((2, 20), np.int64)
+    mask[1, :3] = 0
+    assert initialize_multihost("file://" + str(tmp_path / "store"), 1, 0,
+                                device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            parse_mesh_arg("1x2")
+        model = AsteroidLM.init_random(cfg, seed=0, device="cuda")
+        toks = [GenerationEngine(cfg, model, greedy, bucket=32, mesh=m
+                                 ).generate(prompt, mask, 12).tokens
+                for m in (None, parse_mesh_arg("1x1"), make_mesh(1, 1))]
+        np.testing.assert_array_equal(toks[1], toks[0])
+        np.testing.assert_array_equal(toks[2], toks[0])
+    finally:
+        dist.destroy_process_group()
