@@ -39,7 +39,7 @@ Phases, each printing one JSON line:
   7. int8     — int8 serving at the same width, the weights quantized inside
      the engine: TTSPipeline(quant="int8"); the same with the restricted text
      head and its audit; the long-form engine (quant and kv_quant "int8",
-     batch 1, 800 decode steps in a 1500-step cache) whose every decode
+     batch 1, 400 decode steps in a 1500-step cache) whose every decode
      step runs flash_decode_int8_hs;
   8. stream   — TTSPipeline.stream_item over item 0 of
      examples_only_text.jsonl at the main path's width (batch 1, 256 steps,
@@ -140,6 +140,22 @@ Phases, each printing one JSON line:
      podcast generator over a .txt (its JSON line has JAX's keys); the
      finetune workflow over the examples' voices (the port's codec encodes
      them), full finetuning checkpointed and resumed, LoRA finetuning;
+ 13. comm     — (runs the mesh phase) the collective inventory of the TP 1x2
+     bf16 decode (four steps profiled on rank 0, parallel/comm_analysis
+     .collective_events): 59 a step, as the mesh counts them, bytes by
+     kind, the host ms; the TP decode cost model at the mesh phase's
+     measured unsharded B 2 bf16 step, its table printed;
+ 14. seqpar   — full finetuning at the train phase's width and settings,
+     B 1: one process at T 4096 and 8192 (s/step, peak; the longest T
+     reckoned from the two peaks), then sequence parallelism 1x2 at T
+     4096 as two gloo processes sharing the card (per-rank peak, s/step,
+     the step's collectives by kind with their host ms, the K/V gathers
+     counted), loss and grad norm within 2^-8 of the one process's;
+ 15. pipe     — GPipe over two stages (14 layers each) as two gloo
+     processes sharing the card, T 2048, 4 microbatches of one row:
+     per-rank peak, s/step, sends and receives a step, the collectives,
+     loss and grad norm within 2^-8 of one process's K 4 accumulation
+     step on the same rows; no phase of 13-15 launches a kernel of csrc/;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
@@ -1189,7 +1205,7 @@ def int8_phase(profile: bool = False):
     with the restricted text head and its audit under the speech window
     (151665, 152695) of bench.py; (3) the long-form engine of bench_full.py
     (quant and kv_quant "int8", bucket 64, step_bucket 1500, batch 1, a
-    64-row random text prompt, 800 of the 1500 steps the cache holds).
+    64-row random text prompt, 400 of the 1500 steps the cache holds).
     ``profile``: a decode profile of runs 1 and 3 besides."""
     import numpy as np
     import torch
@@ -1222,7 +1238,7 @@ def int8_phase(profile: bool = False):
     lines.append(int8_pipeline_run("restricted_head_audit16", pipe, items))
     del pipe, spt
 
-    steps = 800
+    steps = 400
     sampling.max_new_tokens = steps
     eng = GenerationEngine(cfg, model, sampling, bucket=64, quant="int8",
                            kv_quant="int8", step_bucket=1500, device="cuda")
@@ -2573,35 +2589,38 @@ TRAIN_T = 2048
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 
 
-def train_batch(seed: int = 0):
-    """Two synthetic examples as ``build_training_example`` lays them out
-    (style and text rows masked, random audio codes and the EOS
-    supervised), written as one shard, read back through
-    ``TrainingDataset`` (the delay shift) and collated to T 2048, as K 2
-    micro batches of one row. Returns (batch, masked rows per example)."""
+def train_batch(seed: int = 0, n: int = 2, T: int = TRAIN_T):
+    """``n`` synthetic examples as ``build_training_example`` lays them
+    out (style and text rows masked, random audio codes and the EOS
+    supervised; every second one shorter by T/8, so padded), written as
+    one shard, read back through ``TrainingDataset`` (the delay shift)
+    and collated to ``T``, as ``n`` micro batches of one row. Returns
+    (batch, masked rows per example)."""
     import numpy as np
     from moss_ttsd_torch.train.data import (TrainingDataset,
                                             build_training_example, collate)
     from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
     tok = MockTokenizer()
     g = np.random.default_rng(seed)
-    data_dir = os.path.join(TRAIN_DIR, "data")
+    # a directory of this process's own: spawned ranks build theirs at once
+    data_dir = os.path.join(TRAIN_DIR, f"data_{os.getpid()}")
     shutil.rmtree(data_dir, ignore_errors=True)
     os.makedirs(data_dir)
     flat, masked = {}, []
-    for i, (text, short) in enumerate((
-            ("[S1]Welcome back.[S2]Thanks.", 0),
-            ("[S1]Hello.[S2]Hi there.", TRAIN_T // 8))):     # a padded row
+    for i in range(n):
+        text, short = (("[S1]Welcome back.[S2]Thanks.", 0),
+                       ("[S1]Hello.[S2]Hi there.", T // 8))[i % 2]
         rows = len(build_training_example(tok, text, np.zeros((0, 8)))[0])
-        codes = g.integers(0, 1024, (TRAIN_T - 7 - rows - short, 8))
+        codes = g.integers(0, 1024, (T - 7 - rows - short, 8))
         ids, labels = build_training_example(tok, text, codes)
         flat[f"input_ids_{i}"], flat[f"labels_{i}"] = ids, labels
         masked.append(int((labels[:, 0] == -100).sum()))
     np.savez(os.path.join(data_dir, "processed_data_00000.npz"), **flat)
     ds = TrainingDataset(data_dir, 8, tok.pad_token_id, 1024, seed=seed)
-    batch = collate([ds[0], ds[1]], tok.pad_token_id, max_length=TRAIN_T,
-                    pad_token=1024, pad_to_multiple=64)
-    return {k: v.reshape((2, 1) + v.shape[1:]) for k, v in batch.items()}, \
+    batch = collate([ds[i] for i in range(n)], tok.pad_token_id,
+                    max_length=T, pad_token=1024, pad_to_multiple=64)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return {k: v.reshape((n, 1) + v.shape[1:]) for k, v in batch.items()}, \
         masked
 
 
@@ -3897,6 +3916,15 @@ def mesh_tp_rank(rank, world, init, out):
         res[mode]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del eng
         torch.cuda.empty_cache()
+    # the comm phase's inventory: four bf16 decode steps profiled
+    from moss_ttsd_torch.parallel.comm_analysis import (collective_events,
+                                                        profile_decode_steps)
+    eng = mesh_engine(state, "bf16", mesh)
+    prof, counted = profile_decode_steps(eng, batch, mask, steps=4)
+    res["inventory"] = {"events": collective_events(prof, "decode_step"),
+                        "counted": counted, "steps": 4}
+    del eng, prof
+    torch.cuda.empty_cache()
     res["pool"] = mesh_pool_run(state, mesh)
     del state
     torch.cuda.empty_cache()
@@ -4100,7 +4128,343 @@ def mesh_phase(smi_line: str):
         raise SystemExit(f"mesh phase failed: {problems}")
     r0 = tp[0]
     return {"bf16": r0["bf16"], "int8": r0["int8"], "pool": r0["pool"],
-            "launches": {m: r0[m]["launches"] for m in MESH_STEPS}}
+            "launches": {m: r0[m]["launches"] for m in MESH_STEPS},
+            "inventory": r0["inventory"],
+            "unsharded_bf16_step_s": refs["bf16"]["decode_s_per_step"]}
+
+
+# -- phases 14-16: sequence parallelism, GPipe, communication accounting ------
+
+SEQ_TS = (4096, 8192)          # one-process full-finetuning steps, B 1
+SP_T = 4096                    # SP 1x2
+PIPE_T, PIPE_M = 2048, 4       # PP 2 stages, M microbatches of one row
+PAR_STEPS = 2
+# the SP and PP steps against one process: loss and grad norm within one
+# bf16 ulp (2^-8) relative, as the DP LoRA step: the ranks run other GEMM
+# shapes (T/2 query rows, half the layers), which round elsewhere
+PAR_REL = 2.0 ** -8
+
+
+def par_state(model=None):
+    """The train phase's full-finetuning setup: ``LMConfig()`` (fp32
+    masters from seed 0, bf16 compute), AdamW at a constant 1e-4, whose
+    update first records the card's peak since the step began in the
+    returned list: the forward's and backward's peak, before AdamW's own
+    temporaries (which set the whole step's peak at short T). The
+    caller resets the peak before each step."""
+    import torch
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.train.step import (ClippedAdamW, init_train_state,
+                                            make_optimizer)
+    peaks = []
+
+    class PeakBeforeUpdate(ClippedAdamW):
+        def update(self, optimizer, step, norm=None):
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            return super().update(optimizer, step, norm)
+
+    cfg = LMConfig()
+    o = make_optimizer(learning_rate=1e-4, lr_scheduler_type="constant",
+                       total_steps=100)
+    opt = PeakBeforeUpdate(o.schedule, o.weight_decay, o.grad_clip)
+    if model is None:
+        model = AsteroidLM.init_random(cfg, seed=0, device="cuda",
+                                       dtype=torch.float32)
+    return cfg, opt, init_train_state(cfg, opt, model=model), peaks
+
+
+def one_process_steps(batch, K: int = 1):
+    """PAR_STEPS full-finetuning steps (remat, ce_chunks 8) of one
+    process on ``batch`` at accumulation K: losses, grad norms, the
+    seconds of each step, the peak (model, gradients, AdamW and the
+    step's activations)."""
+    import torch
+    from moss_ttsd_torch.train.step import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, state, peaks = par_state()
+    step = make_train_step(cfg, opt, remat=True, ce_chunks=8,
+                           grad_accum_steps=K)
+    whole = []
+
+    def after(n, st):
+        whole.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    state, losses, norms, times = _train_steps(state, step, batch,
+                                               PAR_STEPS, after)
+    out = {"loss": losses, "grad_norm": norms, "step_s": times,
+           "peak_gib": max(whole), "backward_peak_gib": peaks[-1]}
+    del state, step
+    _release()
+    return out
+
+
+def par_steps(state, step, batch, mesh, peaks, region="train_step"):
+    """PAR_STEPS steps of a spawned rank; the last one inside
+    ``record_function(region)`` under torch.profiler (CPU, shapes), whose
+    collective events give the inventory of a step: counts and bytes by
+    kind, the backend's host ms. ``mesh.collectives`` counts the K/V
+    gathers and their backward sums (SP) or the sends and receives (PP)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.parallel.comm_analysis import (collective_events,
+                                                        format_inventory,
+                                                        summarize_inventory)
+    losses, norms, times, whole = [], [], [], []
+    fa.reset_launch_counts()
+    c0 = mesh.collectives
+    for n in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        if n:
+            whole.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if n == PAR_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU],
+                         record_shapes=True) as prof:
+                with record_function(region):
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+        else:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    events = [(op, us) for op, us in collective_events(prof, region)
+              if op.per_step]
+    ops = [op for op, _ in events]
+    return {"loss": losses, "grad_norm": norms, "step_s": times,
+            "mesh_counted_per_step": (mesh.collectives - c0) / PAR_STEPS,
+            "collectives_per_step": len(ops),
+            "by_kind": {k: {"count": n, "bytes": b} for k, (n, b) in
+                        summarize_inventory(ops)["per_step"].items()},
+            "collective_host_ms": sum(us for _, us in events) / 1e3,
+            "inventory": format_inventory(region, ops),
+            "launches": fa.launch_counts(),
+            "peak_gib": max(whole + [torch.cuda.max_memory_allocated()
+                                     / 2 ** 30]),
+            "backward_peak_gib": peaks[-1]}
+
+
+def seqpar_rank(rank, world, init, out):
+    """One of two seq ranks sharing the card over gloo: a (1, 2, 1)
+    ("data", "seq", "model") mesh, the full-finetuning step on one T
+    SP_T row, this rank training on its half of the time axis."""
+    import torch
+    import torch.distributed as dist
+    from moss_ttsd_torch.parallel.mesh import make_mesh
+    from moss_ttsd_torch.train.step import make_train_step, shard_train_step
+    _rank_init(rank, world, init, "gloo")
+    mesh = make_mesh(1, 1, seq=2, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, state, peaks = par_state()
+    step = shard_train_step(make_train_step, mesh, cfg, opt, remat=True,
+                            ce_chunks=8)
+    batch = {k: v[0] for k, v in train_batch(0, 1, SP_T)[0].items()}
+    torch.save(par_steps(state, step, batch, mesh, peaks), out)
+    dist.destroy_process_group()
+
+
+def pipe_rank(rank, world, init, out):
+    """One of two pipeline stages sharing the card over gloo: a (2, 1)
+    ("pipe", "data") mesh, 14 layers a stage, the GPipe step over PIPE_M
+    microbatches of one T PIPE_T row."""
+    import torch
+    import torch.distributed as dist
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.parallel.pipeline import (make_pp_mesh,
+                                                   make_pp_train_step,
+                                                   pp_stage_model)
+    _rank_init(rank, world, init, "gloo")
+    mesh = make_pp_mesh(2, 1, device_type="cuda")
+    model = pp_stage_model(AsteroidLM.init_random(
+        LMConfig(), seed=0, device="cuda", dtype=torch.float32), mesh)
+    _release()                  # the other stage's layers
+    torch.cuda.reset_peak_memory_stats()
+    cfg, opt, state, peaks = par_state(model)
+    step = make_pp_train_step(cfg, opt, mesh, remat=True, ce_chunks=8)
+    batch = train_batch(0, PIPE_M, PIPE_T)[0]
+    res = par_steps(state, step, batch, mesh, peaks)
+    res["layers"] = len(model.layers)
+    torch.save(res, out)
+    dist.destroy_process_group()
+
+
+def _rel_gaps(got, ref):
+    return {k: max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
+            for k in ("loss", "grad_norm")}
+
+
+def _longest_t(peaks, total_gib):
+    """The forward and backward's peak as base + c T^2 through the two
+    measured (T, GiB) points (the (16, T, T) fp32 scores of a layer
+    dominate what grows): the longest T under the card's memory, and the
+    peak it predicts at T 16000. A reckoning from two points, not a
+    measurement."""
+    (t1, p1), (t2, p2) = sorted(peaks.items())
+    c = (p2 - p1) / (t2 ** 2 - t1 ** 2)
+    base = p1 - c * t1 ** 2
+    return {"fit": "peak = base + c T^2", "base_gib": base,
+            "c_gib_per_t2": c, "longest_T": int(((total_gib - base) / c)
+                                                ** 0.5),
+            "predicted_peak_gib_at_16000": base + c * 16000 ** 2,
+            "card_gib": total_gib}
+
+
+def seqpar_phase(smi_line: str):
+    """One process's full-finetuning step at B 1 and T 4096 and 8192
+    (s/step, peak, the longest T reckoned from the two peaks), then SP 1x2
+    at T 4096 as two gloo processes sharing the card, against the one
+    process's T 4096 steps on the same weights and row."""
+    import torch
+    os.makedirs(MESH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    one = {}
+    for T in SEQ_TS:
+        batch = {k: v[0] for k, v in train_batch(0, 1, T)[0].items()}
+        one[T] = one_process_steps(batch)
+    t_one = time.perf_counter() - t0
+    ranks = _spawn_ranks(seqpar_rank, 2, "seqpar")
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    ref = one[SP_T]
+    line = {"phase": "seqpar", "nvidia_smi": smi_line,
+            "config": "LMConfig() full width, fp32 masters, bf16 compute, "
+                      "remat, ce_chunks 8, AdamW 1e-4, B 1",
+            "one_process": {str(T): r for T, r in one.items()},
+            "longest_T_reckoned": _longest_t(
+                {T: r["backward_peak_gib"] for T, r in one.items()}, total),
+            "sp": {"mesh": [1, 2, 1], "T": SP_T,
+                   "backend": "gloo (two processes, one card)",
+                   "ranks": ranks},
+            "tolerance": f"loss and grad norm rel <= {PAR_REL} (2^-8)"}
+    problems = []
+    for r, res in enumerate(ranks):
+        gaps = _rel_gaps(res, ref)
+        res["rel_to_one_process"] = gaps
+        if not max(gaps.values()) <= PAR_REL:
+            problems.append(f"SP rank {r}: {gaps}")
+        # 28 layers: K, V gathered and their cotangents summed, and the
+        # gathers again in remat's recompute
+        if res["mesh_counted_per_step"] != 28 * 6:
+            problems.append(f"SP rank {r}: {res['mesh_counted_per_step']} "
+                            f"gathers a step, want {28 * 6}")
+        if any(res["launches"].values()):
+            problems.append(f"SP rank {r} ran a serving kernel")
+    line["seconds"] = {"one_process": t_one,
+                       "sp_ranks": time.perf_counter() - t0 - t_one}
+    line["problems"] = problems
+    emit(line)
+    if problems:
+        raise SystemExit(f"seqpar phase failed: {problems}")
+
+
+def pipe_phase(smi_line: str):
+    """One process's K PIPE_M accumulation step over PIPE_M rows of T
+    PIPE_T, then the same rows through two pipeline stages (gloo, sharing
+    the card) as PIPE_M microbatches."""
+    os.makedirs(MESH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    ref = one_process_steps(train_batch(0, PIPE_M, PIPE_T)[0], K=PIPE_M)
+    t_one = time.perf_counter() - t0
+    ranks = _spawn_ranks(pipe_rank, 2, "pipe")
+    line = {"phase": "pipe", "nvidia_smi": smi_line,
+            "config": "LMConfig() full width, fp32 masters, bf16 compute, "
+                      "remat, ce_chunks 8, AdamW 1e-4",
+            "pp": {"mesh": [2, 1], "T": PIPE_T, "microbatches": PIPE_M,
+                   "rows_per_microbatch": 1,
+                   "backend": "gloo (two processes, one card)",
+                   "ranks": ranks},
+            "one_process_k4": ref,
+            "tolerance": f"loss and grad norm rel <= {PAR_REL} (2^-8)"}
+    problems = []
+    for r, res in enumerate(ranks):
+        gaps = _rel_gaps(res, ref)
+        res["rel_to_one_process"] = gaps
+        if not max(gaps.values()) <= PAR_REL:
+            problems.append(f"PP rank {r}: {gaps}")
+        # each stage: one send and one receive a microbatch (forward and
+        # backward) to its one neighbour
+        if res["mesh_counted_per_step"] != 2 * PIPE_M or res["layers"] != 14:
+            problems.append(f"PP rank {r}: {res['mesh_counted_per_step']} "
+                            f"sends/receives a step, {res['layers']} layers")
+        if any(res["launches"].values()):
+            problems.append(f"PP rank {r} ran a serving kernel")
+    line["seconds"] = {"one_process": t_one,
+                       "pp_ranks": time.perf_counter() - t0 - t_one}
+    line["problems"] = problems
+    emit(line)
+    if problems:
+        raise SystemExit(f"pipe phase failed: {problems}")
+
+
+def comm_phase(mesh_line, smi_line: str):
+    """The inventory of the mesh phase's TP 1x2 bf16 decode steps (rank 0,
+    four steps profiled) against the collectives the mesh counted and the
+    59 the layout needs (2 a layer, the text embedding, the head's
+    gather, the token broadcast); the TP decode cost model at the card's
+    measured unsharded B 2 bf16 step, the weight floor the bf16 layers'
+    bytes over HBM3."""
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.parallel import comm_analysis as ca
+    cfg = LMConfig()
+    inv = mesh_line["inventory"]
+    ops = [op for op, _ in inv["events"]]
+    step_ops = [(op, us) for op, us in inv["events"] if op.per_step]
+    n = inv["steps"]
+    want = 2 * cfg.num_hidden_layers + 3
+    layer_bytes = 2 * sum(_layer_numels(cfg).values())
+    single_us = 1e6 * mesh_line["unsharded_bf16_step_s"]
+    wb_us = ca.weight_bound_us(layer_bytes)
+    costs = ca.tp_decode_cost_model(cfg, 2, single_chip_step_us=single_us,
+                                    weight_bound_us=wb_us)
+    table = ca.format_tp_cost_table(costs, 2)
+    print(ca.format_inventory("TP 1x2 bf16 decode (rank 0)", ops))
+    print(table)
+    line = {"phase": "comm", "nvidia_smi": smi_line,
+            "inventory": {"steps_profiled": n,
+                          "collectives_per_step": len(step_ops) / n,
+                          "mesh_counted_per_step": inv["counted"] / n,
+                          "want_per_step": want,
+                          "by_kind_per_step": {
+                              k: {"count": c / n, "bytes": b / n}
+                              for k, (c, b) in ca.summarize_inventory(
+                                  ops)["per_step"].items()},
+                          "host_ms_per_step": sum(
+                              us for _, us in step_ops) / 1e3 / n,
+                          "per_call": ca.summarize_inventory(
+                              ops)["per_call"],
+                          "all_bytes_positive": all(op.bytes > 0
+                                                    for op in ops)},
+            "cost_model": {"hardware": ca.H100_SXM._asdict(), "batch": 2,
+                           "single_chip_step_us": single_us,
+                           "single_chip_step_source": "the mesh phase's "
+                           "unsharded bf16 engine, host clock a step",
+                           "weight_bound_us": wb_us,
+                           "weight_bytes": layer_bytes,
+                           "rows": [c._asdict() for c in costs],
+                           "table": table.splitlines()}}
+    problems = []
+    if not (len(step_ops) / n == inv["counted"] / n == want
+            and line["inventory"]["all_bytes_positive"]):
+        problems.append(f"inventory {line['inventory']}")
+    line["problems"] = problems
+    emit(line)
+    if problems:
+        raise SystemExit(f"comm phase failed: {problems}")
+
+
+def _layer_numels(cfg):
+    """Element counts of one layer's seven projections times the layers."""
+    H, Hkv, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    per = {"q": h * H * D, "k": h * Hkv * D, "v": h * Hkv * D,
+           "o": H * D * h, "gate": h * f, "up": h * f, "down": f * h}
+    return {k: v * cfg.num_hidden_layers for k, v in per.items()}
 
 
 def mesh_kernel_rows(mesh, checks_ok, SETS):
@@ -4531,8 +4895,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
                          "stream,overlap,podcast,server,pool,clone,int8,"
-                         "mesh,load,train,codec_train,cli,profile,sweep "
-                         "(default all = every phase but profile and sweep)")
+                         "mesh,comm,seqpar,pipe,load,train,codec_train,cli,"
+                         "profile,sweep (default all = every phase but "
+                         "profile and sweep; comm runs the mesh phase)")
     ap.add_argument("--rss_probe", metavar="DIR",
                     help="only load the HF-format LM directory DIR to the "
                          "card and print its host peak RSS (the load "
@@ -4547,8 +4912,11 @@ def main(argv=None) -> int:
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
                "overlap", "podcast", "server", "pool", "clone", "int8",
-               "mesh", "load", "train", "codec_train", "cli"}
+               "mesh", "comm", "seqpar", "pipe", "load", "train",
+               "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
+    if "comm" in phases:
+        phases.add("mesh")          # comm reads the mesh phase's TP ranks
     # fp32 comparisons are held in true fp32; the serving path runs the LM
     # and codec in bf16, where the TF32 flags do not apply
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4617,6 +4985,14 @@ def main(argv=None) -> int:
         # the ranks share the card: this process holds nothing of before
         _release()
         mesh_line = mesh_phase(smi_line)
+        _release()
+        if "comm" in phases:
+            comm_phase(mesh_line, smi_line)
+    if "seqpar" in phases:
+        seqpar_phase(smi_line)
+        _release()
+    if "pipe" in phases:
+        pipe_phase(smi_line)
         _release()
     if "kernels" in phases and main_line is not None:
         kernel_table(main_line, longform, checks, clone_line, stream_line,

@@ -23,11 +23,21 @@ needs ``transformers``).
 Data parallelism: launched as N processes (``python -m
 torch.distributed.run --nproc_per_node N``, or the ``JAX_*`` variables of
 ``parallel/distributed.py``), the ranks join one group and one step
-takes ``per_device_train_batch_size`` x N rows (x the accumulation):
-every rank builds the same global batch and trains on its rows, the
-gradients are summed over the group. Rank 0 logs and writes every file;
-the others wait for it. Not ported, and refused: ``pipeline_stages`` > 1
-and ``sequence_parallel`` > 1.
+takes ``per_device_train_batch_size`` x D rows (x the accumulation), D
+the data ranks: every rank builds the same global batch and trains on its
+rows, the gradients are summed over the group. Rank 0 logs and writes
+every file; the others wait for it.
+
+``sequence_parallel: SP`` (full finetuning only) splits the N ranks into
+N/SP data ranks of SP seq ranks each (``make_mesh(seq=)``): a data rank's
+seq ranks get its rows and each trains on its 1/SP of their time axis
+(collate pads T to a multiple of 64). ``pipeline_stages: S`` (full
+finetuning only) runs the GPipe step (``parallel/pipeline.py``) on an
+(S, N/S) ("pipe", "data") mesh: each stage holds L/S layers, the
+accumulation axis is the microbatch stream, rank 0 gathers the layers to
+write ``model.npz``, and each stage checkpoints its own part. As in JAX,
+both are refused with ``--lora``, together, or where they do not divide
+the ranks (or the layers).
 """
 
 from __future__ import annotations
@@ -49,6 +59,11 @@ def _read_config(path, parser):
         return config_yaml.load(path) or {}
     except ValueError as e:
         parser.error(f"{path}: {e}")
+
+
+def _hf_layers(model_path: str) -> int:
+    with open(os.path.join(model_path, "config.json")) as f:
+        return int(json.load(f)["num_hidden_layers"])
 
 
 def main(argv=None):
@@ -83,12 +98,6 @@ def main(argv=None):
 
     if not args.tiny and not args.model_path:
         parser.error("--model_path is required without --tiny")
-    if int(tc.get("pipeline_stages", 0) or 0) > 1:
-        parser.error("pipeline_stages > 1 (pipeline-parallel training) is not "
-                     "yet ported to moss_ttsd_torch")
-    if int(tc.get("sequence_parallel", 1) or 1) > 1:
-        parser.error("sequence_parallel > 1 (sequence-parallel training) is "
-                     "not yet ported to moss_ttsd_torch")
 
     import torch
     import torch.distributed as dist
@@ -98,6 +107,8 @@ def main(argv=None):
     from ..models.lm import AsteroidLM
     from ..parallel.distributed import initialize_multihost
     from ..parallel.mesh import batch_spec, make_mesh
+    from ..parallel.pipeline import (make_pp_mesh, make_pp_train_step,
+                                     pp_full_state, pp_stage_model)
     from ..train.data import Prefetcher, TrainingDataset, collate
     from ..train.step import (init_train_state, make_optimizer,
                               make_train_step, shard_train_step)
@@ -107,13 +118,46 @@ def main(argv=None):
     from .inference import tiny_lm_config
 
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
-    # a launcher (or the JAX variables) names a group: data parallelism
+    # a launcher (or the JAX variables) names a group: data parallelism,
+    # with a seq or a pipe axis when the config asks for one
+    grouped = initialize_multihost(device=device)
+    world = dist.get_world_size() if grouped else 1
+    pp_stages = int(tc.get("pipeline_stages", 0) or 0)
+    sp = int(tc.get("sequence_parallel", 1) or 1)
+
+    def refuse(msg):
+        # exit status 1 with the reason, as JAX's CLI returns 1
+        if grouped:
+            dist.destroy_process_group()
+        raise SystemExit(msg)
+    if pp_stages > 1 or sp > 1:
+        # JAX's refusals (moss_ttsd_tpu/cli/finetune.py)
+        if args.lora:
+            refuse("pipeline_stages and sequence_parallel are for full "
+                   "finetuning; the layerwise LoRA step shards over the "
+                   "data ranks only")
+        if pp_stages > 1 and sp > 1:
+            refuse("sequence_parallel composes with the full-finetune DP "
+                   "step only (not pipeline_stages)")
+        n = pp_stages if pp_stages > 1 else sp
+        layers = (tiny_lm_config().num_hidden_layers if args.tiny else
+                  _hf_layers(args.model_path))
+        if pp_stages > 1 and layers % pp_stages:
+            refuse(f"pipeline_stages={pp_stages} must divide the model's "
+                   f"{layers} layers")
+        if world % n:
+            key = ("pipeline_stages" if pp_stages > 1
+                   else "sequence_parallel")
+            refuse(f"{key}={n} must divide the {world} processes")
     mesh = None
-    if initialize_multihost(device=device):
-        mesh = make_mesh(data=dist.get_world_size(), model=1,
+    if pp_stages > 1:
+        mesh = make_pp_mesh(pipe=pp_stages, data=world // pp_stages,
+                            device_type=device.type)
+    elif grouped:
+        mesh = make_mesh(data=world // sp, model=1, seq=sp,
                          device_type=device.type)
     data_ranks = 1 if mesh is None else mesh.data
-    lead = mesh is None or mesh.data_rank == 0
+    lead = not grouped or dist.get_rank() == 0
 
     def wait_for_lead():
         if mesh is not None:
@@ -167,6 +211,8 @@ def main(argv=None):
         grad_clip=float(tc.get("max_grad_norm", 1.0)),
         lr_scheduler_type=str(tc.get("lr_scheduler_type", "cosine")))
 
+    if pp_stages > 1:
+        model = pp_stage_model(model, mesh)
     if args.lora:
         # layerwise adapters (models/lm.Dense): the base frozen, the
         # optimizer over the factors alone
@@ -183,8 +229,18 @@ def main(argv=None):
         state = init_train_state(cfg, optimizer, model=model)
         make, step_cfg = make_train_step, cfg
     step_kw = dict(remat=remat, grad_accum_steps=grad_accum)
-    step_fn = (make(step_cfg, optimizer, **step_kw) if mesh is None else
-               shard_train_step(make, mesh, step_cfg, optimizer, **step_kw))
+    if pp_stages > 1:
+        # the accumulation axis is the pipeline's microbatch stream
+        step_fn = make_pp_train_step(cfg, optimizer, mesh, remat=remat)
+    elif mesh is None:
+        step_fn = make(step_cfg, optimizer, **step_kw)
+    else:
+        step_fn = shard_train_step(make, mesh, step_cfg, optimizer,
+                                   **step_kw)
+    # a pipeline stage's first data rank checkpoints the stage's part
+    ckpt_name = ("state.pt" if pp_stages <= 1
+                 else f"state_stage{mesh.pipe_rank}.pt")
+    ckpt_writer = lead or (pp_stages > 1 and mesh.data_rank == 0)
 
     if lead:
         os.makedirs(args.output_dir, exist_ok=True)
@@ -199,7 +255,8 @@ def main(argv=None):
     if args.resume:
         last = latest_step(ckpt_dir)
         if last is not None:
-            state = restore_train_state(ckpt_dir, last, state)
+            state = restore_train_state(ckpt_dir, last, state,
+                                        name=ckpt_name)
             start_step = last
             if lead:
                 print(f"resumed from {ckpt_dir}/step_{last}")
@@ -225,13 +282,15 @@ def main(argv=None):
                 or labels[..., 1:].max() >= cfg.speech_vocab_size):
             raise ValueError(f"step {step}: labels beyond the model's vocab "
                              f"({cfg.vocab_size} / {cfg.speech_vocab_size})")
-        if grad_accum > 1:
-            # (K*B, T, ...) -> (K, B, T, ...): one padded length for all
+        micro = grad_accum > 1 or pp_stages > 1
+        if micro:
+            # (K*B, T, ...) -> (K, B, T, ...): one padded length for all;
+            # the accumulation's micro axis or the pipeline's microbatches
             batch = {k: v.reshape((grad_accum, micro_bs) + v.shape[1:])
                      for k, v in batch.items()}
         if mesh is not None:        # this data rank's rows of each micro
             rows = batch_spec(mesh, micro_bs)
-            batch = {k: (v[:, rows] if grad_accum > 1 else v[rows])
+            batch = {k: (v[:, rows] if micro else v[rows])
                      for k, v in batch.items()}
         return batch
 
@@ -261,8 +320,10 @@ def main(argv=None):
                 print(f"step {step}/{total_steps} loss={loss:.4f} "
                       f"grad_norm={gnorm:.3f} ({1.0 / max(sps, 1e-9):.2f}s/step)")
             if save_every and (step % save_every == 0 or step == total_steps):
+                if ckpt_writer:
+                    save_train_state(ckpt_dir, state, step, keep=save_limit,
+                                     name=ckpt_name)
                 if lead:
-                    save_train_state(ckpt_dir, state, step, keep=save_limit)
                     print(f"checkpointed step {step} -> {ckpt_dir}")
                 wait_for_lead()
     finally:
@@ -271,6 +332,8 @@ def main(argv=None):
         if hasattr(batches, "close"):
             batches.close()
 
+    full = (pp_full_state(model, mesh) if pp_stages > 1
+            else model.state_dict())
     if not lead:
         wait_for_lead()             # the lead writes the outputs below
         dist.destroy_process_group()
@@ -286,7 +349,7 @@ def main(argv=None):
         print(f"LoRA merged model saved to {args.output_dir}")
     else:
         save_pytree(os.path.join(args.output_dir, "model.npz"),
-                    lm_state_to_jax(model.state_dict(), cfg))
+                    lm_state_to_jax(full, cfg))
         print(f"Model saved to {args.output_dir}")
     with open(os.path.join(args.output_dir, "train_config.json"), "w") as f:
         json.dump({"steps": step, "lora": args.lora, "config": tc}, f)

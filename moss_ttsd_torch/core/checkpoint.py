@@ -77,12 +77,14 @@ def _steps(root: str):
 _EMA = ("cluster_size", "embed_avg")
 
 
-def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0) -> None:
+def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0,
+                     name: str = "state.pt") -> None:
     """Save ``state`` (``train.step.TrainState``: its step, the trainable
     parameters and the optimizer; ``train.codec_step.CodecTrainState``: the
     same and its EMA ``cluster_size`` and ``embed_avg``) under
-    <ckpt_dir>/step_<step>. ``keep`` > 0 keeps only the ``keep`` highest
-    steps (HF ``save_total_limit``)."""
+    <ckpt_dir>/step_<step>/``name``. ``keep`` > 0 keeps only the ``keep``
+    highest steps (HF ``save_total_limit``). A pipeline stage writes its
+    own part under a name of its own."""
     root = os.path.abspath(ckpt_dir)
     path = os.path.join(root, f"step_{step}")
     os.makedirs(path, exist_ok=True)
@@ -93,21 +95,21 @@ def save_train_state(ckpt_dir: str, state, step: int, keep: int = 0) -> None:
     for k in _EMA:
         if hasattr(state, k):
             payload[k] = getattr(state, k).detach().cpu()
-    tmp = os.path.join(path, "state.pt.tmp")
+    tmp = os.path.join(path, name + ".tmp")
     torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, "state.pt"))
+    os.replace(tmp, os.path.join(path, name))
     if keep > 0:
         for old in _steps(root)[:-keep]:
             shutil.rmtree(os.path.join(root, f"step_{old}"),
                           ignore_errors=True)
 
 
-def restore_train_state(ckpt_dir: str, step: int, state):
+def restore_train_state(ckpt_dir: str, step: int, state,
+                        name: str = "state.pt"):
     """Load <ckpt_dir>/step_<step> into ``state`` (built as for a fresh
     run: the same model and optimizer; a codec state's EMA tensors too) in
     place; returns it."""
-    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}",
-                        "state.pt")
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}", name)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     with torch.no_grad():
         params = state.params

@@ -205,7 +205,7 @@ class Qwen3Block(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 write_gate: Optional[torch.Tensor] = None,
                 read_extent: Optional[torch.Tensor] = None,
-                adapters: Optional[dict] = None):
+                adapters: Optional[dict] = None, seq=None):
         H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
         B, T, _ = x.shape
         h = self.input_ln(x)
@@ -254,6 +254,11 @@ class Qwen3Block(nn.Module):
                                            key_valid, scale, extent=ext,
                                            layer=layer_idx)
         else:
+            if seq is not None:
+                # sequence parallelism: this rank's queries against every
+                # rank's keys (gathered after RoPE; the backward sums the
+                # ranks' cotangents and keeps this rank's window)
+                k, v = seq.gather(k), seq.gather(v)
             attn = gqa_attention(q, k, v, mask, scale)
         x = x + self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
         h = self.post_ln(x)
@@ -391,7 +396,7 @@ class AsteroidLM(nn.Module):
                  write_gate: Optional[torch.Tensor] = None,
                  read_extent: Optional[torch.Tensor] = None,
                  adapters: Optional[Dict[str, tuple]] = None,
-                 remat: Optional[bool] = None
+                 remat: Optional[bool] = None, seq=None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Run the decoder stack.
 
@@ -407,7 +412,11 @@ class AsteroidLM(nn.Module):
         cache_pos + 1;
         adapters: per-row LoRA factors from ``select_adapters``;
         remat: recompute each block in the backward (the cache-free
-        training forward; default ``cfg.remat_layers``).
+        training forward; default ``cfg.remat_layers``);
+        seq (``parallel/mesh.SequenceParallel``, cache-free only): the
+        rows hold this seq rank's window of the time axis, ``positions``
+        are the window's, ``key_valid`` is the whole (B, T) row's, and
+        each block attends over every rank's keys.
         Returns (hidden (B, T, hidden) after the final norm, cache)."""
         c = self.cfg
         x = self.embed(input_ids)
@@ -415,7 +424,14 @@ class AsteroidLM(nn.Module):
         if write_gate is not None and T != 1:
             raise ValueError("ring-addressed writes are decode-only (T 1)")
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
-        mask = None if cache is not None else causal_mask(0, T, T, key_valid)
+        mask = None
+        if cache is None:
+            # each query's global position against all of the row's keys
+            S = key_valid.shape[1]
+            q0 = 0 if seq is None else seq.window(S).start
+            mask = causal_mask(q0, T, S, key_valid)
+        elif seq is not None:
+            raise ValueError("sequence parallelism is cache-free")
         remat = c.remat_layers if remat is None else remat
         if remat and cache is not None:
             raise ValueError("remat is for the cache-free training forward")
@@ -423,7 +439,7 @@ class AsteroidLM(nn.Module):
             ad = (None if adapters is None else
                   {t: (a[li], b[li]) for t, (a, b) in adapters.items()})
             args = (x, cos, sin, li, cache, cache_pos, key_valid, mask,
-                    write_gate, read_extent, ad)
+                    write_gate, read_extent, ad, seq)
             # non-reentrant: frozen inputs (a LoRA step) still give the
             # factors inside the block their gradients
             x = (checkpoint(layer, *args, use_reentrant=False) if remat

@@ -68,6 +68,14 @@ def shift_for_causal(labels: torch.Tensor) -> torch.Tensor:
                       torch.full_like(labels[:, :1], IGNORE_INDEX)], dim=1)
 
 
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """(..., T, C) -> (..., T, C): ``shift_for_causal`` of every channel
+    on the time axis."""
+    return torch.cat([labels[..., 1:, :],
+                      torch.full_like(labels[..., :1, :], IGNORE_INDEX)],
+                     dim=-2)
+
+
 def valid_label_counts(labels: torch.Tensor) -> torch.Tensor:
     """Per-channel valid (not -100) shifted label counts of (..., T, C)
     labels, over every leading axis -> (C,) int64. The shared CE
@@ -79,20 +87,26 @@ def valid_label_counts(labels: torch.Tensor) -> torch.Tensor:
 def asteroid_loss(hidden: torch.Tensor, labels: torch.Tensor,
                   embed_text: torch.Tensor, embed_speech: torch.Tensor,
                   weights: Sequence[float], num_chunks: int = 8,
-                  counts: Optional[torch.Tensor] = None
+                  counts: Optional[torch.Tensor] = None,
+                  shifted: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted multi-channel loss: channel 0 against the text table in
     ``num_chunks`` chunks, each speech channel against its table in one
     chunk; per-channel weights normalised by their sum. ``counts`` (C,)
     overrides each channel's denominator (gradient accumulation).
-    Returns (total, per-channel losses (C,))."""
+    ``shifted``: ``labels`` are already shifted (``shift_labels``), as a
+    sequence-parallel rank's window of a row is: its last label comes
+    from the next rank's window. Returns (total, per-channel losses
+    (C,))."""
     C = labels.shape[-1]
+    if not shifted:
+        labels = shift_labels(labels)
     losses = [chunked_cross_entropy(
-        hidden, shift_for_causal(labels[..., 0]), embed_text, num_chunks,
+        hidden, labels[..., 0], embed_text, num_chunks,
         denom=None if counts is None else counts[0])]
     for i in range(1, C):
         losses.append(chunked_cross_entropy(
-            hidden, shift_for_causal(labels[..., i]), embed_speech[i - 1],
+            hidden, labels[..., i], embed_speech[i - 1],
             num_chunks=1, denom=None if counts is None else counts[i]))
     per = torch.stack(losses)
     w = torch.as_tensor(weights, dtype=torch.float32, device=per.device)

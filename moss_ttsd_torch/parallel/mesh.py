@@ -1,13 +1,17 @@
-"""The ("data", "model") process mesh and the LM's tensor-parallel layout,
+"""The process meshes and the LM's tensor- and sequence-parallel layouts,
 PyTorch port of ``moss_ttsd_tpu/parallel/mesh.py``.
 
 The JAX package names shardings and lets XLA insert the collectives. Here
 each process is one cell of the mesh and holds plain local tensors; the
-collectives are explicit (Megatron style), through the mesh's two process
-groups:
+collectives are explicit (Megatron style), through the mesh's axis
+process groups:
 
   * "data"  — rows of a batch split over the data ranks (``batch_spec``);
     the training step all-reduces its gradients over this group;
+  * "seq"   — (``make_mesh(seq=)`` > 1, sequence-parallel training) the
+    time axis of each data rank's rows split over the seq ranks
+    (``seq_spec``): each rank runs its T/sp query rows and attends over
+    every rank's keys, gathered after RoPE (``SequenceParallel``);
   * "model" — the LM's weights split over the model ranks
     (``lm_param_specs`` / ``shard_params``): q/k/v/gate/up colwise (the
     rank's output rows), o/down rowwise (the rank's input columns, one
@@ -16,10 +20,12 @@ groups:
     logits gathered to the full fp32 row). Norms and the speech tables
     (1025 rows) stay whole.
 
-The kernels take plain contiguous tensors, so no DTensor is involved.
-Sharding needs ``torch.distributed`` to be up (``parallel/distributed.
-initialize_multihost``): one process per mesh cell, ranks laid out data
-major, as ``init_device_mesh`` lays them out.
+``parallel/pipeline.make_pp_mesh`` builds a ("pipe", "data") mesh of the
+same class. The kernels take plain contiguous tensors, so no DTensor is
+involved. A mesh needs ``torch.distributed`` to be up
+(``parallel/distributed.initialize_multihost``): one process per mesh cell,
+ranks laid out with the first axis major, as ``init_device_mesh`` lays
+them out.
 """
 
 from __future__ import annotations
@@ -33,38 +39,68 @@ import torch.distributed as dist
 from ..core.config import LMConfig
 
 AXES = ("data", "model")
+SEQ_AXES = ("data", "seq", "model")
 COLWISE = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 ROWWISE = ("o_proj", "down_proj")
 
 
 class Mesh:
-    """A ("data", "model") mesh of processes over a ``DeviceMesh``: its
-    shape, this process's coordinates and the two axis groups."""
+    """A mesh of processes over a ``DeviceMesh``: its shape by axis name,
+    this process's coordinates and the axis groups. An axis the mesh does
+    not have has size 1, coordinate 0 and no group."""
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
         self.device_type = device_mesh.device_type
-        self.shape = {a: device_mesh.size(i) for i, a in enumerate(AXES)}
-        self.data_group = device_mesh.get_group("data")
-        self.model_group = device_mesh.get_group("model")
-        self.data_rank = device_mesh.get_local_rank("data")
-        self.model_rank = device_mesh.get_local_rank("model")
+        axes = device_mesh.mesh_dim_names
+        self.shape = {a: device_mesh.size(i) for i, a in enumerate(axes)}
+        groups = {a: device_mesh.get_group(a) for a in axes}
+        ranks = {a: device_mesh.get_local_rank(a) for a in axes}
+        self.data_group = groups.get("data")
+        self.model_group = groups.get("model")
+        self.seq_group = groups.get("seq")
+        self.pipe_group = groups.get("pipe")
+        self.data_rank = ranks.get("data", 0)
+        self.model_rank = ranks.get("model", 0)
+        self.seq_rank = ranks.get("seq", 0)
+        self.pipe_rank = ranks.get("pipe", 0)
         # global rank of this model group's first rank: the source of the
         # sampled tokens every model rank decodes
-        self.model_src = dist.get_global_rank(self.model_group, 0)
+        self.model_src = (dist.get_global_rank(self.model_group, 0)
+                          if self.model_group is not None else dist.get_rank())
         self.collectives = 0          # collectives issued (a host counter)
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape['data']}, model="
-                f"{self.shape['model']}, rank={dist.get_rank()})")
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims}, rank={dist.get_rank()})"
 
     @property
     def data(self) -> int:
-        return self.shape["data"]
+        return self.shape.get("data", 1)
 
     @property
     def model(self) -> int:
-        return self.shape["model"]
+        return self.shape.get("model", 1)
+
+    @property
+    def seq(self) -> int:
+        return self.shape.get("seq", 1)
+
+    @property
+    def pipe(self) -> int:
+        return self.shape.get("pipe", 1)
+
+    @property
+    def train_group(self):
+        """The group a data-parallel training step sums over: the data
+        ranks, or with a seq axis every data x seq rank (the whole mesh;
+        the model axis must then be 1)."""
+        if self.seq == 1:
+            return self.data_group
+        if self.model != 1:
+            raise NotImplementedError("sequence parallelism with a model "
+                                      "axis > 1 is not ported")
+        return dist.group.WORLD
 
     def all_reduce(self, x: torch.Tensor, group, op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
@@ -101,25 +137,33 @@ class Mesh:
             return None
         return TensorParallel(cfg, self.model_rank, self.model, self)
 
+    def sequence_parallel(self) -> Optional["SequenceParallel"]:
+        """The seq axis's split of the time axis, None without one."""
+        if self.seq == 1:
+            return None
+        return SequenceParallel(self.seq_rank, self.seq, self.seq_group,
+                                self)
+
 
 def make_mesh(data: Optional[int] = None, model: int = 1, seq: int = 1,
               device_type: str = "cuda") -> Mesh:
     """A ("data", "model") mesh over every process of the default group
     (``init_device_mesh``, ranks data major). ``data`` defaults to the
-    world size over ``model``. ``seq`` > 1 (sequence-parallel training's
-    middle axis in JAX) is not ported."""
-    if seq > 1:
-        raise NotImplementedError("a sequence-parallel 'seq' mesh axis is "
-                                  "not yet ported to moss_ttsd_torch")
+    world size over ``model`` x ``seq``. With ``seq`` > 1 the mesh gains a
+    middle "seq" axis, ("data", "seq", "model"), for sequence-parallel
+    training, as JAX's does; "data" and "model" keep their meaning."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: "
                            "parallel.distributed.initialize_multihost")
     from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size()
     if data is None:
-        data = world // model
-    if data * model != world:
-        raise ValueError(f"{data}x{model} mesh != {world} processes")
+        data = world // (model * seq)
+    if data * seq * model != world:
+        raise ValueError(f"{data}x{seq}x{model} mesh != {world} processes")
+    if seq > 1:
+        return Mesh(init_device_mesh(device_type, (data, seq, model),
+                                     mesh_dim_names=SEQ_AXES))
     return Mesh(init_device_mesh(device_type, (data, model),
                                  mesh_dim_names=AXES))
 
@@ -148,12 +192,89 @@ def parse_mesh_arg(spec: str, device_type: str = "cuda") -> Mesh:
 
 def batch_spec(mesh: Mesh, n: int) -> slice:
     """This process's rows of an ``n``-row batch split over the "data"
-    axis (JAX ``P("data")``): a contiguous block a data rank."""
+    axis (JAX ``P("data")``): a contiguous block a data rank. The seq
+    ranks of one data rank hold the same rows."""
     if n % mesh.data:
         raise ValueError(f"a batch of {n} rows does not split over "
                          f"{mesh.data} data ranks")
     per = n // mesh.data
     return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+
+
+def seq_spec(mesh: Mesh, T: int) -> slice:
+    """This process's time steps [r T/sp, (r+1) T/sp) of a length-``T``
+    time axis split over the "seq" axis (the time half of JAX's
+    ``P("data", "seq")``); the whole axis without one."""
+    sp = mesh.sequence_parallel()
+    return slice(0, T) if sp is None else sp.window(T)
+
+
+class SequenceParallel:
+    """One seq rank's share of the time axis, and the gather of the keys
+    and values the attention needs from every rank.
+
+    The time axis (padded by the collate to a multiple of 64) splits into
+    ``size`` equal windows; rank r holds [r T/size, (r+1) T/size). Each
+    rank's queries attend over the whole row: ``gather`` all-gathers a
+    (B, T/size, ...) tensor over the seq group into (B, T, ...) in rank
+    order, and its backward sums the (B, T, ...) cotangents of every
+    rank (in fp32) and keeps this rank's window. Under remat the gather
+    runs again in the recomputed forward, so no gathered K/V is saved
+    across layers."""
+
+    def __init__(self, rank: int, size: int, group=None,
+                 mesh: Optional[Mesh] = None):
+        self.rank, self.size, self.group, self.mesh = rank, size, group, mesh
+
+    def window(self, T: int) -> slice:
+        if T % self.size:
+            raise ValueError(f"a time axis of {T} steps does not split "
+                             f"over {self.size} seq ranks")
+        per = T // self.size
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    def shard(self, x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        """``x``'s window on its time ``axis``. A leaf with no such axis
+        stays whole: no spec is wider than the leaf, as in JAX."""
+        if x.ndim <= axis:
+            return x
+        w = self.window(x.shape[axis])
+        return x.narrow(axis, w.start, w.stop - w.start)
+
+    def _count(self) -> None:
+        if self.mesh is not None:
+            self.mesh.collectives += 1
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T/size, ...) -> (B, T, ...), every rank's window in order
+        (differentiable)."""
+        return _SeqGather.apply(x, self)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The gather is a sum over the seq group of zero buffers each rank
+    filled with its window, in fp32: exact, and the one collective that
+    gloo takes for CUDA tensors as NCCL does."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        T = x.shape[1] * sp.size
+        full = x.new_zeros((x.shape[0], T) + tuple(x.shape[2:]),
+                           dtype=torch.float32)
+        full[:, sp.window(T)] = x
+        dist.all_reduce(full, group=sp.group)
+        sp._count()
+        return full.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        full = g.float().contiguous()
+        dist.all_reduce(full, group=sp.group)
+        sp._count()
+        w = sp.window(full.shape[1])
+        return full[:, w].to(g.dtype).contiguous(), None
 
 
 # -- the LM's tensor-parallel layout ------------------------------------------

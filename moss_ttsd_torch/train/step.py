@@ -15,6 +15,15 @@ group): each rank runs its rows of the global batch, the CE denominators
 normalises by the global count, the gradients are summed after the
 accumulation and before the clip, and the reported loss, per-channel loss
 and grad norm are the global batch's.
+
+Sequence parallelism (``seq=``, or ``shard_train_step`` over a mesh with
+a "seq" axis; JAX's ``hidden_sharding=P("data", "seq")``): each rank of a
+data rank's seq group gets that data rank's whole rows, takes positions
+and shifted labels from the whole row, and runs its window of T/sp query
+rows through the backbone (keys gathered over the seq group,
+``parallel/mesh.SequenceParallel``) and the loss. ``group`` is then every
+data x seq rank: the denominators, the metrics and the gradients are
+summed over it.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch.distributed as dist
 from ..core.config import LMConfig
 from ..core.device import DeviceLike, torch_dtype
 from ..models.lm import AsteroidLM
-from ..ops.chunked_ce import asteroid_loss, valid_label_counts
+from ..ops.chunked_ce import asteroid_loss, shift_labels, valid_label_counts
 
 DEFAULT_LOSS_WEIGHTS = (8, 2, 1, 1, 1, 1, 1, 1)   # reference finetune.py:132
 
@@ -134,17 +143,20 @@ class ClippedAdamW:
                                  betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=self.weight_decay)
 
-    def update(self, optimizer: torch.optim.Optimizer, step: int
-               ) -> torch.Tensor:
+    def update(self, optimizer: torch.optim.Optimizer, step: int,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply update number ``step`` to the gradients in ``.grad`` (a
         tensor that got none counts as zero, as in JAX); returns their
-        global norm before clipping, and leaves ``.grad`` cleared."""
+        global norm before clipping, and leaves ``.grad`` cleared.
+        ``norm``: the global norm, given where the optimizer holds only a
+        part of the gradients (a pipeline stage)."""
         params = [p for g in optimizer.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         if not bool(norm < self.grad_clip):
             for g in grads:      # optax: (g / norm) * max_norm, in order
                 g.div_(norm).mul_(self.grad_clip)
@@ -175,20 +187,31 @@ def to_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
 
 def lm_loss(model: AsteroidLM, batch: Mapping[str, torch.Tensor],
             loss_weights: Sequence[float], ce_chunks: int, remat: bool,
-            counts: Optional[torch.Tensor] = None):
+            counts: Optional[torch.Tensor] = None, seq=None):
     """(total, per-channel) loss of one batch {"input_ids" (B, T, C),
     "labels" (B, T, C), "attention_mask" (B, T)}: the cache-free backbone,
-    then the chunked CE against the model's tied tables."""
+    then the chunked CE against the model's tied tables. Under ``seq``
+    (``parallel/mesh.SequenceParallel``) the batch holds whole rows and
+    the loss is that of this rank's window of them (its share of the
+    rows' loss over ``counts``)."""
     if model.tp is not None:
         raise NotImplementedError("tensor-parallel training is not ported: "
                                   "the step is data-parallel only")
     mask = batch["attention_mask"]
     positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
-    hidden, _ = model.backbone(batch["input_ids"], positions, mask.bool(),
-                               None, 0, remat=remat)
-    return asteroid_loss(hidden, batch["labels"], model.embed_text,
+    ids, labels = batch["input_ids"], batch["labels"]
+    if seq is not None:
+        # positions and the label shift need the whole row: the cumsum
+        # reads the earlier windows' mask, the shift the next window's
+        # first label
+        ids, positions = seq.shard(ids), seq.shard(positions)
+        labels = seq.shard(shift_labels(labels))
+    hidden, _ = model.backbone(ids, positions, mask.bool(), None, 0,
+                               remat=remat, seq=seq)
+    return asteroid_loss(hidden, labels, model.embed_text,
                          model.embed_speech, loss_weights,
-                         num_chunks=ce_chunks, counts=counts)
+                         num_chunks=ce_chunks, counts=counts,
+                         shifted=seq is not None)
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -198,10 +221,16 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def global_label_counts(labels: torch.Tensor, group=None) -> torch.Tensor:
+def global_label_counts(labels: torch.Tensor, group=None, seq=None
+                        ) -> torch.Tensor:
     """``valid_label_counts`` of the global batch: this rank's, summed over
-    ``group``."""
-    return _sum(valid_label_counts(labels), group)
+    ``group``. Under ``seq`` this rank's are those of its window of the
+    shifted rows (``group`` then spans data x seq)."""
+    if seq is None:
+        return _sum(valid_label_counts(labels), group)
+    shifted = seq.shard(shift_labels(labels), labels.ndim - 2)
+    return _sum((shifted != -100).reshape(-1, shifted.shape[-1]).sum(0),
+                group)
 
 
 def all_reduce_grads(params, group, bucket_bytes: int = 256 << 20) -> None:
@@ -232,7 +261,7 @@ def all_reduce_grads(params, group, bucket_bytes: int = 256 << 20) -> None:
 
 
 def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor],
-                         group=None):
+                         group=None, seq=None):
     """Gradient accumulation over a (K, ...) micro-batched ``batch``.
 
     ``loss_fn(micro_batch, counts) -> (loss, per_channel)`` normalises by
@@ -241,8 +270,8 @@ def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor],
     micro batches and the gradients that K ``backward`` calls sum into
     ``.grad`` equal the one-big-batch gradient up to reduction order.
     Returns (summed loss, summed per-channel), both detached: this rank's
-    share of the global ones."""
-    counts = global_label_counts(batch["labels"], group)
+    share of the global ones. ``seq``: as ``global_label_counts``."""
+    counts = global_label_counts(batch["labels"], group, seq)
     K = batch["labels"].shape[0]
     loss_sum = per_sum = None
     for k in range(K):
@@ -257,7 +286,7 @@ def accum_value_and_grad(loss_fn, batch: Mapping[str, torch.Tensor],
 def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
                     loss_weights: Sequence[float] = DEFAULT_LOSS_WEIGHTS,
                     remat: bool = True, ce_chunks: int = 8,
-                    grad_accum_steps: int = 1, group=None):
+                    grad_accum_steps: int = 1, group=None, seq=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``state.model`` runs the forward and ``state.params`` are what the
@@ -269,8 +298,13 @@ def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
     "loss_per_channel" (C,), "grad_norm" (before clipping). Under
     ``group`` (data parallelism) ``batch`` is this rank's rows, the
     gradients of ``state.params`` are summed over the group before the
-    clip, and the metrics are the global batch's."""
+    clip, and the metrics are the global batch's. ``seq``
+    (``parallel/mesh.SequenceParallel``): sequence parallelism; ``batch``
+    is the data rank's whole rows and ``group`` spans data x seq."""
     del cfg     # the model carries its config; kept for the JAX signature
+    if seq is not None and group is None:
+        raise ValueError("a sequence-parallel step sums over a data x seq "
+                         "group: pass group= (shard_train_step does)")
 
     def train_step(state: TrainState, batch):
         model = state.model
@@ -278,13 +312,14 @@ def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
         state.optimizer.zero_grad(set_to_none=True)
 
         def loss_fn(b, counts=None):
-            return lm_loss(model, b, loss_weights, ce_chunks, remat, counts)
+            return lm_loss(model, b, loss_weights, ce_chunks, remat, counts,
+                           seq)
 
         if grad_accum_steps > 1:
-            loss, per = accum_value_and_grad(loss_fn, batch, group)
+            loss, per = accum_value_and_grad(loss_fn, batch, group, seq)
         else:
             counts = (None if group is None
-                      else global_label_counts(batch["labels"], group))
+                      else global_label_counts(batch["labels"], group, seq))
             loss, per = loss_fn(batch, counts)
             loss.backward()
             loss, per = loss.detach(), per.detach()
@@ -330,11 +365,19 @@ def shard_train_step(make_step, mesh, *args, **kwargs):
     """The step ``make_step(*args, **kwargs)`` (``make_train_step`` or
     ``train.lora.make_layerwise_lora_step``) over ``mesh``'s data group:
     the parameters and the AdamW moments replicated on every data rank,
-    the batch's rows split over them (JAX ``shard_train_step``). The model
-    axis must be 1: tensor-parallel training is not ported."""
+    the batch's rows split over them (JAX ``shard_train_step``). With a
+    "seq" axis (the full-finetuning step only, as in JAX) each rank gets
+    its data rank's rows and trains on its window of their time axis. The
+    model axis must be 1: tensor-parallel training is not ported."""
     if mesh.model != 1:
         raise NotImplementedError("tensor-parallel training (a model axis "
                                   "> 1) is not ported")
+    if mesh.seq > 1:
+        if make_step is not make_train_step:
+            raise NotImplementedError("sequence parallelism goes with the "
+                                      "full-finetuning step only")
+        return make_step(*args, group=mesh.train_group,
+                         seq=mesh.sequence_parallel(), **kwargs)
     return make_step(*args, group=mesh.data_group, **kwargs)
 
 

@@ -3,7 +3,8 @@
 path and int8 serving) on the card (kernels) against the same engine on the
 CPU (plain versions), the tiny codec encode on the card against the CPU,
 full and LoRA training steps and the tiny codec's train steps on the card
-against the CPU. Imports no
+against the CPU, sequence parallelism and GPipe as two gloo processes
+sharing the card against one process on the CPU. Imports no
 JAX, so it runs on a machine with the card
 and no JAX:
 
@@ -961,3 +962,50 @@ def test_nccl_mesh_of_one_engine_equals_unsharded(cuda, tmp_path):
         np.testing.assert_array_equal(toks[2], toks[0])
     finally:
         dist.destroy_process_group()
+
+
+# -- sequence parallelism and GPipe ---------------------------------------------
+
+def test_sp_and_pp_steps_on_card_match_cpu(cuda, tmp_path):
+    """A tiny 4-layer fp32 model (TF32 off): sequence parallelism over a
+    (1, 2) mesh and GPipe over two stages, each as two gloo processes
+    sharing the card (``tests/torch_mesh_ref.py``), 2 steps against one
+    process's plain step on the CPU on the same rows: losses and grad
+    norms within rel 1e-5, the parameters within rel 1e-4 (atol 1e-6) but
+    a few elements whose gradient sits within rounding of zero, those
+    within one update."""
+    import torch_mesh_ref as R
+    from moss_ttsd_torch.core.config import LMConfig
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step)
+    cfg = LMConfig(dtype="float32", param_dtype="float32").tiny(
+        num_hidden_layers=4)
+    batch = {k: v.reshape((4,) + v.shape[2:])
+             for k, v in _train_batch(cfg).items()}
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    inp = str(tmp_path / "inputs.pt")
+    torch.save({"cfg": cfg.to_dict(), "state": model.state_dict(),
+                "train_batch": batch, "pp_batch": batch}, inp)
+    opt = make_optimizer(learning_rate=R.LR, total_steps=10,
+                         warmup_ratio=0.0, lr_scheduler_type="constant")
+    state = init_train_state(cfg, opt, model=model)
+    step = make_train_step(cfg, opt, remat=False, ce_chunks=2)
+    want = R._run_steps(step, state, batch, 2)
+    want["params"] = R._numpy(model.state_dict())
+    env = {"MOSS_RANK_DEVICE": "cuda"}
+    sp = R.spawn(2, R.sp_train_cases, str(tmp_path / "sp"), inp,
+                 [("sp", 1, 2, 1, True)], 2, env=env)
+    pp = R.spawn(2, R.pp_train_cases, str(tmp_path / "pp"), inp,
+                 [("pp", 2, 1, 2, True, "")], 2, env=env)
+    got = [r["sp"] for r in sp] + [r["pp"] for r in pp]
+    for r in got:
+        np.testing.assert_allclose(r["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(r["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5)
+    for params in (got[0]["params"], got[2]["params"]):
+        for k, w in want["params"].items():
+            err = np.abs(params[k] - w)
+            outside = int((err > 1e-4 * np.abs(w) + 1e-6).sum())
+            assert outside <= max(4, w.size // 1000), (k, outside)
+            assert float(err.max()) <= R.LR, (k, float(err.max()))

@@ -170,16 +170,37 @@ def test_finetune_cli_data_parallel_resume(tiny_data, tmp_path):
     assert meta["steps"] == 4
 
 
-def test_finetune_cli_refuses_pipeline_and_sequence_parallel(tiny_data,
-                                                            tmp_path):
+REFUSALS = [
+    ("sequence_parallel: 2\n", True, "full finetuning"),
+    ("pipeline_stages: 2\n", True, "full finetuning"),
+    ("sequence_parallel: 2\npipeline_stages: 2\n", False,
+     "not pipeline_stages"),
+    ("sequence_parallel: 2\n", False, "must divide the 1 processes"),
+    ("pipeline_stages: 3\n", False, "must divide the model's 2 layers"),
+]
+
+
+@pytest.mark.parametrize("yaml,lora,message", REFUSALS,
+                         ids=["sp_lora", "pp_lora", "sp_with_pp",
+                              "sp_not_dividing_world",
+                              "pp_not_dividing_layers"])
+def test_finetune_cli_refuses_what_jax_refuses(tiny_data, tmp_path, yaml,
+                                               lora, message):
+    """The combinations the JAX CLI refuses (moss_ttsd_tpu/cli/finetune.py)
+    exit with the reason (status 1), before any model is built: sequence or
+    pipeline parallelism with --lora, the two together, a
+    sequence_parallel that does not divide the processes (one here), a
+    pipeline_stages that does not divide the --tiny model's 2 layers."""
     from moss_ttsd_torch.cli.finetune import main
-    for key in ("pipeline_stages: 2", "sequence_parallel: 2"):
-        cfg = tmp_path / f"{key[:4]}.yaml"
-        cfg.write_text(key + "\n")
-        with pytest.raises(SystemExit):
-            main(["--tiny", "--platform", "cpu", "--data_dir", tiny_data,
-                  "--output_dir", str(tmp_path / "x"), "--training_config",
-                  str(cfg)])
+    cfg = tmp_path / "train.yaml"
+    cfg.write_text(yaml)
+    out = tmp_path / "x"
+    with pytest.raises(SystemExit) as e:
+        main(["--tiny", "--platform", "cpu", "--data_dir", tiny_data,
+              "--output_dir", str(out), "--training_config", str(cfg)]
+             + (["--lora"] if lora else []))
+    assert message in str(e.value.code)
+    assert not out.exists()
 
 
 def test_global_mesh_and_specs_of_the_train_state(tmp_path):

@@ -167,7 +167,7 @@ def test_parse_mesh_arg_refuses_a_mismatch_without_a_group():
         pmesh.parse_mesh_arg("1x2", device_type="cpu")
     with pytest.raises(ValueError, match="DATAxMODEL"):
         pmesh.parse_mesh_arg("two", device_type="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="needs a process group"):
         pmesh.make_mesh(1, 1, seq=2, device_type="cpu")
 
 

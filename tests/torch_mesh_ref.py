@@ -51,12 +51,22 @@ def spawn(world, fn, tmp, *args, env=None, timeout=TIMEOUT_S, codes=None):
             for o in outs]
 
 
+def rank_device() -> str:
+    """The ranks' device: the CPU, or the card when the spawning test sets
+    ``MOSS_RANK_DEVICE=cuda`` in ``env`` (gloo ranks sharing it)."""
+    return os.environ.get("MOSS_RANK_DEVICE", "cpu")
+
+
 def _rank_main(fn, rank, world, init, out, env, *args):
     torch.set_num_threads(1)
     os.environ.update(env or {})
     import torch.distributed as dist
     from moss_ttsd_torch.parallel.distributed import initialize_multihost
-    initialize_multihost(init, world, rank, device="cpu", timeout_s=120)
+    if rank_device() == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(init, world, rank, device=rank_device(),
+                         backend="gloo", timeout_s=120)
     try:
         torch.save(fn(rank, world, *args), out)
     except BaseException:
@@ -255,6 +265,154 @@ def dp_train_cases(rank, world, inp_path, cases):
     return {name: train_run(inp_path, lora, K, group=dist.group.WORLD,
                             rank=rank, world=world)
             for name, lora, K in cases}
+
+
+# -- sequence- and pipeline-parallel finetuning ---------------------------------
+
+def _parallel_model(inp):
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    model = AsteroidLM(inp["cfg"])
+    model.load_state_dict(inp["state"])
+    return model.to(rank_device())
+
+
+def _numpy(params):
+    return {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
+
+
+def _run_steps(step, state, batch, steps):
+    losses, norms = [], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"loss": np.array(losses), "grad_norm": np.array(norms),
+            "per_channel": m["loss_per_channel"].cpu().numpy()}
+
+
+def launch_finetune(nproc, *args, timeout=240):
+    """The finetune CLI as ``nproc`` ranks of ``torch.distributed.run`` on
+    the CPU (its own store on a free 127.0.0.1 port); returns its
+    stdout, failing on a non-zero exit."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(port), "-m", "moss_ttsd_torch.cli.finetune",
+           "--tiny", "--platform", "cpu", *args]
+    p = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=timeout)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-5000:]
+    return p.stdout
+
+
+def sp_train_cases(rank, world, inp_path, cases, steps=TRAIN_STEPS):
+    """Each (name, data, seq, K, remat) case: ``steps`` full-finetuning
+    steps over a (data, seq, 1) mesh of the group, each rank given its
+    data rank's rows of the input file's global batch (of each micro batch
+    at accumulation K). Returns the metrics and the trained tensors."""
+    from moss_ttsd_torch.parallel.mesh import batch_spec, make_mesh, seq_spec
+    from moss_ttsd_torch.train.step import (init_train_state, make_optimizer,
+                                            make_train_step,
+                                            shard_train_step)
+    inp = load_inputs(inp_path)
+    T = inp["train_batch"]["labels"].shape[1]
+    out = {}
+    for name, d, sp, K, remat in cases:
+        mesh = make_mesh(d, 1, seq=sp, device_type=rank_device())
+        opt = make_optimizer(learning_rate=LR, total_steps=10,
+                             warmup_ratio=0.0, lr_scheduler_type="constant")
+        state = init_train_state(inp["cfg"], opt, model=_parallel_model(inp))
+        step = shard_train_step(make_train_step, mesh, inp["cfg"], opt,
+                                remat=remat, ce_chunks=2,
+                                grad_accum_steps=K)
+        batch = {k: torch.as_tensor(v) for k, v in inp["train_batch"].items()}
+        B = batch["labels"].shape[0]
+        if K > 1:
+            batch = {k: v.reshape((K, B // K) + v.shape[1:])
+                     for k, v in batch.items()}
+        rows = batch_spec(mesh, B // K)
+        batch = {k: (v[:, rows] if K > 1 else v[rows])
+                 for k, v in batch.items()}
+        c0 = mesh.collectives
+        res = _run_steps(step, state, batch, steps)
+        res["gathers_per_step"] = (mesh.collectives - c0) / steps
+        sp = mesh.sequence_parallel()
+        res["shard"] = (sp.shard(torch.arange(T)[None]),
+                        sp.shard(torch.arange(3)), seq_spec(mesh, T))
+        res["params"] = _numpy(state.params)
+        out[name] = res
+    return out
+
+
+def pp_train_cases(rank, world, inp_path, cases, steps=2):
+    """Each (name, pipe, data, M, remat, variant) case: ``steps`` GPipe
+    steps over a (pipe, data) mesh of the group on the input file's
+    global batch (``pp_batch``) as M microbatches, the model the input
+    file holds under ``variant`` ("" or "lora_": its "cfg" and "state").
+    Rank 0 returns the whole trained LM's tensors (``pp_full_state``),
+    every rank its metrics and the send/recv count a step."""
+    from moss_ttsd_torch.parallel.mesh import batch_spec
+    from moss_ttsd_torch.parallel.pipeline import (make_pp_mesh,
+                                                   make_pp_train_step,
+                                                   pp_full_state,
+                                                   pp_stage_model)
+    from moss_ttsd_torch.train.step import init_train_state, make_optimizer
+    from moss_ttsd_torch.core.config import LMConfig
+    raw = torch.load(inp_path, weights_only=False)
+    out = {}
+    for name, pipe, d, M, remat, variant in cases:
+        inp = {"cfg": LMConfig.from_dict(raw[variant + "cfg"]),
+               "state": raw[variant + "state"]}
+        cfg = inp["cfg"]
+        mesh = make_pp_mesh(pipe, d, device_type=rank_device())
+        opt = make_optimizer(learning_rate=LR, total_steps=10,
+                             warmup_ratio=0.0, lr_scheduler_type="constant")
+        model = pp_stage_model(_parallel_model(inp), mesh)
+        state = init_train_state(cfg, opt, model=model)
+        step = make_pp_train_step(cfg, opt, mesh, remat=remat, ce_chunks=2)
+        flat = {k: torch.as_tensor(v) for k, v in raw["pp_batch"].items()}
+        n = flat["labels"].shape[0]
+        rows = batch_spec(mesh, n // M)          # pp_batch_specs' "data"
+        batch = {k: v.reshape((M, n // M) + v.shape[1:])[:, rows]
+                 for k, v in flat.items()}
+        c0 = mesh.collectives
+        res = _run_steps(step, state, batch, steps)
+        res["p2p_per_step"] = (mesh.collectives - c0) / steps
+        full = pp_full_state(model, mesh)
+        res["params"] = None if full is None else _numpy(full)
+        out[name] = res
+    return out
+
+
+# -- communication accounting ---------------------------------------------------
+
+def tp_inventory(rank, world, inp_path, steps=2):
+    """A (1, ``world``) tensor-parallel engine's profiled decode steps
+    (``comm_analysis.profile_decode_steps``): the collective events with
+    their host us, and the collectives the mesh counted a step."""
+    from moss_ttsd_torch.decode import engine as peng
+    from moss_ttsd_torch.parallel.comm_analysis import (collective_events,
+                                                        profile_decode_steps)
+    from moss_ttsd_torch.parallel.mesh import make_mesh
+    inp = load_inputs(inp_path)
+    mesh = make_mesh(1, world, device_type="cpu")
+    eng = peng.GenerationEngine(inp["cfg"], inp["state"], greedy(),
+                                bucket=32, device="cpu", mesh=mesh)
+    prof, counted = profile_decode_steps(eng, inp["batch"], inp["mask"],
+                                         steps)
+    return {"events": collective_events(prof, "decode_step"),
+            "counted_per_step": counted / steps}
 
 
 # -- serving ---------------------------------------------------------------------
