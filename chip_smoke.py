@@ -87,6 +87,26 @@ Phases, each printing one JSON line:
      row, the step and the logit gap); the throughput line (pool steps/s,
      frames/s at B 8, launches and host syncs a step, the per-row draws,
      peak memory, admission prefill ms per burst size);
+ 10d. xla    — attn_impl="xla", the dense attention backend, on the main
+     path's weights: TTSPipeline(attn_impl="xla") over the two items,
+     bf16, 256 steps (steps/s, RTF, prefill ms, peak GiB beside the main
+     path's), 0 launches of B1, B2 and B3; the logits the first decode
+     step samples from against the kernel path's (max abs) and greedy
+     agreement over 64 steps; 8 profiled decode steps of each backend
+     (device busy ms, launches, idle share) and the in-path device ms of
+     one dense attention call against one flash_decode_hs call; a 16-step
+     pool segment under xla (8 slots, base 512, max_steps 2048, bf16
+     cache): no B1 at its admission, B2 at 28 a step;
+ 10e. ablate  — the bench-only stubs read as bench_full.py reads them, on
+     int8 weights quantized from the main path's: (a) the backbone split
+     (bench_backbone_split: B 8, prompt 64, 64 minus 16 steps, the
+     variants in turn) under full, ablate_norms, ablate_rope, ablate_attention and all
+     three, with bench_full's shares; (b) the pool breakdown
+     (bench_pool_breakdown: 8 slots, base 512, max_steps 2048, int8 KV,
+     every slot filled, a 32-step segment) over the seven cumulative
+     ContinuousBatcher ablate variants, each component's ms a step the
+     difference of neighbours; every variant's ms, launches and
+     device-busy ms a step (one profiled window of 8 steps);
  11. train    — LM finetuning at the full width (LMConfig(): fp32 master
      weights, bf16 compute, remat, ce_chunks 8; random weights from seed
      0): one batch of two synthetic examples laid out as
@@ -171,6 +191,7 @@ once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -190,7 +211,13 @@ TOL = {"bfloat16": 1e-2, "float32": 2e-5}
 REL = {"bfloat16": 2.0 ** -8, "float32": 0.0}
 
 
+T_START = time.perf_counter()
+PHASE_DONE_S = {}                   # phase -> seconds since start, last line
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        PHASE_DONE_S[obj["phase"]] = time.perf_counter() - T_START
     print(json.dumps(obj), flush=True)
 
 
@@ -786,71 +813,26 @@ def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
 
 def in_path_prefill(eng, ids, mask, buf_steps: int = 256):
     """engine_state of a (B, L, C) prompt, with every flash_prefill launch
-    of its prefill bracketed by CUDA events: the in-path device ms of each
-    call, at the path's own layouts and cache state. A spin kernel of about
-    1 ms runs before each bracket, so the device is still busy when the
-    host enqueues the start event, the kernel and the end event: the host's
-    launch gaps between them are not counted. Returns (engine_state,
-    {"median", "min", "max"} of the ms per call)."""
-    import torch
+    of its prefill bracketed by CUDA events (``_bracketed_ms``): the
+    in-path device ms of each call, at the path's own layouts and cache
+    state. Returns (engine_state, {"median", "min", "max", "calls"} of the
+    ms per call)."""
     from moss_ttsd_torch.models import lm
-    orig, spans = lm.flash_prefill, []
-
-    def bracketed(*a, **kw):
-        torch.cuda._sleep(2_000_000)          # ~1 ms of device work
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out = orig(*a, **kw)
-        end.record()
-        spans.append((start, end))
-        return out
-
-    lm.flash_prefill = bracketed
-    try:
-        state = engine_state(eng, ids, mask, buf_steps)
-    finally:
-        lm.flash_prefill = orig
-    torch.cuda.synchronize()
-    ms = sorted(a.elapsed_time(b) for a, b in spans)
-    return state, {"median": ms[len(ms) // 2], "min": ms[0], "max": ms[-1]}
+    return _bracketed_ms(lm, "flash_prefill",
+                         lambda: engine_state(eng, ids, mask, buf_steps))
 
 
 def profile_decode(run, eng, st, base, gen, steps: int = 16):
-    """torch.profiler over ``steps`` decode steps of a prefilled state (run
-    = the name of the run it belongs to): device busy time per step (sum of
-    kernel times; one stream, so kernels do not overlap), the idle share of
-    the window, launches per step and the kernels that take the most device
-    time. Profiler overhead inflates the window's host time, so the idle
-    share is an upper bound."""
+    """torch.profiler over ``steps`` decode steps of a prefilled state past
+    the TF window (run = the name of the run it belongs to), emitted as a
+    ``profile`` line (``_device_window``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    warm = eng.cfg.channels                         # past the TF window
+    warm = eng.cfg.channels
     eng.run(st, base, warm, gen)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run(st, base, warm + steps, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = []
-    for e in prof.key_averages():
-        t = (getattr(e, "self_device_time_total", 0)
-             or getattr(e, "self_cuda_time_total", 0))
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            kern.append((e.key, t, e.count))
-    busy_us = sum(t for _, t, _ in kern)
-    kern.sort(key=lambda x: -x[1])
-    split = [(t, c) for k, t, c in kern if "split_kernel" in k]
     emit({"phase": "profile", "run": run, "steps": steps,
-          "decode_split_kernel_ms_per_call":
-              sum(t for t, _ in split) / 1e3 / max(1, sum(c for _, c in split)),
-          "host_ms_per_step": wall / steps * 1e3,
-          "device_busy_ms_per_step": busy_us / 1e3 / steps,
-          "device_idle_share": 1.0 - busy_us / (wall * 1e6),
-          "kernel_launches_per_step": sum(c for _, _, c in kern) / steps,
-          "top": [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
-                   "calls_per_step": c / steps} for k, t, c in kern[:12]]})
+          **_device_window(lambda: eng.run(st, base, warm + steps, gen),
+                           steps, top=12)})
 
 
 def reference_check():
@@ -4579,7 +4561,7 @@ def prefill_times(gen, B, base, pads, H, Hkv, D, SETS):
 
 
 def kernel_table(main, longform, checks, clone=None, stream=None,
-                 sweep=False, pool=None, load=None, mesh=None):
+                 sweep=False, pool=None, load=None, mesh=None, xla=None):
     """Times at the shapes of the runs that launch each kernel: the main
     path's for flash_prefill and flash_decode_hs (and the clone run's,
     when it ran), the long-form run's for flash_decode_int8_hs. Each
@@ -4593,7 +4575,10 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
     each kernel also at the continuous pool's shapes (``pool`` entries,
     ``pool_kernel_rows``). ``load``: each kernel's launches in the load
     phase's runs (``load_launches``). ``mesh``: each kernel also at a
-    tensor-parallel rank's shapes (``tp`` entries, ``mesh_kernel_rows``)."""
+    tensor-parallel rank's shapes (``tp`` entries, ``mesh_kernel_rows``).
+    ``xla``: each kernel's launches on the dense backend's paths
+    (``xla_launches``: the sequential run, the pool's admission and its
+    segment, each counted from 0)."""
     import torch
     B, base, steps = main["batch"], main["base"], main["steps"]
     H, Hkv, D, L = 16, 8, 128, main["layers"]
@@ -4695,6 +4680,14 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
     if load is not None:
         for r in rows:
             r["load_launches"] = load_launches[r["name"]]
+    if xla is not None:
+        ps = xla["pool_segment"]
+        for r in rows:
+            n = r["name"]
+            r["xla_launches"] = {
+                "sequential": xla["launches"][n],
+                "pool_admission": ps["admission_launches"][n],
+                "pool_segment_16_steps": ps["launches"][n]}
     emit({"kernels": rows})
     return rows
 
@@ -4858,6 +4851,402 @@ def int8_decode_row(lf, checks, SETS, sweep=False):
         None, nbytes, flops, extra)
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the dense attention backend, the attribution stubs
+# ---------------------------------------------------------------------------
+
+def _device_window(run, steps: int, top: int = 6):
+    """torch.profiler over ``run()`` (``steps`` decode or pool steps):
+    device busy ms a step (the sum of kernel times; one stream), the idle
+    share of the window (an upper bound: the profiler's own host cost
+    counts), kernel launches a step, the split-K decodes' (B2 / B3) device
+    ms a call and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # device activity only: the host ops' events would make the trace ~10x
+    # larger and its processing take seconds a window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [(e.key, (getattr(e, "self_device_time_total", 0)
+                     or getattr(e, "self_cuda_time_total", 0)), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(t for _, t, _ in kern)
+    kern.sort(key=lambda x: -x[1])
+    split = [(t, c) for k, t, c in kern if "split_kernel" in k]
+    return {"host_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / (wall * 1e6),
+            "launches_per_step": sum(c for _, _, c in kern) / steps,
+            "decode_split_kernel_ms_per_call":
+                sum(t for t, _ in split) / 1e3
+                / max(1, sum(c for _, c in split)),
+            "top": [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
+                     "calls_per_step": c / steps} for k, t, c in kern[:top]]}
+
+
+def _bracketed_ms(owner, name, run):
+    """``run()`` with every call of ``owner.name`` it makes bracketed by
+    CUDA events after a spin kernel of about 1 ms, so the device is still
+    busy when the host enqueues the start event, the call's kernels and
+    the end event: the host's launch gaps are not counted. Returns (what
+    ``run`` returns, {"median", "min", "max", "calls"} of the device ms a
+    call)."""
+    import torch
+    orig, spans = getattr(owner, name), []
+
+    def bracketed(*a, **kw):
+        torch.cuda._sleep(2_000_000)          # ~1 ms of device work
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    setattr(owner, name, bracketed)
+    try:
+        result = run()
+    finally:
+        setattr(owner, name, orig)
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in spans)
+    return result, {"median": ms[len(ms) // 2], "min": ms[0], "max": ms[-1],
+                    "calls": len(ms)}
+
+
+def xla_phase(pipe, main_line=None):
+    """attn_impl="xla", the dense backend, at the main path's width and on
+    its weights (shared, not copied): TTSPipeline(attn_impl="xla") over the
+    main path's two items, bf16, 256 steps (steps/s, RTF, prefill ms, peak
+    GiB beside the main path's; no B1/B2/B3 launch); the logits the first
+    decode step samples from against the kernel path's, and greedy
+    agreement over 64 steps; 8 profiled decode steps of each backend and
+    the in-path device ms of one dense attention against one B2 call;
+    then a 16-step pool segment under xla (8 slots, base 512, max_steps
+    2048, bf16 cache): no B1 at its admission, B2 at 28 a step (the pool's
+    per-row extents keep the decode kernel, as in JAX)."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models import lm
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.pipeline.batch import TTSPipeline
+    from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
+    cfg, model = pipe.engine.cfg, pipe.engine.model
+    C, L = cfg.channels, cfg.num_hidden_layers
+    items = load_items()
+    problems = []
+    _release()
+    t_phase = time.perf_counter()
+    xpipe = TTSPipeline(MockTokenizer(), cfg, model, pipe.spt,
+                        pipe.engine.sampling, bucket=128, device="cuda",
+                        attn_impl="xla")
+    texts, audio, e2e_s, counts, peak, st = timed_batch(xpipe, items)
+    bad, wav_lens, audio_s = audio_problems(texts, audio, st["steps"], C)
+    problems += bad
+    if any(counts.values()):
+        problems.append(f"the xla path launched kernels: {counts}")
+    if st["steps"] != 256:
+        problems.append(f"decode ran {st['steps']} of 256 steps")
+    line = {"phase": "xla", "attn_impl": xpipe.engine.cfg.attn_impl,
+            "batch": st["batch"], "base": st["base"], "steps": st["steps"],
+            "prefill_ms": st["prefill_s"] * 1e3, "decode_s": st["decode_s"],
+            "decode_steps_per_s": st["steps"] / st["decode_s"],
+            "e2e_s": e2e_s, "audio_s": audio_s, "rtf": audio_s / e2e_s,
+            "peak_mem_gib": peak / 2 ** 30, "launches": counts,
+            "wav_samples": wav_lens}
+    if main_line is not None:
+        line["main_path"] = {k: main_line[k] for k in (
+            "prefill_ms", "decode_steps_per_s", "rtf", "peak_mem_gib")}
+    del xpipe, audio
+
+    # both backends from the same prefilled prompt: the logits the first
+    # decode step samples from, then 64 greedy steps
+    greedy = _greedy(C, 64)
+    engs = {impl: GenerationEngine(cfg, model, greedy, bucket=128,
+                                   device="cuda", attn_impl=impl)
+            for impl in ("mixed", "xla")}
+    _, ids, mask = decode_inputs(pipe, items)
+    with torch.no_grad():
+        lg = {}
+        for impl, eng in engs.items():
+            h = engine_state(eng, ids, mask, 64)[1].hidden_last
+            lg[impl] = torch.cat([t.reshape(-1) for t in
+                                  eng.model.logits_all(h)])
+    err = float((lg["xla"] - lg["mixed"]).abs().max())
+    scale = float(lg["mixed"].abs().max())
+    line["first_step_logits"] = {
+        "max_abs_err": err, "max_abs_logit": scale,
+        "finite": bool(torch.isfinite(lg["xla"]).all())}
+    if not line["first_step_logits"]["finite"] or err > 0.1 * scale:
+        problems.append(f"first-step logits differ by {err} (scale {scale})")
+    toks = {impl: eng.generate(ids, mask, 64, seed=0).tokens
+            for impl, eng in engs.items()}
+    base = engs["xla"].last_stats["base"]
+    a, b = toks["mixed"][:, base:], toks["xla"][:, base:]
+    if a.shape == b.shape:
+        diff = np.nonzero((a != b).any(axis=(0, 2)))[0]
+        line["greedy_64"] = {
+            "token_agreement": float((a == b).mean()),
+            "first_differing_step": int(diff[0]) if diff.size else None}
+    else:
+        line["greedy_64"] = {"token_agreement": 0.0,
+                             "shapes": [list(a.shape), list(b.shape)]}
+
+    # 8 profiled decode steps of each backend past the TF window, then the
+    # in-path device ms of one attention call of each
+    prof, inpath = {}, {}
+    for impl, eng in engs.items():
+        e, s, bs, g = engine_state(eng, ids, mask, 64)
+        e.run(s, bs, C, g)
+        prof[impl] = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
+        owner, name = ((lm.Qwen3Block, "_dense") if impl == "xla"
+                       else (lm, "flash_decode_hs"))
+        inpath[impl] = _bracketed_ms(owner, name,
+                                     lambda: e.run(s, bs, C + 16, g))[1]
+    line["profile_8_steps"] = prof
+    line["host_syncs_per_step"] = count_syncs_per_step(
+        *engine_state(engs["xla"], ids, mask, 64))
+    if line["host_syncs_per_step"] > 1.0:        # the loop test alone
+        problems.append(f"the xla step syncs the host "
+                        f"{line['host_syncs_per_step']} times")
+    line["attention_in_path_ms_per_call"] = {
+        "dense_xla": inpath["xla"], "flash_decode_hs": inpath["mixed"]}
+    line["attention_in_path_ms_per_step"] = {
+        k: v["median"] * L for k, v in
+        line["attention_in_path_ms_per_call"].items()}
+    del engs
+    _release()
+
+    # a pool segment under xla: extents keep B2, the admission is dense
+    xcfg = dataclasses.replace(cfg, attn_impl="xla")
+    cb = ContinuousBatcher(xcfg, model, pipe.engine.sampling, slots=8,
+                           base=512, max_steps=2048, device="cuda")
+    prompts = pool_prompts(pipe, 8)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    cb.submit_many([(p, 64, i, None) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    admission = fa.launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    ran = cb.run(16)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    segment = fa.launch_counts()
+    want = {"flash_prefill": 0, "flash_decode_hs": L * 16,
+            "flash_decode_int8_hs": 0}
+    if any(admission.values()):
+        problems.append(f"the xla pool's admission launched {admission}")
+    if ran != 16 or segment != want:
+        problems.append(f"xla pool segment: {ran} steps, {segment} != {want}")
+    line["pool_segment"] = {"slots": 8, "base": 512, "max_steps": 2048,
+                            "kv_cache": "bfloat16", "steps": ran,
+                            "ms_per_step": seg_s / max(ran, 1) * 1e3,
+                            "admission_launches": admission,
+                            "launches": segment,
+                            "b2_launches_per_step": segment[
+                                "flash_decode_hs"] / max(ran, 1)}
+    del cb
+    _release()
+    line["seconds"] = time.perf_counter() - t_phase
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"xla phase failed: {problems}")
+    return line
+
+
+BACKBONE_VARIANTS = (
+    ("full", {}), ("ablate_norms", {"ablate_norms": True}),
+    ("ablate_rope", {"ablate_rope": True}),
+    ("ablate_attention", {"ablate_attention": True}),
+    ("all_three", {"ablate_norms": True, "ablate_rope": True,
+                   "ablate_attention": True}))
+POOL_VARIANTS = ("full", "sampling", "logits", "tf_flush", "tokenwrite",
+                 "presence", "extentcalc")
+
+
+def backbone_split(cfg, qstate, sampling, long=64, short=16, trials=1):
+    """bench_full.py's bench_backbone_split (:897-958) on the port: the
+    int8 engine at B 8, prompt 64, each variant's decode ms a step as
+    (long - short) / (long - short steps), the best of ``trials``, so
+    prefill and call overhead cancel (bench_full runs 256 and 32, best of
+    3; cut to keep the whole smoke in its time). The variants take turns within
+    each trial, so a drift of the shared host's speed spreads over all of
+    them. Each variant's launches, device-busy ms and idle share a step
+    from one profiled window of 8 steps. Shares as bench_full emits them:
+    each stub's ms = full - ablated, the floor = all three ablated,
+    unattributed = the sum of the three ablated runs - 2 x full - floor;
+    the same differences of launches and device-busy ms."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.ops import flash_attention as fa
+    B, P, C = 8, 64, cfg.channels
+    rng = np.random.default_rng(0)
+    ids = np.full((B, P, C), cfg.speech_pad_token, np.int64)
+    ids[..., 0] = rng.integers(1, 10000, (B, P))
+    mask = np.ones((B, P), np.int64)
+    engs = {name: GenerationEngine(dataclasses.replace(cfg, **fields),
+                                   qstate, sampling, bucket=P, quant="int8",
+                                   device="cuda")
+            for name, fields in BACKBONE_VARIANTS}
+
+    def timed(name, n, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engs[name].generate(ids, mask, max_new_tokens=n, seed=seed)
+        torch.cuda.synchronize()
+        assert res.steps == n, (name, res.steps, n)
+        return time.perf_counter() - t0
+
+    runs = {name: {"long": [], "short": []} for name in engs}
+    launches = {}
+    for t in range(trials):
+        for name in engs:
+            fa.reset_launch_counts()
+            runs[name]["long"].append(timed(name, long, 1 + t))
+            launches[name] = fa.launch_counts()
+            runs[name]["short"].append(timed(name, short, 1 + t))
+    out = {}
+    for name, eng in engs.items():
+        e, s, bs, g = engine_state(eng, ids, mask, 16)
+        e.run(s, bs, C, g)
+        win = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
+        r = runs[name]
+        out[name] = {"ms_per_step": (min(r["long"]) - min(r["short"]))
+                     / (long - short) * 1e3,
+                     "long_s": r["long"], "short_s": r["short"],
+                     "kernel_launches_long_run": launches[name],
+                     **{k: win[k] for k in ("launches_per_step",
+                                            "device_busy_ms_per_step",
+                                            "device_idle_share")}}
+        del e, s
+    del engs
+    _release()
+    split = {}
+    for key in ("ms_per_step", "launches_per_step",
+                "device_busy_ms_per_step"):
+        v = {k: x[key] for k, x in out.items()}
+        full = v["full"]
+        split[key] = {
+            "norms": full - v["ablate_norms"],
+            "rope": full - v["ablate_rope"],
+            "attention": full - v["ablate_attention"],
+            "floor": v["all_three"],
+            "unattributed": (v["ablate_norms"] + v["ablate_rope"]
+                             + v["ablate_attention"] - 2 * full
+                             - v["all_three"])}
+        split[key].update({f"{k}_share": x / full
+                           for k, x in list(split[key].items())})
+    return {"batch": B, "prompt": P, "long": long, "short": short,
+            "trials": trials, "variants": out, "split": split}
+
+
+def pool_breakdown(cfg, qstate, sampling, segment=32, rounds=1):
+    """bench_full.py's bench_pool_breakdown (:652-776) on the port: 8
+    slots, base 512, max_steps 2048, int8 weights and int8 KV, every slot
+    filled as bench_full's fill() fills it (fresh long-budget requests,
+    prompts of base/2 to base - 7 random text rows). The seven cumulative
+    variants (``ContinuousBatcher``'s ablate: the first n components
+    stubbed) take turns over ``rounds`` rounds, each a fresh fill, 4 warm
+    steps and one timed ``segment``-step segment (bench_full: 64 steps,
+    best of 3); a variant's ms a step is its best round, each component's ms a step the difference of
+    neighbours. Launches, device-busy ms and idle share a step from one
+    profiled window of 8 steps of each variant."""
+    import numpy as np
+    import torch
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.ops import flash_attention as fa
+    base, max_steps, slots, C = 512, 2048, 8, cfg.channels
+    cb = ContinuousBatcher(cfg, qstate, sampling, slots=slots, base=base,
+                           max_steps=max_steps, device="cuda", quant="int8",
+                           kv_quant="int8")
+    rng = np.random.default_rng(0)
+
+    def fill(n):
+        cb.ablate = frozenset(POOL_VARIANTS[1:n + 1])
+        cb.state = cb._init_state()
+        cb._slot_free = [True] * slots
+        reqs = []
+        for i in range(slots):
+            k = int(rng.integers(base // 2, base - C + 1))
+            p = np.full((k, C), cfg.speech_pad_token, np.int64)
+            p[:, 0] = rng.integers(1, 10000, k)
+            reqs.append((p, max_steps, i))
+        cb.submit_many(reqs)
+        cb.run(4)
+
+    times = {name: [] for name in POOL_VARIANTS}
+    b3 = {}
+    for _ in range(rounds):
+        for n, name in enumerate(POOL_VARIANTS):
+            fill(n)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            ran = cb.run(segment)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / ran * 1e3)
+            assert ran == segment, (name, ran)
+            b3[name] = fa.launch_counts()["flash_decode_int8_hs"] / ran
+    out = {}
+    for n, name in enumerate(POOL_VARIANTS):
+        fill(n)
+        win = _device_window(lambda: cb.run(8), 8)
+        out[name] = {"ablate": sorted(cb.ablate),
+                     "ms_per_step": min(times[name]),
+                     "round_ms_per_step": times[name],
+                     "b3_launches_per_step": b3[name],
+                     **{k: win[k] for k in ("launches_per_step",
+                                            "device_busy_ms_per_step",
+                                            "device_idle_share")}}
+    del cb
+    _release()
+    comp = {}
+    for prev, cur in zip(POOL_VARIANTS, POOL_VARIANTS[1:]):
+        comp[cur] = {k: out[prev][k] - out[cur][k] for k in (
+            "ms_per_step", "launches_per_step", "device_busy_ms_per_step")}
+    return {"slots": slots, "base": base, "max_steps": max_steps,
+            "kv_quant": "int8", "segment": segment, "rounds": rounds,
+            "variants": out, "components": comp}
+
+
+def ablate_phase(pipe):
+    """What bench_full.py reads the bench-only stubs for, on the port at
+    bench_full's geometry but fewer steps: (a) the backbone split, (b)
+    the pool breakdown, both on int8 weights quantized once from the main
+    path's weights (LMConfig(), seed 0)."""
+    from moss_ttsd_torch.ops.quantize import quantize_lm_params
+    cfg = pipe.engine.cfg
+    qstate = quantize_lm_params(pipe.engine.model.state_dict())
+    sampling = pipe.engine.sampling
+    t0 = time.perf_counter()
+    line = {"phase": "ablate",
+            "backbone_split": backbone_split(cfg, qstate, sampling)}
+    line["backbone_split_s"] = time.perf_counter() - t0
+    line["pool_breakdown"] = pool_breakdown(cfg, qstate, sampling)
+    line["seconds"] = time.perf_counter() - t0
+    del qstate
+    _release()
+    problems = [f"{part} {k}: {v}" for part in ("backbone_split",
+                                                 "pool_breakdown")
+                for k, v in line[part]["variants"].items()
+                if not (v["ms_per_step"] > 0 and v["launches_per_step"] > 0)]
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit(f"ablate phase failed: {problems}")
+    return line
+
+
 def _bound(nbytes, flops):
     """bound_ms and bound_by of a function that must move ``nbytes`` and do
     ``flops`` bf16 operations."""
@@ -4894,7 +5283,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
-                         "stream,overlap,podcast,server,pool,clone,int8,"
+                         "stream,overlap,podcast,server,pool,xla,ablate,"
+                         "clone,int8,"
                          "mesh,comm,seqpar,pipe,load,train,codec_train,cli,"
                          "profile,sweep (default all = every phase but "
                          "profile and sweep; comm runs the mesh phase)")
@@ -4911,9 +5301,9 @@ def main(argv=None) -> int:
         return rss_probe(args.rss_probe)
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
-               "overlap", "podcast", "server", "pool", "clone", "int8",
-               "mesh", "comm", "seqpar", "pipe", "load", "train",
-               "codec_train", "cli"}
+               "overlap", "podcast", "server", "pool", "xla", "ablate",
+               "clone", "int8", "mesh", "comm", "seqpar", "pipe", "load",
+               "train", "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     if "comm" in phases:
         phases.add("mesh")          # comm reads the mesh phase's TP ranks
@@ -4946,7 +5336,7 @@ def main(argv=None) -> int:
     if "reference" in phases:
         reference_check()
     main_line = longform = clone_line = stream_line = pool_line = None
-    load_line = pipe = None
+    load_line = pipe = xla_line = None
     if "main" in phases:
         pipe, main_line = main_path()
         if "logits" in phases:
@@ -4955,7 +5345,8 @@ def main(argv=None) -> int:
             profile_decode("main_path", *decode_state(pipe, load_items()))
     # streaming, the overlap, the podcast, the servers and the pool run the
     # main path's pipeline
-    if phases & {"stream", "overlap", "podcast", "server", "pool", "load"}:
+    if phases & {"stream", "overlap", "podcast", "server", "pool", "xla",
+                  "ablate", "load"}:
         if pipe is None:
             pipe = build_full_pipeline()[0]
         if "stream" in phases:
@@ -4969,6 +5360,10 @@ def main(argv=None) -> int:
             continuous_server_part(pipe)
         if "pool" in phases:
             pool_line = pool_phase(pipe)
+        if "xla" in phases:
+            xla_line = xla_phase(pipe, main_line)
+        if "ablate" in phases:
+            ablate_phase(pipe)
         if "load" in phases:
             _release()
             load_line = load_phase(pipe, smi_line)
@@ -4996,7 +5391,8 @@ def main(argv=None) -> int:
         _release()
     if "kernels" in phases and main_line is not None:
         kernel_table(main_line, longform, checks, clone_line, stream_line,
-                     "sweep" in phases, pool_line, load_line, mesh_line)
+                     "sweep" in phases, pool_line, load_line, mesh_line,
+                     xla_line)
         torch.cuda.empty_cache()
     else:
         # --phases pool or mesh without main: their kernel entries on a
@@ -5019,6 +5415,9 @@ def main(argv=None) -> int:
     if "cli" in phases:
         cli_check()
         train_cli_check()
+    # when each phase printed its last line: the run's time by phase
+    emit({"timing": {"seconds_since_start": PHASE_DONE_S,
+                     "total_s": time.perf_counter() - T_START}})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

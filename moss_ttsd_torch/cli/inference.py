@@ -2,8 +2,11 @@
 
 Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --output_dir --summary_file --use_normalize --dtype --max_new_tokens --tiny
---platform --quant --restricted_text_head --profile_dir --lora_adapter
---adapter_alpha). Runs on the CUDA card unless ``--platform cpu``.
+--platform --quant --restricted_text_head --attn_impl --profile_dir
+--lora_adapter --adapter_alpha). Runs on the CUDA card unless
+``--platform cpu``. ``--attn_impl xla`` attends with the dense einsums
+instead of the kernels (the reference's ``--attn_implementation``);
+``--profiler_port`` is refused (no PyTorch counterpart).
 ``--model_path`` (an HF-format LM directory with its tokenizer, which
 needs ``transformers``), ``--spt_config`` and ``--spt_ckpt`` (the
 XY-Tokenizer yaml and checkpoint) load real weights through
@@ -51,7 +54,8 @@ def tiny_lm_config():
 
 def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
                         quant=None, restricted_text_head: bool = False,
-                        restricted_audit_every=None, mesh=None):
+                        restricted_audit_every=None, mesh=None,
+                        attn_impl=None):
     """Random tiny LM + codec + mock tokenizer wired into the real pipeline
     (the JAX ``build_tiny_pipeline`` geometry and sampling)."""
     from ..core.config import (ChannelSamplingConfig, CodecConfig,
@@ -76,7 +80,7 @@ def build_tiny_pipeline(seed: int = 0, bucket: int = 64, device="cuda",
                        quant=quant,
                        restricted_text_head=restricted_text_head or None,
                        restricted_audit_every=restricted_audit_every,
-                       device=dev, mesh=mesh)
+                       device=dev, mesh=mesh, attn_impl=attn_impl)
 
 
 def join_mesh(spec: str, device: str, error):
@@ -91,10 +95,6 @@ def join_mesh(spec: str, device: str, error):
         return parse_mesh_arg(spec, device_type=device)
     except ValueError as e:
         error(str(e))
-
-
-def _not_yet(parser, flag: str):
-    parser.error(f"{flag} is not yet ported to moss_ttsd_torch")
 
 
 def main(argv=None):
@@ -119,6 +119,12 @@ def main(argv=None):
                         help="weight-only int8 serving (w8a16)")
     parser.add_argument("--restricted_text_head", action="store_true",
                         help="channel-0 logits over the speech window only")
+    parser.add_argument("--attn_impl", choices=["mixed", "pallas", "xla"],
+                        default=None,
+                        help="attention backend (reference "
+                             "--attn_implementation): mixed and pallas = "
+                             "the CUDA kernels (default), xla = dense "
+                             "einsum attention")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of the batch "
                              "(Chrome trace JSON) into this directory")
@@ -138,16 +144,11 @@ def main(argv=None):
                              "under torch.distributed.run --nproc_per_node "
                              "2: rows split over data, weights over model; "
                              "rank 0 writes the outputs")
-    # flags of the JAX CLI that this port does not implement yet: accepted
-    # so they fail loudly instead of being silently ignored
-    parser.add_argument("--attn_impl", default=None)
     args = parser.parse_args(argv)
 
     from ..utils.helpers import maybe_debug_attach
     maybe_debug_attach()
 
-    if args.attn_impl not in (None, "mixed", "pallas"):
-        _not_yet(parser, f"--attn_impl {args.attn_impl}")
     from ..utils import profiling
     if args.profiler_port:
         try:
@@ -161,7 +162,8 @@ def main(argv=None):
     if args.tiny:
         pipe = build_tiny_pipeline(
             seed=args.seed or 0, device=device, quant=args.quant,
-            restricted_text_head=args.restricted_text_head, mesh=mesh)
+            restricted_text_head=args.restricted_text_head, mesh=mesh,
+            attn_impl=args.attn_impl)
     else:
         from ..pipeline.batch import TTSPipeline
         pipe = TTSPipeline.load(

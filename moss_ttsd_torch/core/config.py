@@ -74,14 +74,14 @@ class LMConfig:
     # Decode policies of the JAX package (ops/pallas_attention.py, int8
     # serving, restricted head, LoRA, training, bench ablations). The port
     # keeps every field so one config dict drives both packages.
-    # GenerationEngine implements quantized, kv_quant, restricted_text_head
-    # and restricted_audit_every, and raises ValueError for lora_rank > 0,
-    # remat_layers, the ablate_* stubs, an attn_impl other than mixed or
-    # pallas (attention is always the kernels of ops/flash_attention.py) and
-    # an unknown kv_quant. The training model (AsteroidLM's cache-free
-    # backbone, train/) implements lora_rank, lora_alpha, lora_rslora,
-    # lora_targets and remat_layers; trained voices are served as adapters
-    # (GenerationEngine.register_adapter). The TPU performance knobs
+    # attn_impl: "mixed" and "pallas" attend through the kernels of
+    # ops/flash_attention.py, "xla" through the dense einsums of
+    # ops/attention.py (models/lm.py). lora_rank > 0 serves and trains the
+    # layerwise lora_a / lora_b factors (int8 serving drops them);
+    # remat_layers recomputes each block in a training backward and has no
+    # effect at serving. ablate_attention, ablate_norms and ablate_rope are
+    # bench-only stubs (models/lm.py; the continuous pool's own stubs are
+    # ContinuousBatcher's ablate). The TPU performance knobs
     # decode_len_bucket, decode_extent_kernel, decode_block_k,
     # pallas_interpret and fuse_qk_norm_rope change no number and are
     # accepted and ignored.

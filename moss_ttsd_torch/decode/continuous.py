@@ -49,6 +49,10 @@ from .lora_registry import LoraRegistry
 
 logger = logging.getLogger(__name__)
 
+# the pool step's components that the bench-only ``ablate`` knob stubs out
+ABLATE_COMPONENTS = ("sampling", "logits", "tf_flush", "tokenwrite",
+                     "presence", "extentcalc")
+
 
 @dataclasses.dataclass
 class PoolState:
@@ -77,7 +81,8 @@ class ContinuousBatcher:
     the per-slot capacity. ``quant``, ``kv_quant`` and
     ``restricted_text_head`` are the engine's. ``len_aware=False`` reads
     every row's whole cache (extent S), the reference for the per-row
-    extents. ``lora``: a ``LoraRegistry`` to share (a serving engine's, so
+    extents (under ``attn_impl="xla"`` the dense attention over the whole
+    cache). ``lora``: a ``LoraRegistry`` to share (a serving engine's, so
     its voices are registered and stored once); by default the pool's
     engine has its own. ``mesh`` (``parallel/mesh.Mesh``): the weights
     tensor-parallel over its "model" axis (the engine's sharding; a shard
@@ -85,6 +90,17 @@ class ContinuousBatcher:
     the sampled tokens broadcast from the model group's first rank every
     step; each data replica runs the same whole pool, as the JAX pool's
     replicated state does.
+
+    ``ablate`` (bench-only; no entry point sets it): names of step
+    components from ``ABLATE_COMPONENTS``, each replaced by JAX's
+    shape-preserving stub, so that cumulative variants attribute the
+    step's cost: ``logits`` zero logits of the head's shapes; ``sampling``
+    every channel ``speech_lo``, the generators not advanced; ``tf_flush``
+    no teacher forcing or flush countdown, stopping on the budget only;
+    ``tokenwrite`` the token buffer kept; ``presence`` the presence sets
+    kept; ``extentcalc`` the extent ``base + step + 1`` for advancing rows.
+    Eager PyTorch eliminates no dead code, so a stub needs no dependency
+    on the work it stands beside.
 
         cb = ContinuousBatcher(cfg, model, sampling, slots=8, device="cuda")
         cb.submit(shifted_prompt, max_new_tokens=200)   # whenever slots free
@@ -100,7 +116,13 @@ class ContinuousBatcher:
                  kv_quant: Optional[str] = None, seed: int = 0, mesh=None,
                  len_aware: bool = True,
                  restricted_text_head: Optional[bool] = None,
-                 lora: Optional[LoraRegistry] = None):
+                 lora: Optional[LoraRegistry] = None,
+                 ablate: frozenset = frozenset()):
+        unknown = set(ablate) - set(ABLATE_COMPONENTS)
+        if unknown:
+            raise ValueError(f"unknown pool components {sorted(unknown)} "
+                             f"(choices: {', '.join(ABLATE_COMPONENTS)})")
+        self.ablate = frozenset(ablate)
         # the engine's weight handling (dtype cast, int8 quantization,
         # sharding) and its prefill; the pool never decodes through the
         # engine's loop
@@ -351,12 +373,13 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _step(self) -> None:
         """One pool step, in place on ``self.state`` (the JAX segment
-        body)."""
-        st, cfg, eng = self.state, self.cfg, self.engine
+        body). Each component named in ``self.ablate`` runs its
+        shape-preserving stub instead (JAX ``_build_segment_fn``)."""
+        st, cfg, eng, ablate = self.state, self.cfg, self.engine, self.ablate
         C, S = cfg.channels, self.S
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
         speech_lo, speech_hi = cfg.speech_token_range
-        lo = eng.text_window[0]
+        lo, hi = eng.text_window
         dev = self.device
         srow = st.step_r
         cur_r = self.base + srow                 # per-row TOKEN buffer row
@@ -364,48 +387,73 @@ class ContinuousBatcher:
         adv = st.active & st.unfinished          # rows that advance
         rows = torch.arange(self.slots, device=dev)
         chan = torch.arange(C, device=dev)
+        B = self.slots
 
-        text_logits, speech_logits = self.model.logits_all(
-            st.hidden_last, cfg.restricted_text_head)
-        next_tokens = sample_channels(
-            self.gens, text_logits[:, 0], speech_logits[:, 0],
-            st.presence_text, st.presence_speech, srow, eng.ch_params,
-            self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
-            pad_speech, lo)
-        if eng.tp is not None:      # one draw for the whole model group
-            next_tokens = eng.tp.broadcast(next_tokens)
+        if "logits" in ablate:
+            text_logits = torch.zeros((B, hi - lo), device=dev)
+            speech_logits = torch.zeros((B, C - 1, cfg.speech_vocab_size),
+                                        device=dev)
+        else:
+            text_logits, speech_logits = self.model.logits_all(
+                st.hidden_last, cfg.restricted_text_head)
+            text_logits, speech_logits = text_logits[:, 0], speech_logits[:, 0]
+        if "sampling" in ablate:
+            # every channel speech_lo; the rows' generators do not advance
+            next_tokens = torch.full((B, C), speech_lo, dtype=torch.int64,
+                                     device=dev)
+        else:
+            next_tokens = sample_channels(
+                self.gens, text_logits, speech_logits, st.presence_text,
+                st.presence_speech, srow, eng.ch_params,
+                self.sampling.topk_prefilter, self.sampling.approx_topk, eos,
+                pad_speech, lo)
+            if eng.tp is not None:  # one draw for the whole model group
+                next_tokens = eng.tp.broadcast(next_tokens)
 
-        # adv-gated: a row that does not advance samples garbage (dropped
-        # below) and must not arm the flush countdown
-        tok0 = next_tokens[:, 0]
-        is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
-        needs = torch.where(adv & ~is_speech & (st.needs < 0),
-                            torch.full_like(st.needs, C - 1), st.needs)
-
-        # teacher forcing: each row reads its own shifted-prompt tail row
         at = cur_r.clamp(max=S - 1)
         tf_row = st.tokens[rows, at]                               # (B, C)
-        tf_mask = (srow[:, None] < C - 1) & (chan[None, :] > srow[:, None])
-        next_tokens = torch.where(tf_mask, tf_row, next_tokens)
+        if "tf_flush" in ablate:
+            needs = st.needs
+        else:
+            # adv-gated: a row that does not advance samples garbage
+            # (dropped below) and must not arm the flush countdown
+            tok0 = next_tokens[:, 0]
+            is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
+            needs = torch.where(adv & ~is_speech & (st.needs < 0),
+                                torch.full_like(st.needs, C - 1), st.needs)
 
-        fill = torch.where(chan == 0, eos, pad_speech)[None, :]
-        flushing = (needs > 0) & (needs < C - 1)
-        flush_chan = (chan[None, :] == 0) | (needs[:, None] < C - chan[None, :])
-        next_tokens = torch.where(flushing[:, None] & flush_chan, fill,
-                                  next_tokens)
-        next_tokens = torch.where(adv[:, None], next_tokens, fill)
+            # teacher forcing: each row reads its own shifted-prompt tail
+            tf_mask = (srow[:, None] < C - 1) & (chan[None, :]
+                                                 > srow[:, None])
+            next_tokens = torch.where(tf_mask, tf_row, next_tokens)
 
-        # per-row token write; rows that do not advance keep their buffer
-        st.tokens[rows, at] = torch.where(adv[:, None], next_tokens, tf_row)
-        # presence: ids of rows that do not advance go out of range (dropped)
-        scatter_presence(st.presence_text,
-                         torch.where(adv, next_tokens[:, 0] - lo, -1))
-        scatter_presence(st.presence_speech,
-                         torch.where(adv[:, None], next_tokens[:, 1:], -1))
+            fill = torch.where(chan == 0, eos, pad_speech)[None, :]
+            flushing = (needs > 0) & (needs < C - 1)
+            flush_chan = ((chan[None, :] == 0)
+                          | (needs[:, None] < C - chan[None, :]))
+            next_tokens = torch.where(flushing[:, None] & flush_chan, fill,
+                                      next_tokens)
+            next_tokens = torch.where(adv[:, None], next_tokens, fill)
 
-        needs = torch.where(adv & (needs > 0), needs - 1, needs)
-        stopping = (next_tokens[:, 0] == eos) | (needs == 0)
-        unfinished = (st.unfinished & ~stopping) | (needs > 0)
+        if "tokenwrite" not in ablate:
+            # per-row token write; rows that do not advance keep their row
+            st.tokens[rows, at] = torch.where(adv[:, None], next_tokens,
+                                              tf_row)
+        if "presence" not in ablate:
+            # ids of rows that do not advance go out of range (dropped)
+            scatter_presence(st.presence_text,
+                             torch.where(adv, next_tokens[:, 0] - lo, -1))
+            scatter_presence(st.presence_speech,
+                             torch.where(adv[:, None], next_tokens[:, 1:],
+                                         -1))
+
+        if "tf_flush" in ablate:
+            # budget-only stopping (the flush countdown is stubbed out)
+            unfinished = st.unfinished
+        else:
+            needs = torch.where(adv & (needs > 0), needs - 1, needs)
+            stopping = (next_tokens[:, 0] == eos) | (needs == 0)
+            unfinished = (st.unfinished & ~stopping) | (needs > 0)
         # per-row budget: a row that just wrote its max_r-th token stops
         unfinished = unfinished & (srow + 1 < st.max_r)
 
@@ -414,12 +462,18 @@ class ContinuousBatcher:
         # state kept
         st.key_valid[:, slot] |= adv
         positions = (st.last_pos + 1)[:, None]
-        if self.len_aware:
+        if not self.len_aware:
+            # the whole cache: the kernels at extent S, or the dense
+            # backend over every slot (JAX passes no extent then)
+            ext = (None if cfg.attn_impl == "xla" else
+                   torch.full((B,), S, dtype=torch.int32, device=dev))
+        elif "extentcalc" in ablate:
+            # the arithmetic stand-in for the (B, S) reduction
+            ext = torch.where(adv, self.base + srow + 1, 1).to(torch.int32)
+        else:
             iota = torch.arange(1, S + 1, device=dev)
             last = torch.where(st.key_valid, iota, 0).amax(dim=1)
             ext = torch.where(adv, last, 1).to(torch.int32)
-        else:
-            ext = torch.full((self.slots,), S, dtype=torch.int32, device=dev)
         hidden, _ = self.model.backbone(
             next_tokens[:, None, :], positions, st.key_valid, st.cache, slot,
             write_gate=adv, read_extent=ext, adapters=self._row_adapters())

@@ -1,8 +1,9 @@
 """Autoregressive generation engine, PyTorch port of
 ``moss_ttsd_tpu/decode/engine.py`` (the static-batch ``generate``, with the
-int8 serving policies: ``quant="int8"`` weights, the ``kv_quant="int8"``
-cache and the restricted text head with its audit; per-row LoRA adapters
-through ``register_adapter`` and ``adapter=``).
+attention backends of ``attn_impl``, the int8 serving policies:
+``quant="int8"`` weights, the ``kv_quant="int8"`` cache and the
+restricted text head with its audit; per-row LoRA adapters through
+``register_adapter`` and ``adapter=``).
 
 Prefill runs the left-padded, bucketed prompt through the LM once; a
 host-driven step loop (the JAX ``while_loop``) then runs the decode
@@ -132,25 +133,22 @@ def channel_logits(text_logits, speech_logits, presence_text,
     return out
 
 
-def _refuse_unported(cfg: LMConfig) -> None:
-    """ValueError for the LMConfig fields this engine does not implement.
+ATTN_IMPLS = ("mixed", "pallas", "xla")
 
-    Implemented: the geometry, the dtypes, ``quantized``, ``kv_quant``,
-    ``restricted_text_head`` and ``restricted_audit_every``. TPU performance
+
+def _check_policies(cfg: LMConfig) -> None:
+    """ValueError for an attention backend or a KV-cache mode that neither
+    package knows.
+
+    ``attn_impl``: "mixed" and "pallas" attend through the port's kernels,
+    "xla" through the dense einsums (``models/lm.py``). TPU performance
     knobs with no numeric effect (``decode_len_bucket``,
     ``decode_extent_kernel``, ``decode_block_k``, ``pallas_interpret``,
-    ``fuse_qk_norm_rope``) are accepted and ignored."""
-    unported = [name for name in ("ablate_attention", "ablate_norms",
-                                  "ablate_rope", "remat_layers")
-                if getattr(cfg, name)]
-    if cfg.lora_rank > 0:
-        unported.append(f"lora_rank={cfg.lora_rank}")
-    if unported:
-        raise ValueError(f"LMConfig {', '.join(unported)}: not ported to "
-                         "moss_ttsd_torch's GenerationEngine")
-    if cfg.attn_impl not in ("mixed", "pallas"):
-        raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported (the "
-                         "port's attention is its kernels: mixed or pallas)")
+    ``fuse_qk_norm_rope``) are accepted and ignored, as is
+    ``remat_layers`` (no backward at serving)."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
+                         f"(choices: {', '.join(ATTN_IMPLS)})")
     if cfg.kv_quant not in ("none", "int8"):
         raise ValueError(f"unknown kv_quant mode {cfg.kv_quant!r}")
 
@@ -171,13 +169,17 @@ class GenerationEngine:
     ``restricted_text_head``: channel-0 logits over the speech window only;
     ``restricted_audit_every=N`` streams the full text head every N-th step
     and counts the rows where it would have preferred an out-of-window
-    token (``GenerateResult.audit``). The four keywords override ``cfg``.
+    token (``GenerateResult.audit``). ``attn_impl`` ("mixed" | "pallas" |
+    "xla") picks the attention backend (``models/lm.py``; "xla" is the
+    dense one, the others the kernels). The five keywords override
+    ``cfg``.
 
     LoRA voices: ``register_adapter`` stacks an adapter's factors
     (``decode/lora_registry.py``); ``generate(adapter=...)`` then runs the
     prefill and every decode step of each row through its adapter. A
-    training-time ``cfg.lora_rank`` config is refused (ValueError): a
-    trained voice serves as an adapter (``train/lora.py``).
+    ``cfg.lora_rank`` > 0 config serves its own ``lora_a`` / ``lora_b``
+    factors layerwise (JAX ``LoRADense``); int8 serving drops them, as the
+    JAX engine does.
 
     ``mesh`` (``parallel/mesh.Mesh``): tensor-parallel weights over its
     "model" axis (the full weights are cast, quantized and then sharded;
@@ -194,19 +196,21 @@ class GenerationEngine:
                  device: DeviceLike = "cuda", quant: Optional[str] = None,
                  kv_quant: Optional[str] = None,
                  restricted_text_head: Optional[bool] = None,
-                 restricted_audit_every: Optional[int] = None, mesh=None):
+                 restricted_audit_every: Optional[int] = None, mesh=None,
+                 attn_impl: Optional[str] = None):
         self.device = resolve_device(device)
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
         overrides = {k: v for k, v in (
             ("kv_quant", kv_quant),
             ("restricted_text_head", restricted_text_head),
+            ("attn_impl", attn_impl),
             ("restricted_audit_every", restricted_audit_every)) if v is not None}
         if quant == "int8":
             # int8 serving runs merged weights (the JAX engine's rule)
             overrides.update(quantized=True, lora_rank=0)
         cfg = dataclasses.replace(cfg, **overrides)
-        _refuse_unported(cfg)
+        _check_policies(cfg)
         self.cfg = cfg
         self.text_window = cfg.text_head_window()
         self.mesh = mesh

@@ -35,7 +35,16 @@ Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` on
 the exact k/v; single-token decode through the extent-clamped
 ``flash_decode_hs``, or ``flash_decode_int8_hs`` over an int8 cache — the
 port's decode attentions; the cache-free forward uses the plain
-``gqa_attention``.
+``gqa_attention``. ``cfg.attn_impl == "xla"`` (the JAX package's dense
+backend) attends with the dense einsums of ``ops/attention.py`` instead,
+over the cache slots just written (the prefill's own keys, the sequential
+decode's prefix; an int8 cache dequantized first); the pool's per-row
+extents keep the decode kernels under every backend, as in JAX.
+
+Bench-only stubs (``bench_full.py`` reads them in JAX; ``chip_smoke.py``
+on the card): ``cfg.ablate_norms`` makes every RMSNorm ``x * w``,
+``cfg.ablate_rope`` skips the q/k rotations, ``cfg.ablate_attention`` sets
+the cached forward's attention output to q (the cache writes stay).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LMConfig
 from ..core.device import DeviceLike, resolve_device, torch_dtype
-from ..ops.attention import causal_mask, gqa_attention
+from ..ops.attention import causal_mask, gqa_attention, gqa_attention_hs
 from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
                                    flash_prefill)
 from ..ops.quantize import quantize_kv
@@ -58,9 +67,13 @@ from ..ops.rope import apply_rope, rope_cos_sin
 from ..utils.convert_lora import lora_scale
 
 
-def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float,
+                ablate: bool = False) -> torch.Tensor:
     """RMSNorm with fp32 statistics, cast back to the input dtype before the
-    weight multiply (as the JAX ``rms_norm_fn``)."""
+    weight multiply (as the JAX ``rms_norm_fn``). ``ablate`` (the bench-only
+    ``cfg.ablate_norms`` stub) is ``x * w`` in x's dtype."""
+    if ablate:
+        return x * w.to(x.dtype)
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
@@ -68,13 +81,14 @@ def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, ablate: bool = False):
         super().__init__()
         self.eps = eps
+        self.ablate = ablate
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm_fn(x, self.weight, self.eps)
+        return rms_norm_fn(x, self.weight, self.eps, self.ablate)
 
 
 def _int8(*shape) -> nn.Parameter:
@@ -165,18 +179,22 @@ class Qwen3Block(nn.Module):
                 scale = lora_scale(c.lora_rank, c.lora_alpha, c.lora_rslora)
                 # JAX multiplies by the scale as a weakly typed constant,
                 # i.e. rounded to the compute dtype
-                scale = float(torch.tensor(scale).to(torch_dtype(c.dtype)))
+                scale = float(torch.tensor(scale, device="cpu").to(
+                    torch_dtype(c.dtype)))
                 return Dense(fan_in, fan_out, bias, c.lora_rank, scale)
             return Dense(fan_in, fan_out, bias)
 
-        self.input_ln = RMSNorm(hid, c.rms_norm_eps)
+        def norm(dim):
+            return RMSNorm(dim, c.rms_norm_eps, ablate=c.ablate_norms)
+
+        self.input_ln = norm(hid)
         self.q_proj = dense(hid, H * D, bias, "q_proj")
         self.k_proj = dense(hid, Hkv * D, bias, "k_proj")
         self.v_proj = dense(hid, Hkv * D, bias, "v_proj")
         self.o_proj = dense(H * D, hid, bias, "o_proj")  # HF Qwen3: o_proj too
-        self.q_norm = RMSNorm(D, c.rms_norm_eps)
-        self.k_norm = RMSNorm(D, c.rms_norm_eps)
-        self.post_ln = RMSNorm(hid, c.rms_norm_eps)
+        self.q_norm = norm(D)
+        self.k_norm = norm(D)
+        self.post_ln = norm(hid)
         self.gate_proj = dense(hid, ffn, False, "gate_proj")
         self.up_proj = dense(hid, ffn, False, "up_proj")
         self.down_proj = dense(ffn, hid, False, "down_proj")
@@ -212,8 +230,9 @@ class Qwen3Block(nn.Module):
         q = self._proj("q_proj", h, adapters).reshape(B, T, H, D)
         k = self._proj("k_proj", h, adapters).reshape(B, T, Hkv, D)
         v = self._proj("v_proj", h, adapters).reshape(B, T, Hkv, D)
-        q = apply_rope(self.q_norm(q), cos, sin)
-        k = apply_rope(self.k_norm(k), cos, sin)
+        q, k = self.q_norm(q), self.k_norm(k)
+        if not self.cfg.ablate_rope:          # the bench-only rope stub
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         scale = D ** -0.5
 
         if cache is not None:
@@ -233,10 +252,17 @@ class Qwen3Block(nn.Module):
                     _write(cache[name + "_s"][layer_idx][:, :, slot], sc,
                            write_gate)
                 _write(cache[name][layer_idx][:, :, slot], new, write_gate)
-            if T > 1:
-                if cache_pos != 0:
-                    raise NotImplementedError(
-                        "multi-token segments are prefill-only (cache_pos 0)")
+            if T > 1 and cache_pos != 0:
+                raise NotImplementedError(
+                    "multi-token segments are prefill-only (cache_pos 0)")
+            if self.cfg.ablate_attention:
+                # the bench-only stub: the projections and the cache writes
+                # stay, no attention reads the cache
+                attn = q
+            elif mask is not None:
+                # attn_impl "xla": the dense path (the backbone's mask)
+                attn = self._dense(q, cache, layer_idx, mask, scale)
+            elif T > 1:
                 # prefill: queries see only keys < T, i.e. the current k/v
                 # (exact even over an int8 cache: only later steps read it)
                 attn = flash_prefill(q, k, v, key_valid[:, :T], scale)
@@ -265,6 +291,19 @@ class Qwen3Block(nn.Module):
         act = (F.silu(self._proj("gate_proj", h, adapters))
                * self._proj("up_proj", h, adapters))
         return x + self._proj("down_proj", act, adapters)
+
+    def _dense(self, q, cache, layer_idx, mask, scale):
+        """The dense attention of ``attn_impl="xla"`` (JAX ``xla_attend``)
+        over this layer's first ``mask.shape[-1]`` cache slots, just
+        written: a prefill's own keys, a decode's written prefix. An int8
+        cache is dequantized in the compute dtype first, so a prefill over
+        it reads the quantized k/v, as JAX's dense prefill does."""
+        Sp, dt = mask.shape[-1], q.dtype
+        kv = [cache[n][layer_idx][:, :, :Sp].to(dt) for n in ("k", "v")]
+        if "k_s" in cache:
+            kv = [t * cache[n][layer_idx][:, :, :Sp, None].to(dt)
+                  for t, n in zip(kv, ("k_s", "v_s"))]
+        return gqa_attention_hs(q, kv[0], kv[1], mask, scale)
 
 
 def _write(dst: torch.Tensor, new: torch.Tensor,
@@ -318,7 +357,8 @@ class AsteroidLM(nn.Module):
         self.layers = nn.ModuleList(Qwen3Block(c, tp)
                                     for _ in range(c.num_hidden_layers))
         self.kv_heads = self.layers[0].kv_heads if self.layers else 0
-        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
+        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps,
+                                  ablate=c.ablate_norms)
 
     @classmethod
     def init_random(cls, cfg: LMConfig, seed: int = 0,
@@ -412,7 +452,8 @@ class AsteroidLM(nn.Module):
         cache_pos + 1;
         adapters: per-row LoRA factors from ``select_adapters``;
         remat: recompute each block in the backward (the cache-free
-        training forward; default ``cfg.remat_layers``);
+        training forward; default ``cfg.remat_layers``, which a cached
+        forward ignores);
         seq (``parallel/mesh.SequenceParallel``, cache-free only): the
         rows hold this seq rank's window of the time axis, ``positions``
         are the window's, ``key_valid`` is the whole (B, T) row's, and
@@ -432,8 +473,24 @@ class AsteroidLM(nn.Module):
             mask = causal_mask(q0, T, S, key_valid)
         elif seq is not None:
             raise ValueError("sequence parallelism is cache-free")
-        remat = c.remat_layers if remat is None else remat
-        if remat and cache is not None:
+        elif c.attn_impl == "xla" and not c.ablate_attention:
+            # the dense backend's mask (None selects the kernels): a
+            # prefill's causal one over its own keys; a sequential decode
+            # reads the slots up to the one it writes, a ring-addressed
+            # decode without extents (the pool's len_aware=False) the whole
+            # cache. The pool's per-row extents keep the decode kernels, as
+            # the JAX extent branch does under every backend.
+            if T > 1:
+                mask = causal_mask(0, T, T, key_valid[:, :T])
+            elif read_extent is None:
+                Sp = (key_valid.shape[1] if write_gate is not None
+                      else cache_pos + 1)
+                mask = key_valid[:, None, :Sp]
+        if remat is None:
+            # cfg.remat_layers has no effect on a serving forward (no
+            # backward), as in the JAX package
+            remat = c.remat_layers and cache is None
+        elif remat and cache is not None:
             raise ValueError("remat is for the cache-free training forward")
         for li, layer in enumerate(self.layers):
             ad = (None if adapters is None else

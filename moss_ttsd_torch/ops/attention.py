@@ -25,9 +25,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = H // Hkv
     qg = q.reshape(B, T, Hkv, g, D)
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k).to(torch.float32) * scale
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=torch.float32,
-                                      device=q.device))
+    # a scalar fill: a device tensor made from a host scalar would be a
+    # pageable host-to-device copy, which syncs the stream every call
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
     return out.reshape(B, T, H, D)
@@ -44,9 +44,7 @@ def gqa_attention_hs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = H // Hkv
     qg = q.reshape(B, T, Hkv, g, D)
     scores = torch.einsum("bthgd,bhsd->bhgts", qg, k).to(torch.float32) * scale
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=torch.float32,
-                                      device=q.device))
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bhsd->bthgd", probs, v)
     return out.reshape(B, T, H, D)

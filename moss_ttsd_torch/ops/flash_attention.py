@@ -27,7 +27,9 @@ version agree on every row).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 shared libraries with a plain C interface (loaded with ``ctypes``), cached
-under ``build/moss_ttsd_torch/<hash of the sources>/`` in the checkout.
+under ``build/moss_ttsd_torch/<hash of the sources>/`` in the checkout, or
+under another root that ``set_build_root`` names before the first build
+(the server's ``--jax_cache_dir``).
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
@@ -38,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -60,6 +63,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _L_FLOOR = 1e-30
 
+_build_root = BUILD_ROOT
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 build_info: Dict[str, object] = {}
@@ -90,6 +94,31 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def set_build_root(path: Optional[str]) -> Path:
+    """The directory the kernel libraries are built into and loaded from,
+    as ``<path>/<hash of the sources>/``: a restart reuses what an earlier
+    process built there. None is the default ``BUILD_ROOT``; "" a fresh
+    temporary directory (nothing reused). It must be set before the first
+    kernel is built: a process whose kernels are loaded from another root
+    raises. Returns the root."""
+    global _build_root
+    root = (BUILD_ROOT if path is None else
+            Path(tempfile.mkdtemp(prefix="moss_ttsd_kernels_")) if path == ""
+            else Path(path).resolve())
+    with _build_lock:
+        if _libs and root != _build_root:
+            raise RuntimeError(f"the kernels are already loaded from "
+                               f"{_build_root}; set the build root before "
+                               f"the first kernel is built")
+        _build_root = root
+    return root
+
+
+def build_root() -> Path:
+    """The current build root (``set_build_root``)."""
+    return _build_root
+
+
 def build_kernels() -> Dict[str, ctypes.CDLL]:
     """Compile (once per source hash) and load every kernel library.
 
@@ -99,7 +128,7 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
         if len(_libs) == len(SOURCES):
             return _libs
         t0 = time.perf_counter()
-        out_dir = BUILD_ROOT / _source_hash()
+        out_dir = _build_root / _source_hash()
         out_dir.mkdir(parents=True, exist_ok=True)
         todo = {name: out_dir / f"lib{name}.so" for name in SOURCES}
         procs = {}

@@ -10,7 +10,9 @@ Weights: symmetric per-channel int8 over the port's state-dict names.
   * embeddings ``embed_text`` (V, H) / ``embed_speech`` (C-1, V, H) become
     ``embed_*_q`` int8 and ``embed_*_s`` fp32 with one scale per row — right
     for the gather and for the tied head, whose scale applies output-side.
-Norm weights and biases stay as they are. ``scale = max(amax, 1e-8) / 127``
+Norm weights and biases stay as they are; a projection's ``lora_a`` /
+``lora_b`` factors are dropped (int8 serving runs the base weights, as
+the JAX package's does). ``scale = max(amax, 1e-8) / 127``
 and round half to even (``torch.round`` as ``jnp.round``), so the int8
 bytes equal the JAX package's.
 
@@ -66,6 +68,9 @@ def quantize_lm_params(state: Mapping[str, torch.Tensor]
                 and parts[2] == "weight"):
             q, s = _quantize(v, dim=-1)            # one scale per output row
             out[k + "_q"], out[k + "_s"] = q, s
+        elif (len(parts) == 3 and parts[1] in _PROJ_NAMES
+              and parts[2] in ("lora_a", "lora_b")):
+            continue             # int8 projections carry no LoRA factors
         elif k in _EMBEDS:
             q, s = _quantize(v, dim=-1)            # one scale per table row
             out[k + "_q"], out[k + "_s"] = q, s

@@ -211,10 +211,13 @@ class TTSPipeline:
                  restricted_audit_every: Optional[int] = None,
                  encode_cache_size: int = 16,
                  overlap_vocode: bool = True,
-                 device: DeviceLike = "cuda", mesh=None):
-        """``quant="int8"`` serves w8a16 weights; ``restricted_text_head``
-        and ``restricted_audit_every`` set the decode policies of the same
-        names (``GenerationEngine``). ``self.lm_cfg`` is the engine's config,
+                 device: DeviceLike = "cuda", mesh=None,
+                 attn_impl: Optional[str] = None):
+        """``quant="int8"`` serves w8a16 weights; ``restricted_text_head``,
+        ``restricted_audit_every`` and ``attn_impl`` (the reference's
+        ``--attn_implementation`` switch: "mixed" | "pallas" | "xla") set
+        the decode policies of the same names (``GenerationEngine``).
+        ``self.lm_cfg`` is the engine's config,
         with these overrides applied. ``encode_cache_size`` LRU-caches the
         codec encodings of single prompt voices by wav content (a fixed
         voice is encoded once, not on every request); 0 disables it.
@@ -227,7 +230,8 @@ class TTSPipeline:
         self.engine = GenerationEngine(
             lm_cfg, lm_params, sampling, bucket=bucket, device=self.device,
             quant=quant, restricted_text_head=restricted_text_head,
-            restricted_audit_every=restricted_audit_every, mesh=mesh)
+            restricted_audit_every=restricted_audit_every, mesh=mesh,
+            attn_impl=attn_impl)
         self.mesh = mesh
         # lockstep: every mesh rank runs process_batch (a server's lead
         # rank clears it: its followers replay engine calls instead)
@@ -272,8 +276,6 @@ class TTSPipeline:
                 f"no config.json in {model_path!r}: expected an HF-format "
                 f"checkpoint directory")
         lm_cfg = LMConfig.from_hf_config_json(cfg_path)
-        if attn_impl is not None:
-            lm_cfg = dataclasses.replace(lm_cfg, attn_impl=attn_impl)
         tokenizer = load_tokenizer(model_path)
         lm_params = load_asteroid_checkpoint(
             model_path, lm_cfg, dtype=torch_dtype(lm_cfg.dtype), device=dev)
@@ -287,7 +289,7 @@ class TTSPipeline:
         return cls(tokenizer, lm_cfg, lm_params, spt, sampling, quant=quant,
                    restricted_text_head=restricted_text_head,
                    restricted_audit_every=restricted_audit_every,
-                   device=dev, mesh=mesh)
+                   device=dev, mesh=mesh, attn_impl=attn_impl)
 
     def _prepare_text(self, item: dict, use_normalize: bool):
         """Text half of item preparation -> (final_text, meta, wav-or-None)."""

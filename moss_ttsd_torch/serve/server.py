@@ -33,6 +33,9 @@ client attaches.
 
 ``--model_path DIR --spt_config YAML --spt_ckpt CKPT`` serves a real
 checkpoint (``TTSPipeline.load``; the tokenizer needs ``transformers``).
+``--attn_impl xla`` attends with the dense einsums instead of the kernels;
+``--jax_cache_dir DIR`` builds the kernels into DIR (a restart reuses
+them; "" builds into a fresh temporary directory).
 
 ``--mesh DATAxMODEL`` serves over a mesh of processes (one a card;
 ``python -m torch.distributed.run --nproc_per_node N``, or the ``JAX_*``
@@ -946,20 +949,26 @@ def main(argv=None):
                    help="serve over a (data, model) mesh of processes, e.g. "
                         "1x2 under torch.distributed.run --nproc_per_node 2"
                         ": rank 0 serves HTTP, the others follow")
-    # flags of the JAX server this port does not implement yet: accepted so
-    # that they fail loudly instead of being ignored
-    p.add_argument("--attn_impl", default=None)
-    p.add_argument("--jax_cache_dir", default=None)
+    p.add_argument("--attn_impl", choices=["mixed", "pallas", "xla"],
+                   default=None,
+                   help="attention backend (reference "
+                        "--attn_implementation): mixed and pallas = the "
+                        "CUDA kernels (default), xla = dense einsum "
+                        "attention")
+    p.add_argument("--jax_cache_dir", default=None, metavar="DIR",
+                   help="where the CUDA kernels are built and loaded from "
+                        "(DIR/<source hash>/; a restart reuses them); "
+                        "default <repo>/build/moss_ttsd_torch, empty "
+                        "string = a fresh temporary directory")
     args = p.parse_args(argv)
 
     from ..utils.helpers import maybe_debug_attach
     maybe_debug_attach()
 
-    if args.jax_cache_dir:
-        p.error("--jax_cache_dir is not yet ported to moss_ttsd_torch")
-    if args.attn_impl not in (None, "mixed", "pallas"):
-        p.error(f"--attn_impl {args.attn_impl} is not yet ported to "
-                "moss_ttsd_torch")
+    if args.jax_cache_dir is not None:
+        # before any kernel is built: the pipeline builds them at first use
+        from ..ops.flash_attention import set_build_root
+        set_build_root(args.jax_cache_dir)
     from ..utils.convert_lora import parse_adapter_specs
     lora_adapters = parse_adapter_specs(args.lora_adapter,
                                         args.adapter_alpha, p.error)
@@ -974,7 +983,7 @@ def main(argv=None):
             device=device, quant=args.quant,
             restricted_text_head=args.restricted_text_head,
             restricted_audit_every=args.restricted_audit_every or None,
-            mesh=mesh)
+            mesh=mesh, attn_impl=args.attn_impl)
     else:
         from ..pipeline.batch import TTSPipeline
         pipeline = TTSPipeline.load(

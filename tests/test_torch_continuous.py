@@ -489,3 +489,60 @@ def test_refusals_come_before_device_work(models):
         pool(cfg, model, mesh=parse_mesh_arg("1x2", device_type="cpu"))
     with pytest.raises(ValueError, match="channels-1"):
         pool(cfg, model, max_steps=cfg.channels - 2)
+
+
+# -- the bench-only ablate knob and the dense backend -------------------------
+
+ABLATE_ORDER = ("sampling", "logits", "tf_flush", "tokenwrite", "presence",
+                "extentcalc")
+
+
+@pytest.mark.parametrize("n", range(len(ABLATE_ORDER) + 1),
+                         ids=["full", *ABLATE_ORDER])
+def test_ablated_pool_state_matches_jax_segment(models, n):
+    """bench_full's seven cumulative variants (the first n components
+    stubbed): from the same admitted state (three requests, one burst),
+    greedy, the port's pool after 6 steps holds the state of JAX's
+    ``_build_segment_fn(ablate=...)``: tokens, needs, unfinished, presence
+    and step_r equal."""
+    import jax
+    from moss_ttsd_tpu.decode.continuous import _build_segment_fn
+    jcfg, params, cfg, model = models
+    abl = frozenset(ABLATE_ORDER[:n])
+    reqs = [r for _, r in _schedule(jcfg, 5)]
+    cb = pool(cfg, model, ablate=abl)
+    jcb = jpool(jcfg, params)
+    for c in (cb, jcb):
+        c.submit_many(reqs)
+    cb.run(steps=6)
+    seg = jax.jit(_build_segment_fn(jcb.model, jcb.cfg, jcb.sampling, BASE,
+                                    32, ablate=abl))
+    st = seg(jcb.params, jcb.state, jnp.int32(6), jcb.lora.stacks)
+    for name in ("tokens", "needs", "unfinished", "presence_text",
+                 "presence_speech", "step_r"):
+        np.testing.assert_array_equal(getattr(cb.state, name).numpy(),
+                                      np.asarray(getattr(st, name)),
+                                      err_msg=name)
+    assert int(cb.state.step_r.max()) == 6
+
+
+def test_pool_refuses_unknown_ablate_component(models):
+    cfg, model = models[2], models[3]
+    with pytest.raises(ValueError, match="unknown pool components"):
+        pool(cfg, model, ablate={"sampling", "attention"})
+
+
+@pytest.mark.parametrize("len_aware", [True, False])
+def test_xla_pool_matches_jax_pool(models, len_aware):
+    """The pool under attn_impl="xla": with per-row extents it still reads
+    through the decode kernels (their plain versions here), without them
+    it attends densely over the whole cache; both give the JAX xla pool's
+    greedy tokens."""
+    import dataclasses
+    jcfg, params, cfg, model = models
+    sched = _schedule(jcfg, 1)
+    got = drive(pool(dataclasses.replace(cfg, attn_impl="xla"), model,
+                     len_aware=len_aware), sched)
+    ref = drive(jpool(dataclasses.replace(jcfg, attn_impl="xla"), params,
+                      len_aware=len_aware), sched)
+    _assert_same(got, ref)

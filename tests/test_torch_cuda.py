@@ -478,6 +478,49 @@ def test_tiny_engine_on_card_matches_cpu(cuda, policy):
     np.testing.assert_array_equal(toks[1], toks[0])
 
 
+@pytest.mark.parametrize("fields,kw", [
+    ({}, dict(attn_impl="xla")),
+    ({}, dict(attn_impl="xla", quant="int8", kv_quant="int8")),
+    (dict(ablate_norms=True), {}), (dict(ablate_rope=True), {}),
+    (dict(ablate_attention=True), {}),
+    (dict(ablate_norms=True, ablate_rope=True, ablate_attention=True), {})],
+    ids=["xla", "xla_int8_kv8", "ablate_norms", "ablate_rope",
+         "ablate_attention", "ablate_all"])
+def test_tiny_engine_variants_on_card_match_cpu(cuda, fields, kw):
+    """The dense backend and the bench-only stubs on the card: greedy
+    tokens of the tiny fp32 engine equal the CPU's; under xla no kernel
+    of csrc/ runs, under a stub the kernels still do (but no attention
+    kernel decodes under ablate_attention)."""
+    import dataclasses
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             LMConfig, SamplingConfig)
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = dataclasses.replace(
+        LMConfig(dtype="float32", param_dtype="float32").tiny(), **fields)
+    greedy = SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=False, temperature=None, top_k=None, top_p=None)
+        for _ in range(cfg.channels)], max_new_tokens=12)
+    rng = np.random.default_rng(0)
+    prompt = np.full((2, 20, cfg.channels), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = rng.integers(1, 90, (2, 20))
+    mask = np.ones((2, 20), np.int64)
+    mask[0, :5] = 0
+    toks = []
+    for dev in ("cpu", "cuda"):
+        model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+        eng = GenerationEngine(cfg, model, greedy, bucket=32, device=dev,
+                               **kw)
+        fa.reset_launch_counts()
+        toks.append(eng.generate(prompt, mask, 12).tokens)
+    counts = fa.launch_counts()
+    if kw.get("attn_impl") == "xla" or cfg.ablate_attention:
+        assert not any(counts.values()), counts
+    else:
+        assert counts["flash_prefill"] and counts["flash_decode_hs"], counts
+    np.testing.assert_array_equal(toks[1], toks[0])
+
+
 def test_codec_encode_on_card_matches_cpu(cuda):
     """The tiny fp32 codec encode (log-mel, both encoders, RVQ) of the
     examples' voices on the card against the same weights on the CPU, TF32

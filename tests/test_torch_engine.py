@@ -162,20 +162,17 @@ def test_sampled_generate_holds_tf_window(models):
 
 
 @pytest.mark.parametrize("cfg_fields,kwargs,match", [
-    (dict(lora_rank=8), {}, "lora_rank"),
-    (dict(ablate_attention=True), {}, "ablate_attention"),
-    (dict(ablate_norms=True), {}, "ablate_norms"),
-    (dict(ablate_rope=True), {}, "ablate_rope"),
-    (dict(remat_layers=True), {}, "remat_layers"),
-    (dict(attn_impl="xla"), {}, "attn_impl"),
     (dict(kv_quant="fp8"), {}, "kv_quant"),
     ({}, dict(kv_quant="int4"), "kv_quant"),
     ({}, dict(quant="int4"), "quant"),
+    (dict(attn_impl="flash"), {}, "unknown attn_impl 'flash'"),
+    ({}, dict(attn_impl="sdpa"), "unknown attn_impl 'sdpa'"),
 ])
 def test_engine_refuses_unported_config_fields(models, cfg_fields, kwargs,
                                                match):
-    """A decode policy the port does not implement raises instead of
-    decoding silently with the defaults."""
+    """A decode policy neither package implements (an unknown KV-cache,
+    weight or attention mode) raises instead of decoding silently with the
+    defaults."""
     import dataclasses
     cfg, model = models[2], models[3]
     with pytest.raises(ValueError, match=match):
@@ -345,3 +342,147 @@ def test_backbone_ring_write_gate_extent_and_adapters_match_jax(models,
         keep[slot] = False
         np.testing.assert_array_equal(got[:, :, :, keep],
                                       old[name].numpy()[:, :, :, keep])
+
+
+# -- the dense backend, the bench-only stubs, remat and a LoRA config --------
+
+def _jax_lora_tree(jcfg, params, seed=0):
+    """JAX ``graft_lora_params`` on the tiny tree, with ``lora_b`` set
+    non-zero (its init is zeros, which would hide the factors)."""
+    import jax
+    from moss_ttsd_tpu.train.lora import graft_lora_params
+    tree = jax.tree_util.tree_map(np.asarray, graft_lora_params(
+        params, jcfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+    blk = tree["params"]["layers"]["block"]
+    for name in jcfg.lora_targets:
+        b = blk[name]["lora_b"]
+        blk[name]["lora_b"] = (rng.standard_normal(b.shape) * 0.2
+                               ).astype(np.float32)
+    return tree
+
+
+ENGINE_VARIANTS = {
+    "xla": ({}, dict(attn_impl="xla")),
+    "xla_int8": ({}, dict(attn_impl="xla", quant="int8")),
+    "xla_kv8": ({}, dict(attn_impl="xla", kv_quant="int8")),
+    "xla_int8_kv8": ({}, dict(attn_impl="xla", quant="int8",
+                              kv_quant="int8")),
+    "ablate_norms": (dict(ablate_norms=True), {}),
+    "ablate_rope": (dict(ablate_rope=True), {}),
+    "ablate_attention": (dict(ablate_attention=True), {}),
+    "ablate_all": (dict(ablate_norms=True, ablate_rope=True,
+                        ablate_attention=True), {}),
+    "remat_layers": (dict(remat_layers=True), {}),
+    "lora_rank": (dict(lora_rank=4, lora_alpha=8.0, lora_rslora=False), {}),
+    "lora_rank_rslora": (dict(lora_rank=4, lora_targets=("q_proj", "v_proj",
+                                                         "down_proj")), {}),
+    "lora_rank_int8": (dict(lora_rank=4), dict(quant="int8")),
+}
+
+
+@pytest.mark.parametrize("variant", list(ENGINE_VARIANTS))
+def test_engine_variants_greedy_tokens_equal_jax(models, variant):
+    """Greedy tokens of the port's engine equal the JAX engine's (its CPU
+    path) under attn_impl="xla" with every weight and KV-cache mode, each
+    bench-only stub, remat_layers (no effect at serving) and a lora_rank
+    config served layerwise (scale alpha / r, or alpha / sqrt(r) under
+    rsLoRA; int8 serving drops the factors in both)."""
+    import dataclasses
+    from tests.test_torch_lm import port_model
+    jcfg0, params = models[0], models[1]
+    fields, kw = ENGINE_VARIANTS[variant]
+    # most of the vocab counted as speech: the rows decode past the TF
+    # window instead of flushing at once
+    jcfg = dataclasses.replace(jcfg0, speech_token_range=(0, 150), **fields)
+    if jcfg.lora_rank:
+        params = _jax_lora_tree(jcfg, params)
+    cfg, model = port_model(jcfg, params)
+    batch, mask = _batch(jcfg, 4, [(6, 4), (9, 2)])
+    r_j = jeng.GenerationEngine(jcfg, params, greedy(JAX_S, 20), bucket=32,
+                                cache_dtype=jnp.float32, **kw
+                                ).generate(batch, mask, 20)
+    eng = GenerationEngine(cfg, model, greedy(TORCH_S, 20), bucket=32,
+                           device="cpu", **kw)
+    r_t = eng.generate(batch, mask, 20)
+    assert eng.cfg.attn_impl == kw.get("attn_impl", "mixed")
+    assert eng.cfg.lora_rank == (0 if "quant" in kw else jcfg.lora_rank)
+    assert (r_t.steps, r_t.base) == (r_j.steps, r_j.base)
+    assert r_t.steps > jcfg.channels
+    np.testing.assert_array_equal(r_t.tokens, r_j.tokens)
+
+
+def test_sampled_xla_run_draws_from_jax_distributions(models, monkeypatch):
+    """A sampled attn_impl="xla" run: at each of its first 4 steps the
+    distribution every channel's draw sees (processed_logits, after the
+    TF/pad/EOS masks and the repetition penalty) equals JAX's, within
+    1e-6, with JAX's cached backbone fed the port's drawn tokens."""
+    import dataclasses
+    from moss_ttsd_tpu.models import lm as jlm
+    from moss_ttsd_torch.decode import engine as peng
+    jcfg0, params, cfg0, _ = models
+    jcfg = dataclasses.replace(jcfg0, attn_impl="xla")
+    cfg = dataclasses.replace(cfg0, attn_impl="xla")
+    model = models[3]
+    ch = SAMPLED[0]
+    C, steps, prefilter = cfg.channels, 4, 64
+    sampling = SamplingConfig(channels=[ChannelSamplingConfig(**ch)
+                                        for _ in range(C)],
+                              max_new_tokens=steps, topk_prefilter=prefilter)
+    seen, orig = [], peng.sample_from_channel
+
+    def spy(gen, x, p, pre, approx):
+        seen.append(psam.processed_logits(x, torch.zeros_like(x, dtype=bool),
+                                          p, pre, approx).numpy())
+        return orig(gen, x, p, pre, approx)
+
+    monkeypatch.setattr(peng, "sample_from_channel", spy)
+    batch, mask = _batch(jcfg, 6, [(6, 4), (9, 2)])
+    eng = GenerationEngine(cfg, model, sampling, bucket=32, device="cpu")
+    res = eng.generate(batch, mask, steps, seed=3)
+    assert res.steps == steps and len(seen) == steps * C
+
+    ids, m, base = eng._bucket_prompt(batch, mask)
+    B, S = ids.shape[0], base + 32
+    jm = jlm.AsteroidLM(jcfg)
+    jps = [jsam.ChannelParams.from_config(JCh(**ch))] * C
+    kv = np.zeros((B, S), bool)
+    kv[:, :base] = m[:, :base] > 0
+    pos = np.maximum(np.cumsum(m[:, :base], 1) - 1, 0)
+    cache = jlm.init_cache(jcfg, B, S, jnp.float32)
+    h, cache = jm.apply(params, jnp.asarray(ids[:, :base]), jnp.asarray(pos),
+                        jnp.asarray(kv), cache, 0,
+                        method=jlm.AsteroidLM.backbone)
+    h, last = h[:, -1:], pos[:, -1]
+    pt = np.zeros((B, jcfg.vocab_size), bool)
+    ps = np.zeros((B, C - 1, jcfg.speech_vocab_size), bool)
+    for b in range(B):
+        pt[b, ids[b, :base, 0]] = True
+        for i in range(1, C):
+            ps[b, i - 1, ids[b, :base, i]] = True
+    for s in range(steps):
+        tl, sl = jm.apply(params, h, method=jlm.AsteroidLM.logits_all)
+        ref = {}
+
+        def draw(i, lg):
+            ref[i] = np.asarray(jsam.processed_logits(
+                lg, jnp.zeros(lg.shape, bool), jps[i], prefilter))
+            return jnp.zeros((B,), jnp.int32)
+
+        jeng._sample_channels_body(draw, tl[:, 0], sl[:, 0],
+                                   jnp.asarray(pt), jnp.asarray(ps),
+                                   jnp.int32(s), jps, jcfg.eos_token_id,
+                                   jcfg.speech_pad_token, 0)
+        for i in range(C):
+            got = seen[s * C + i]
+            np.testing.assert_array_equal(got <= -1e29, ref[i] <= -1e29)
+            np.testing.assert_allclose(got, ref[i], rtol=1e-6, atol=1e-6)
+        tok = res.tokens[:, base + s]                      # the port's draw
+        pt[np.arange(B), tok[:, 0]] = True
+        for i in range(1, C):
+            ps[np.arange(B), i - 1, tok[:, i]] = True
+        kv[:, base + s] = True
+        last = last + 1
+        h, cache = jm.apply(params, jnp.asarray(tok[:, None]),
+                            jnp.asarray(last[:, None]), jnp.asarray(kv),
+                            cache, base + s, method=jlm.AsteroidLM.backbone)

@@ -468,3 +468,27 @@ def test_cpu_wrappers_do_not_count_launches():
     fa.flash_decode_int8_hs(q[:, :1], kq, ks, kq, ks, valid, 0.25)
     assert fa.launch_counts() == {"flash_prefill": 0, "flash_decode_hs": 0,
                                   "flash_decode_int8_hs": 0}
+
+
+def test_build_root_is_set_before_the_first_build(tmp_path, monkeypatch):
+    """``set_build_root`` (the server's --jax_cache_dir): a directory, ""
+    for a fresh temporary one, None for the default in the checkout; once
+    kernels are loaded another root raises (checked without building: the
+    loaded-library table is stubbed)."""
+    try:
+        want = (tmp_path / "k").resolve()
+        assert fa.set_build_root(str(tmp_path / "k")) == want
+        assert fa.build_root() == want and not want.exists()
+        fresh = fa.set_build_root("")
+        assert fresh.is_dir() and not any(fresh.iterdir())
+        assert fresh != fa.set_build_root("")
+        fresh.rmdir()
+        fa.build_root().rmdir()
+        assert fa.set_build_root(None) == fa.BUILD_ROOT
+        monkeypatch.setattr(fa, "_libs", {"flash_prefill": object()})
+        with pytest.raises(RuntimeError, match="already loaded"):
+            fa.set_build_root(str(tmp_path))
+        assert fa.set_build_root(None) == fa.BUILD_ROOT
+    finally:
+        monkeypatch.undo()
+        fa.set_build_root(None)

@@ -170,7 +170,7 @@ def test_cli_without_cuda_raises(no_cuda, tmp_path):
 
 def test_cli_unported_flags_fail_loudly(tmp_path):
     from moss_ttsd_torch.cli.inference import main
-    for extra in (["--mesh", "2x1"], ["--attn_impl", "xla"],
+    for extra in (["--mesh", "2x1"], ["--attn_impl", "flash"],
                   ["--profiler_port", "9999"],
                   ["--lora_adapter", "a=b"], ["--quant", "int4"]):
         with pytest.raises(SystemExit):

@@ -139,3 +139,81 @@ def test_init_random_is_seeded():
     b = AsteroidLM.init_random(cfg, seed=3, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.isfinite(a["embed_text"]).all()
+
+
+def _cached_hidden(jcfg, params, cfg, model, steps=3, seed=3):
+    """A left-padded prefill, then ``steps`` decode steps through the cache,
+    in both packages on the same inputs: [(port, JAX)] hidden states of the
+    valid prefill rows and of every decode step."""
+    rng = np.random.default_rng(seed)
+    B, T, S = 2, 9, 16
+    ids = rand_ids(cfg, rng, B, T + steps)
+    attn = np.ones((B, T), np.int64)
+    attn[0, :3] = 0
+    pos = np.maximum(np.cumsum(attn, axis=1) - 1, 0)
+    kv = np.zeros((B, S), bool)
+    kv[:, :T] = attn.astype(bool)
+    jm = jlm.AsteroidLM(jcfg)
+    jcache = jlm.init_cache(jcfg, B, S, jnp.float32)
+    cache = init_cache(cfg, B, S, torch.float32, device="cpu")
+    out = []
+    seg, p, at = ids[:, :T], pos, 0
+    with torch.no_grad():
+        for s in range(steps + 1):
+            jh, jcache = jm.apply(params, jnp.asarray(seg), jnp.asarray(p),
+                                  jnp.asarray(kv), jcache, at,
+                                  method=jlm.AsteroidLM.backbone)
+            ph, cache = model.backbone(T_(seg), T_(p), T_(kv), cache, at)
+            if s == 0:
+                out += [(ph.numpy()[0, 3:], np.asarray(jh)[0, 3:]),
+                        (ph.numpy()[1], np.asarray(jh)[1])]
+            else:
+                out.append((ph.numpy(), np.asarray(jh)))
+            at = T + s
+            kv[:, at] = True
+            seg, p = ids[:, at:at + 1], p[:, -1:] + 1
+    return out
+
+
+def T_(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+CACHED_VARIANTS = {
+    "ablate_norms": dict(ablate_norms=True),
+    "ablate_rope": dict(ablate_rope=True),
+    "ablate_attention": dict(ablate_attention=True),
+    "ablate_all": dict(ablate_norms=True, ablate_rope=True,
+                       ablate_attention=True),
+    "xla": dict(attn_impl="xla"),
+    "xla_kv8": dict(attn_impl="xla", kv_quant="int8"),
+}
+
+
+@pytest.mark.parametrize("variant", list(CACHED_VARIANTS))
+def test_cached_backbone_variants_match_jax(variant):
+    """The bench-only stubs (every RMSNorm x*w, no rotations, attention =
+    q) and the dense ``attn_impl="xla"`` backend over a full-precision and
+    an int8 cache: a prefill and 3 decode steps equal JAX's AsteroidLM with
+    the same config (JAX's CPU path) within 1e-5. Outside the xla variants
+    the port attends through its kernels' plain versions."""
+    jcfg, params = jax_tiny(5, **CACHED_VARIANTS[variant])
+    cfg, model = port_model(jcfg, params)
+    for got, ref in _cached_hidden(jcfg, params, cfg, model):
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_xla_backend_launches_no_kernel_wrapper(monkeypatch):
+    """Under attn_impl="xla" the sequential prefill and decode never call
+    a kernel wrapper (on the card they would launch none); the pool's
+    extents still would (models/lm.py)."""
+    from moss_ttsd_torch.models import lm as plm
+    calls = []
+    for name in ("flash_prefill", "flash_decode_hs", "flash_decode_int8_hs"):
+        monkeypatch.setattr(plm, name, lambda *a, _n=name, **k:
+                            calls.append(_n))
+    for extra in ({}, dict(kv_quant="int8")):
+        jcfg, params = jax_tiny(5, attn_impl="xla", **extra)
+        cfg, model = port_model(jcfg, params)
+        _cached_hidden(jcfg, params, cfg, model, steps=1)
+    assert calls == []

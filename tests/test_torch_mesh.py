@@ -43,7 +43,11 @@ CASES = {
         ("int8_dp", (2, 1), {"quant": "int8"}, "generate"),
         ("restricted", (1, 2), {"restricted_text_head": True,
                                 "restricted_audit_every": 1}, "generate"),
-        ("draws", (2, 1), {}, "draws")],
+        ("draws", (2, 1), {}, "draws"),
+        # the dense backend on each rank's heads
+        ("xla_tp", (1, 2), {"attn_impl": "xla"}, "generate"),
+        ("xla_kv8_tp", (1, 2), {"attn_impl": "xla", "kv_quant": "int8"},
+         "generate")],
     4: [("tp", (1, 4), {}, "generate"),
         ("dp_tp", (2, 2), {}, "generate"),
         ("int8_tp", (1, 4), {"quant": "int8"}, "generate"),

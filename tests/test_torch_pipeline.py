@@ -6,6 +6,7 @@ one int16 step; the prompt-encode LRU; an item whose prompt wav is missing
 becomes an error entry and the rest of the batch still generates; both
 CLIs on the CPU."""
 import json
+import os
 import pathlib
 
 import numpy as np
@@ -179,3 +180,57 @@ def test_cli_codec_roundtrip_tiny_cpu(tmp_path):
     assert len(summary["files"]) == 3
     assert all(np.isfinite(m["mel_l1"]) and np.isfinite(m["si_snr_db"])
                for m in summary["files"])
+
+
+def test_cli_attn_impl_xla_codes_equal_jax_cli(tmp_path, monkeypatch):
+    """Both inference CLIs with ``--attn_impl xla --tiny --platform cpu``,
+    each package's ``build_tiny_pipeline`` swapped for the ``pipes`` fixture's
+    weights under greedy sampling (the two CLIs' own tiny models are
+    random draws of two frameworks): the flag reaches both engines, their
+    tokens and codes are identical, and both write the same wavs."""
+    from moss_ttsd_tpu.cli import inference as jinf
+    from moss_ttsd_torch.cli import inference as pinf
+    jcfg, params = jax_tiny(
+        0, vocab_size=300, speech_vocab_size=65, speech_pad_token=64,
+        speech_token_range=(0, 290), eos_token_id=290, pad_token_id=0)
+    jspt = JXY.init_random(JCodecConfig().tiny(), seed=0)
+    ccfg = CodecConfig().tiny()
+    built = {}
+
+    def jbuild(seed=0, mesh=None, restricted_text_head=False,
+               attn_impl=None):
+        p = JPipeline(JTok(), jcfg, params, jspt, greedy(JAX_S), bucket=32,
+                      attn_impl=attn_impl)
+        p.engine.cache_dtype = jnp.float32
+        built["jax"] = (p, _spy(p.engine))
+        return p
+
+    def pbuild(seed=0, device="cuda", quant=None, restricted_text_head=False,
+               restricted_audit_every=None, mesh=None, attn_impl=None):
+        cfg, model = port_model(jcfg, params)
+        spt = XYTokenizer(ccfg, codec_state_from_jax(
+            jax.tree_util.tree_map(np.asarray, jspt.params), ccfg),
+            device=device)
+        p = TTSPipeline(MockTokenizer(), cfg, model, spt, greedy(TORCH_S),
+                        bucket=32, device=device, attn_impl=attn_impl)
+        built["torch"] = (p, _spy(p.engine))
+        return p
+
+    monkeypatch.setattr(jinf, "build_tiny_pipeline", jbuild)
+    monkeypatch.setattr(pinf, "build_tiny_pipeline", pbuild)
+    # JAX's --platform cpu appends to XLA_FLAGS: restored after the test
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    argv = ["--jsonl", str(ROOT / "examples" / "examples_only_text.jsonl"),
+            "--tiny", "--platform", "cpu", "--max_new_tokens", "20",
+            "--attn_impl", "xla"]
+    jinf.main(argv + ["--output_dir", str(tmp_path / "jax")])
+    assert pinf.main(argv + ["--output_dir", str(tmp_path / "torch")]) == 0
+    (jpipe, js), (pipe, ps) = built["jax"], built["torch"]
+    assert jpipe.engine.cfg.attn_impl == pipe.engine.cfg.attn_impl == "xla"
+    assert ps[-1].steps == js[-1].steps > 8
+    np.testing.assert_array_equal(ps[-1].tokens, np.asarray(js[-1].tokens))
+    for a, b in zip(pipe.extract_codes(ps[-1]), jpipe.extract_codes(js[-1])):
+        np.testing.assert_array_equal(a, b)
+    names = sorted(p.name for p in (tmp_path / "torch").glob("*.wav"))
+    assert names == sorted(p.name for p in (tmp_path / "jax").glob("*.wav"))
+    assert len(names) == 2

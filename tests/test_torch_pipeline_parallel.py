@@ -7,7 +7,8 @@ global norm moves every parameter), a left-padded row and a fully masked
 label row in every microbatch. Losses, per-channel losses and grad norms
 to rel 1e-5, the whole trained LM (gathered by ``pp_full_state``) by
 ``assert_params_close``; microbatch-count invariance, remat equal to no
-remat, the LoRA-configured model, the send/recv count a step. Then the
+remat, the LoRA-configured model, the ``ablate_norms`` stub, the
+send/recv count a step. Then the
 finetune CLI: ``pipeline_stages: 2`` against one process with the same
 accumulation, and the layout (``pp_param_specs``) in one process."""
 import os
@@ -39,6 +40,7 @@ CASES2 = [("pp2x1", 2, 1, 3, False, ""), ("pp2x1_m6", 2, 1, 6, False, ""),
           ("pp2x1_lora", 2, 1, 3, False, "lora_")]
 CASES4 = [("pp2x2", 2, 2, 3, False, ""), ("pp4x1", 4, 1, 6, True, "")]
 CASES = CASES2 + CASES4
+ABLATE = ("pp2x1_ablate_norms", 2, 1, 3, False, "ablate_")
 
 
 def _batch(cfg, seed=3):
@@ -60,13 +62,16 @@ def _batch(cfg, seed=3):
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    """JAX weights of a 4-layer tiny LM, plain and LoRA-configured (rank
-    2 on q/v/o/down), and the batch."""
+    """JAX weights of a 4-layer tiny LM, plain, LoRA-configured (rank 2 on
+    q/v/o/down) and under ablate_norms, and the batch."""
     models = {"": jax_tiny(8, num_hidden_layers=4),
               "lora_": jax_tiny(9, num_hidden_layers=4, lora_rank=2,
                                 lora_alpha=4.0,
                                 lora_targets=("q_proj", "v_proj", "o_proj",
-                                              "down_proj"))}
+                                              "down_proj")),
+              # the bench-only norm stub (every RMSNorm x*w), the stages'
+              # final norm included
+              "ablate_": jax_tiny(8, num_hidden_layers=4, ablate_norms=True)}
     cfgs = {v: LMConfig.from_dict(j.to_dict()) for v, (j, _) in models.items()}
     batch = _batch(cfgs[""])
     tmp = tmp_path_factory.mktemp("pp")
@@ -83,7 +88,7 @@ def setup(tmp_path_factory):
 def ranks(setup):
     *_, tmp, inp = setup
     out = {}
-    for world, cases in ((2, CASES2), (4, CASES4)):
+    for world, cases in ((2, CASES2 + [ABLATE]), (4, CASES4)):
         res = R.spawn(world, R.pp_train_cases, str(tmp / f"w{world}"), inp,
                       cases, STEPS)
         for name, *_ in cases:
@@ -143,6 +148,24 @@ def test_pp_step_matches_jax_plain_step(ranks, jax_runs, name, pipe, data,
         assert_params_close(full[k], v.numpy(), lr=R.LR,
                             err_msg=f"{name} {k}")
     assert all(r["params"] is None for r in ranks[name][1:])
+
+
+def test_pp_ablate_norms_step_matches_jax_plain_step(ranks, jax_runs):
+    """Two stages under the bench-only ablate_norms (every RMSNorm x*w,
+    the last stage's final norm too): losses, per-channel losses and grad
+    norms of JAX's plain step within rel 1e-5 (the stub's small gradients
+    stay under the clip), and its trained LM."""
+    want = jax_runs["ablate_"]
+    for got in ranks[ABLATE[0]]:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=REL)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=REL)
+        np.testing.assert_allclose(got["per_channel"], want["per_channel"],
+                                   rtol=REL, atol=1e-7)
+    assert not np.allclose(want["loss"], jax_runs[""]["loss"])
+    full = ranks[ABLATE[0]][0]["params"]
+    for k, v in want["params"].items():
+        assert_params_close(full[k], v.numpy(), lr=R.LR, err_msg=k)
 
 
 def test_pp_microbatch_count_and_remat_invariance(ranks):

@@ -172,9 +172,9 @@ def test_voice_without_registered_adapters_is_400(server):
 def test_continuous_scheduler_and_lora_voices_are_refused():
     """Since the continuous scheduler and LoRA voices are ported, what is
     still refused: an unknown scheduler, an empty or missing adapter, a
-    malformed --lora_adapter, an unknown --pool_kv_quant, --mesh,
-    --attn_impl xla, --jax_cache_dir and a checkpoint directory that is
-    not there."""
+    malformed --lora_adapter, an unknown --pool_kv_quant, a --mesh larger
+    than the process group, an unknown --attn_impl and a checkpoint
+    directory that is not there."""
     pipe = build_tiny_pipeline(device="cpu")
     with pytest.raises(ValueError, match="unknown scheduler"):
         SpeechServer(pipe, host="127.0.0.1", port=0, scheduler="round")
@@ -183,8 +183,7 @@ def test_continuous_scheduler_and_lora_voices_are_refused():
                      lora_adapters={"narrator": {}})
     for argv in (["--lora_adapter", "a=b"], ["--lora_adapter", "noequals"],
                  ["--scheduler", "continuous", "--pool_kv_quant", "int4"],
-                 ["--mesh", "1x4"], ["--attn_impl", "xla"],
-                 ["--jax_cache_dir", "x"]):
+                 ["--mesh", "1x4"], ["--attn_impl", "flash"]):
         with pytest.raises(SystemExit):
             main(["--tiny", "--platform", "cpu", *argv])
     # --model_path loads the checkpoint (TTSPipeline.load): none is there
@@ -707,3 +706,63 @@ def test_continuous_server_cli_serves_a_voice(tmp_path):
     finally:
         proc.kill()
         proc.wait(timeout=30)
+
+
+def test_server_main_attn_impl_xla_and_kernel_build_root(monkeypatch,
+                                                         tmp_path):
+    """``serve.server main --tiny --platform cpu --attn_impl xla
+    --jax_cache_dir DIR`` in this process: the engine it serves runs the
+    dense backend and answers a request with the wav of the same tiny
+    pipeline's ``process_batch``; DIR became the kernels' build root before
+    the pipeline was built, and nothing was built into it on the CPU."""
+    import types
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.serve import server as srv
+    started, replies, roots = [], [], []
+    orig_start = srv.SpeechServer.start
+
+    def start(self):
+        orig_start(self)
+        started.append(self)
+
+    from moss_ttsd_torch.cli import inference as inf
+    real_build = inf.build_tiny_pipeline
+
+    def build(**kw):
+        roots.append(fa.build_root())
+        return real_build(**kw)
+
+    test_thread = threading.get_ident()
+
+    class OneRequest(threading.Event):
+        """main's wait (in this thread): one request, then a ^C."""
+        def wait(self, timeout=None):
+            if threading.get_ident() != test_thread:
+                return super().wait(timeout)
+            replies.append(_post(
+                f"http://127.0.0.1:{started[0].port}/v1/audio/speech",
+                {"input": "[S1]hello there[S2]hi", "seed": 0,
+                 "max_tokens": 16}).read())
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(inf, "build_tiny_pipeline", build)
+    monkeypatch.setattr(srv.SpeechServer, "start", start)
+    monkeypatch.setattr(srv, "threading", types.SimpleNamespace(
+        **{**vars(threading), "Event": OneRequest}))
+    root = tmp_path / "kernels"
+    try:
+        assert main(["--tiny", "--platform", "cpu", "--host", "127.0.0.1",
+                     "--port", "0", "--attn_impl", "xla",
+                     "--jax_cache_dir", str(root)]) == 0
+        assert roots == [root.resolve()] and fa.build_root() == roots[0]
+    finally:
+        fa.set_build_root(None)
+    assert not root.exists()
+    pipe = started[0].worker.pipeline
+    assert pipe.lm_cfg.attn_impl == pipe.engine.cfg.attn_impl == "xla"
+    wav, sr = wav_bytes_to_array(replies[0])
+    _, audio = real_build(device="cpu", attn_impl="xla").process_batch(
+        [{"text": "[S1]hello there[S2]hi"}], max_new_tokens=16, seed=0)
+    ref = audio[0]["audio_data"][0]
+    assert sr == audio[0]["sample_rate"] and wav.shape == ref.shape
+    assert float(np.abs(wav - ref).max()) <= LSB * 1.01

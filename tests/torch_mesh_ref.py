@@ -359,7 +359,8 @@ def pp_train_cases(rank, world, inp_path, cases, steps=2):
     """Each (name, pipe, data, M, remat, variant) case: ``steps`` GPipe
     steps over a (pipe, data) mesh of the group on the input file's
     global batch (``pp_batch``) as M microbatches, the model the input
-    file holds under ``variant`` ("" or "lora_": its "cfg" and "state").
+    file holds under ``variant`` ("", "lora_" or "ablate_": its "cfg"
+    and "state").
     Rank 0 returns the whole trained LM's tensors (``pp_full_state``),
     every rank its metrics and the send/recv count a step."""
     from moss_ttsd_torch.parallel.mesh import batch_spec
