@@ -1,0 +1,7 @@
+"""Kernel launches a decode step: the runtime's launch calls inside the
+traced steps (the first batch's first decode steps)."""
+from ttsd_bench.readers import launches_per_step
+
+
+def read(layer, cfg):
+    return launches_per_step(layer)
