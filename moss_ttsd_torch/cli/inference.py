@@ -6,7 +6,6 @@ Mirrors ``moss_ttsd_tpu/cli/inference.py`` (flags --jsonl --seed
 --lora_adapter --adapter_alpha). Runs on the CUDA card unless
 ``--platform cpu``. ``--attn_impl xla`` attends with the dense einsums
 instead of the kernels (the reference's ``--attn_implementation``);
-``--profiler_port`` is refused (no PyTorch counterpart).
 ``--model_path`` (an HF-format LM directory with its tokenizer, which
 needs ``transformers``), ``--spt_config`` and ``--spt_ckpt`` (the
 XY-Tokenizer yaml and checkpoint) load real weights through
@@ -127,10 +126,8 @@ def main(argv=None):
                              "einsum attention")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of the batch "
-                             "(Chrome trace JSON) into this directory")
-    parser.add_argument("--profiler_port", type=int, default=None,
-                        help="a live profiler server: no PyTorch "
-                             "counterpart, refused")
+                             "(Chrome trace JSON, the program's spans "
+                             "included) into this directory")
     parser.add_argument("--lora_adapter", action="append", default=[],
                         metavar="NAME=PATH",
                         help="register a LoRA voice; items select one with a "
@@ -150,11 +147,6 @@ def main(argv=None):
     maybe_debug_attach()
 
     from ..utils import profiling
-    if args.profiler_port:
-        try:
-            profiling.start_profiler_server(args.profiler_port)
-        except NotImplementedError as e:
-            parser.error(str(e))
 
     device = "cpu" if args.platform == "cpu" else "cuda"
     # every rank of a mesh runs the same pipeline; rank 0 writes

@@ -43,6 +43,7 @@ from ..core.config import LMConfig, SamplingConfig
 from ..core.device import DeviceLike
 from ..models.lm import init_cache, select_adapters
 from ..ops.sampling import scatter_presence
+from ..utils.profiling import span
 from .engine import (DecodeState, GenerateResult, GenerationEngine,
                      sample_channels)
 from .lora_registry import LoraRegistry
@@ -172,6 +173,7 @@ class ContinuousBatcher:
         self.gens = [torch.Generator(device=self.device).manual_seed(seed + j)
                      for j in range(slots)]
         self._slot_free = [True] * slots
+        self.last_admit = None      # the last burst's pool.admit span
 
     # ------------------------------------------------------------------
 
@@ -361,13 +363,15 @@ class ContinuousBatcher:
                                 dtype=torch.int64, device=dev)
             adapters = select_adapters(self.lora.stacks, aids)
         C = self.cfg.channels
-        s1 = self.engine.prefill(ids, mask, self.base, C - 1, adapters)
-        out: List[int] = []
-        for k, (_, _, steps, seed, aid) in enumerate(rows):
-            j = self._slot_free.index(True)
-            self._splice(s1, k, j, steps, seed, aid)
-            self._slot_free[j] = False
-            out.append(j)
+        with span("pool.admit", rows=K) as admit:
+            s1 = self.engine.prefill(ids, mask, self.base, C - 1, adapters)
+            out: List[int] = []
+            for k, (_, _, steps, seed, aid) in enumerate(rows):
+                j = self._slot_free.index(True)
+                self._splice(s1, k, j, steps, seed, aid)
+                self._slot_free[j] = False
+                out.append(j)
+        self.last_admit = admit
         return out
 
     @torch.no_grad()
@@ -489,11 +493,19 @@ class ContinuousBatcher:
     def run(self, steps: int = 25) -> int:
         """Advance every live row by up to ``steps`` decode steps; stops
         early when no row is live. The loop test is the step's one host
-        sync. Returns the pool steps run."""
+        sync (``pool.sync``; the step is ``pool.step``, the call
+        ``pool.segment``). Returns the pool steps run."""
         st, t = self.state, 0
-        while t < steps and bool((st.active & st.unfinished).any()):
-            self._step()
-            t += 1
+        with span("pool.segment") as seg:
+            while t < steps:
+                with span("pool.sync"):
+                    live = bool((st.active & st.unfinished).any())
+                if not live:
+                    break
+                with span("pool.step"):
+                    self._step()
+                t += 1
+            seg.set(steps=t)
         return t
 
     def poll(self) -> List[tuple]:
@@ -513,9 +525,10 @@ class ContinuousBatcher:
         readback a segment: ``poll`` for callers (streaming serving) that
         also follow the live rows' step counts."""
         st = self.state
-        arr = torch.stack([st.active.to(torch.int64),
-                           (st.active & ~st.unfinished).to(torch.int64),
-                           st.step_r]).cpu().numpy()
+        with span("pool.progress"):
+            arr = torch.stack([st.active.to(torch.int64),
+                               (st.active & ~st.unfinished).to(torch.int64),
+                               st.step_r]).cpu().numpy()
         return [(j, int(arr[2, j]), bool(arr[1, j]))
                 for j in range(self.slots) if arr[0, j]]
 

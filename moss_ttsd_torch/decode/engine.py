@@ -50,6 +50,7 @@ from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
 from ..parallel.mesh import batch_spec, shard_params
+from ..utils.profiling import span
 from .lora_registry import LoraRegistry
 
 
@@ -374,11 +375,30 @@ class GenerationEngine:
     def _step(self, st: DecodeState, base: int,
               gen: Optional[torch.Generator],
               adapters: Optional[dict] = None) -> None:
-        """One decode step, in place on ``st`` (JAX engine ``body``)."""
-        cfg = self.cfg
-        C = cfg.channels
+        """One decode step, in place on ``st`` (JAX engine ``body``): the
+        draw (``engine.sample``), then the new token's forward
+        (``engine.forward``)."""
         s = st.step
         cur_len = base + s
+        with span("engine.sample"):
+            next_tokens = self._sample(st, s, cur_len, gen)
+        # forward the new token: cache write at cur_len, extent cur_len + 1
+        with span("engine.forward"):
+            st.key_valid[:, cur_len] = True
+            st.last_pos = st.last_pos + 1
+            hidden, _ = self.model.backbone(
+                next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
+                st.cache, cur_len, adapters=adapters)
+        st.hidden_last = hidden
+        st.step = s + 1
+
+    def _sample(self, st: DecodeState, s: int, cur_len: int,
+                gen: Optional[torch.Generator]) -> torch.Tensor:
+        """Step ``s``'s logits, draw, audit and flags: writes its tokens
+        (B, C) to ``st.tokens[:, cur_len]`` and returns them, and updates
+        the presence sets, the flush countdown and the finish flags."""
+        cfg = self.cfg
+        C = cfg.channels
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
         speech_lo, speech_hi = cfg.speech_token_range
         lo = self.text_window[0]
@@ -432,15 +452,7 @@ class GenerationEngine:
         stopping = (next_tokens[:, 0] == eos) | (needs == 0)
         st.unfinished = (st.unfinished & ~stopping) | (needs > 0)
         st.needs = needs
-
-        # forward the new token: cache write at cur_len, extent cur_len + 1
-        st.key_valid[:, cur_len] = True
-        st.last_pos = st.last_pos + 1
-        hidden, _ = self.model.backbone(
-            next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
-            st.cache, cur_len, adapters=adapters)
-        st.hidden_last = hidden
-        st.step = s + 1
+        return next_tokens
 
     def run(self, st: DecodeState, base: int, upto: int,
             gen: Optional[torch.Generator],
@@ -448,8 +460,13 @@ class GenerationEngine:
         """Decode until step == upto or every row finished (on a mesh:
         every row of every data rank). The ``unfinished.any()`` test is
         the step's one host sync."""
-        while st.step < upto and self._any(st.unfinished):
-            self._step(st, base, gen, adapters)
+        while st.step < upto:
+            with span("engine.sync"):
+                live = self._any(st.unfinished)
+            if not live:
+                break
+            with span("engine.step"):
+                self._step(st, base, gen, adapters)
         return st
 
     def _any(self, flags: torch.Tensor) -> bool:
@@ -508,11 +525,13 @@ class GenerationEngine:
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(self._seed(seed))
         t0 = time.perf_counter()
-        st = self.prefill(torch.as_tensor(input_ids[rows], device=dev),
-                          torch.as_tensor(attention_mask[rows], device=dev),
-                          base, buf_steps, adapters)
-        if dev.type == "cuda":      # the loop's first any() test syncs anyway
-            torch.cuda.synchronize(dev)
+        with span("engine.prefill", rows=input_ids.shape[0]):
+            st = self.prefill(
+                torch.as_tensor(input_ids[rows], device=dev),
+                torch.as_tensor(attention_mask[rows], device=dev),
+                base, buf_steps, adapters)
+            if dev.type == "cuda":  # the loop's first any() test syncs anyway
+                torch.cuda.synchronize(dev)
         return (st, base, max_steps, buf_steps, gen, input_ids,
                 attention_mask, time.perf_counter() - t0, adapters)
 
@@ -541,11 +560,12 @@ class GenerationEngine:
                         adapter)
         t1 = time.perf_counter()
         st = self.run(st, base, max_steps, gen, ad)
-        tokens = self._gather(st.tokens[:, :base + st.step]).cpu().numpy()
-        audit = None
-        if self._audit_on():
-            audit = tuple(int(v) for v in self._data_sum(
-                torch.stack([st.audit_rows, st.audit_flagged])).cpu())
+        with span("engine.readback"):
+            tokens = self._gather(st.tokens[:, :base + st.step]).cpu().numpy()
+            audit = None
+            if self._audit_on():
+                audit = tuple(int(v) for v in self._data_sum(
+                    torch.stack([st.audit_rows, st.audit_flagged])).cpu())
         self._stats(prefill_s, t1, st, base, buf_steps, ids, mask, audit)
         return GenerateResult(tokens=tokens,
                               steps=st.step, base=base, audit=audit)
@@ -590,22 +610,24 @@ class GenerationEngine:
                 upto = min(done + chunk_steps, max_steps)
             st = self.run(st, base, upto, gen, ad)
             steps = st.step
-            parts = [self._gather(st.tokens[:, base + done:base + steps]
-                                  ).reshape(-1),
-                     self._gather(st.unfinished.to(torch.int64))]
-            if audit_on:
-                parts.append(self._data_sum(
-                    torch.stack([st.audit_rows, st.audit_flagged])))
-            vals = torch.cat(parts).cpu().numpy()
-            n_new = B * (steps - done) * C
-            host[:, base + done:base + steps] = vals[:n_new].reshape(
-                B, steps - done, C)
-            unfin = vals[n_new:n_new + B].astype(bool)
-            if audit_on:
-                audit = (int(vals[-2]), int(vals[-1]))
-            yield GenerateResult(tokens=host[:, :base + steps].copy(),
-                                 steps=steps, base=base, unfinished=unfin,
-                                 audit=audit)
+            with span("engine.readback"):
+                parts = [self._gather(st.tokens[:, base + done:base + steps]
+                                      ).reshape(-1),
+                         self._gather(st.unfinished.to(torch.int64))]
+                if audit_on:
+                    parts.append(self._data_sum(
+                        torch.stack([st.audit_rows, st.audit_flagged])))
+                vals = torch.cat(parts).cpu().numpy()
+                n_new = B * (steps - done) * C
+                host[:, base + done:base + steps] = vals[:n_new].reshape(
+                    B, steps - done, C)
+                unfin = vals[n_new:n_new + B].astype(bool)
+                if audit_on:
+                    audit = (int(vals[-2]), int(vals[-1]))
+                result = GenerateResult(
+                    tokens=host[:, :base + steps].copy(), steps=steps,
+                    base=base, unfinished=unfin, audit=audit)
+            yield result
             if steps < upto or not unfin.any():
                 break
             done = steps

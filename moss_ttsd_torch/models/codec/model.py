@@ -23,6 +23,7 @@ from torch import nn
 from ...core.config import CodecConfig
 from ...core.device import DeviceLike, resolve_device, torch_dtype
 from ...ops.dsp import log_mel_spectrogram
+from ...utils.profiling import span
 from .rvq import ResidualVQ
 from .transformer import (AdapterTransformer, AudioDecoder, AudioEncoder,
                           GatedDownsample, Upsample)
@@ -198,17 +199,18 @@ class XYTokenizer:
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
         self.cfg = cfg
-        if isinstance(params, XYTokenizerModule):
-            module = params
-            module.cfg = cfg
-        else:
-            with torch.device(self.device):
-                module = XYTokenizerModule(cfg)
-            module.load_state_dict(params)
-        module = module.to(self.device).eval().requires_grad_(False)
-        cd = torch_dtype(cfg.dtype)
-        if cd != torch.float32:
-            _cast_infer_params(module, cd)
+        with span("setup.codec"):
+            if isinstance(params, XYTokenizerModule):
+                module = params
+                module.cfg = cfg
+            else:
+                with torch.device(self.device):
+                    module = XYTokenizerModule(cfg)
+                module.load_state_dict(params)
+            module = module.to(self.device).eval().requires_grad_(False)
+            cd = torch_dtype(cfg.dtype)
+            if cd != torch.float32:
+                _cast_infer_params(module, cd)
         self.module = module
         self.input_sample_rate = cfg.input_sample_rate
         self.output_sample_rate = cfg.output_sample_rate

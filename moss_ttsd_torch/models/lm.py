@@ -65,6 +65,7 @@ from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
 from ..ops.quantize import quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..utils.convert_lora import lora_scale
+from ..utils.profiling import label
 
 
 def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -499,8 +500,9 @@ class AsteroidLM(nn.Module):
                     write_gate, read_extent, ad, seq)
             # non-reentrant: frozen inputs (a LoRA step) still give the
             # factors inside the block their gradients
-            x = (checkpoint(layer, *args, use_reentrant=False) if remat
-                 else layer(*args))
+            with label("lm.layer"):
+                x = (checkpoint(layer, *args, use_reentrant=False) if remat
+                     else layer(*args))
         return self.final_norm(x), cache
 
     # -- tied heads ----------------------------------------------------------

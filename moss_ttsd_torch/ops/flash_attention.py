@@ -48,6 +48,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "moss_ttsd_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -123,40 +125,49 @@ def build_kernels() -> Dict[str, ctypes.CDLL]:
     """Compile (once per source hash) and load every kernel library.
 
     One ``nvcc`` per source, all started together. Returns the loaded
-    libraries; ``build_info`` records the build seconds and ptxas report."""
+    libraries; ``build_info`` records the build seconds and ptxas report,
+    and the ``setup.kernels`` span the build or load, with ``compiled``
+    the number of sources nvcc built."""
     with _build_lock:
         if len(_libs) == len(SOURCES):
             return _libs
-        t0 = time.perf_counter()
-        out_dir = _build_root / _source_hash()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        todo = {name: out_dir / f"lib{name}.so" for name in SOURCES}
-        procs = {}
-        for name, so in todo.items():
-            if so.exists():
-                continue
-            tmp = so.with_suffix(f".so.tmp{os.getpid()}")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / SOURCES[name])]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, so)
-        for name, (proc, tmp, so) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-            os.replace(tmp, so)          # atomic: concurrent processes agree
-            (out_dir / f"{name}.ptxas.log").write_text(log)
-        for name, so in todo.items():
-            lib = ctypes.CDLL(str(so))
-            _bind(name, lib)
-            _libs[name] = lib
-        build_info.update(seconds=time.perf_counter() - t0,
-                          compiled=sorted(procs), dir=str(out_dir),
-                          ptxas={n: (out_dir / f"{n}.ptxas.log").read_text()
-                                 for n in SOURCES
-                                 if (out_dir / f"{n}.ptxas.log").exists()})
+        with span("setup.kernels") as sp:
+            _build_and_load()
+            sp.set(compiled=len(build_info["compiled"]))
         return _libs
+
+
+def _build_and_load() -> None:
+    """``build_kernels`` under its lock, the libraries not yet loaded."""
+    t0 = time.perf_counter()
+    out_dir = _build_root / _source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    todo = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    procs = {}
+    for name, so in todo.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".so.tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, so)
+    for name, (proc, tmp, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+        os.replace(tmp, so)          # atomic: concurrent processes agree
+        (out_dir / f"{name}.ptxas.log").write_text(log)
+    for name, so in todo.items():
+        lib = ctypes.CDLL(str(so))
+        _bind(name, lib)
+        _libs[name] = lib
+    build_info.update(seconds=time.perf_counter() - t0,
+                      compiled=sorted(procs), dir=str(out_dir),
+                      ptxas={n: (out_dir / f"{n}.ptxas.log").read_text()
+                             for n in SOURCES
+                             if (out_dir / f"{n}.ptxas.log").exists()})
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:

@@ -43,7 +43,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..decode.engine import GenerationEngine
 from ..models.codec.model import (XYTokenizer, chunk_stride_codes,
                                   quarter_window_buckets)
-from ..utils.profiling import metrics
+from ..utils.profiling import metrics, span
 from . import prompt as pp
 from .jsonl import load_audio_data, process_jsonl_item
 from .text import normalize_text, rewrite_speaker_tags
@@ -98,10 +98,13 @@ class StreamVocoder:
     one feed later, so the copy overlaps the caller's next decode segment;
     the first chunk is read at once (time to first audio). PCM is quantized to int16 on the device (half the readback
     bytes). A partial window runs through the smallest quarter-window
-    bucket that holds it."""
+    bucket that holds it. Each chunk is a ``stream.chunk`` span from its
+    dispatch to its read, with ``feeds_late``: the feeds (and ``finish``)
+    that passed before the read; under ``root`` (a server request's
+    span) when one is given."""
 
     def __init__(self, spt: XYTokenizer, context_frames: int = 25,
-                 timings=None):
+                 timings=None, root=None):
         if not 0 <= context_frames < spt.chunk_codes:
             # a context as wide as the codec window never lets the sliding
             # window (context + new frames) advance, and finish() would
@@ -117,6 +120,8 @@ class StreamVocoder:
         self.buckets = quarter_window_buckets(spt.chunk_codes)
         self.emitted = 0
         self._pending = None
+        self._feeds = 0
+        self.root = root
 
     @staticmethod
     def effective_context(spt: XYTokenizer, overlap_s: int, feed_steps: int,
@@ -138,22 +143,26 @@ class StreamVocoder:
         L = next(b for b in self.buckets if b >= n)
         buf = np.zeros((spt.nq, 1, L), np.int64)
         buf[:, 0, :n] = codes
+        t0 = time.perf_counter_ns()
         out = spt._detokenize(buf, np.array([n]), pcm16=True)
-        return out, self.emitted - start, n
+        return out, self.emitted - start, n, t0, self._feeds
 
     def _read(self, p) -> np.ndarray:
-        out, skip_frames, n = p
+        out, skip_frames, n, t_dispatch, feed = p
         t0 = time.perf_counter()
         wav = out["wav"].cpu().numpy()[0].astype(np.float32) / 32768.0
         dt = time.perf_counter() - t0
         if self.timings is not None:
             self.timings.add("vocode_s", dt)
         metrics.add("vocode_s", dt)
+        metrics.record_span("stream.chunk", t_dispatch, time.perf_counter_ns(),
+                            root=self.root, feeds_late=self._feeds - feed)
         return wav[skip_frames * self.up:n * self.up]
 
     def feed(self, speech_ids: np.ndarray, end: int) -> List[np.ndarray]:
         """speech_ids (1, T, nq) unshifted, ``end`` = frames valid so far.
         Returns 0-2 ready PCM chunks (float32 in [-1, 1])."""
+        self._feeds += 1
         out: List[np.ndarray] = []
         new_p, end_c = None, 0
         if end > self.emitted:
@@ -181,6 +190,7 @@ class StreamVocoder:
                end: int) -> List[np.ndarray]:
         """Drain: vocode the frames the per-feed window cap deferred, then
         read the last pending chunk."""
+        self._feeds += 1
         out: List[np.ndarray] = []
         while speech_ids is not None and end > self.emitted:
             start = max(0, self.emitted - self.context)
@@ -227,11 +237,13 @@ class TTSPipeline:
         every rank of the mesh runs ``process_batch`` in lockstep)."""
         self.device = resolve_device(device)
         self.tokenizer = tokenizer
-        self.engine = GenerationEngine(
-            lm_cfg, lm_params, sampling, bucket=bucket, device=self.device,
-            quant=quant, restricted_text_head=restricted_text_head,
-            restricted_audit_every=restricted_audit_every, mesh=mesh,
-            attn_impl=attn_impl)
+        with span("setup.lm"):
+            self.engine = GenerationEngine(
+                lm_cfg, lm_params, sampling, bucket=bucket,
+                device=self.device, quant=quant,
+                restricted_text_head=restricted_text_head,
+                restricted_audit_every=restricted_audit_every, mesh=mesh,
+                attn_impl=attn_impl)
         self.mesh = mesh
         # lockstep: every mesh rank runs process_batch (a server's lead
         # rank clears it: its followers replay engine calls instead)
@@ -391,21 +403,11 @@ class TTSPipeline:
         self.timings.add(phase, seconds)
         metrics.add(phase, seconds)
 
-    def process_batch(self, batch_items: List[dict],
-                      system_prompt: str = SYSTEM_PROMPT,
-                      start_idx: int = 0, use_normalize: bool = False,
-                      max_new_tokens: Optional[int] = None, seed: int = 0,
-                      adapter=None):
-        """Returns (texts_data, audio_results); audio_results entries are
-        {audio_data (1, T) float32, sample_rate, index} or None.
-
-        Per-item isolation: an item that fails preparation (a malformed
-        record, a prompt wav that cannot be read) becomes None plus an
-        "error" entry in its text metadata; the rest of the batch still
-        generates. ``adapter``: a registered LoRA voice for the whole batch,
-        or a per-item list of names (None = the base model); an unknown
-        name raises ValueError in the engine. Under a lockstep mesh only
-        rank 0 returns audio (the others None for every item)."""
+    def _prepare_batch(self, batch_items, system_prompt, start_idx,
+                       use_normalize, adapter):
+        """Text, prompt encode and assembly of a batch's items -> (texts
+        metadata, indices of the items that survived, left-padded ids,
+        mask, their adapters); ids and mask None when no item survived."""
         staged, texts_data = [], []   # (i, meta slot, final_text, wav)
         for i, item in enumerate(batch_items):
             try:
@@ -435,7 +437,7 @@ class TTSPipeline:
             ok_idx.append(i)
 
         if not shifted_list:
-            return texts_data, [None] * len(batch_items)
+            return texts_data, ok_idx, None, None, adapter
         if isinstance(adapter, (list, tuple)):
             # per-item voices follow the surviving rows (failed items were
             # isolated above): the engine's adapter list is row-aligned
@@ -446,6 +448,30 @@ class TTSPipeline:
         batch, mask = pp.left_pad_batch(shifted_list,
                                         self.tokenizer.pad_token_id,
                                         self.lm_cfg.speech_pad_token)
+        return texts_data, ok_idx, batch, mask, adapter
+
+    @span("pipeline.batch")
+    def process_batch(self, batch_items: List[dict],
+                      system_prompt: str = SYSTEM_PROMPT,
+                      start_idx: int = 0, use_normalize: bool = False,
+                      max_new_tokens: Optional[int] = None, seed: int = 0,
+                      adapter=None):
+        """Returns (texts_data, audio_results); audio_results entries are
+        {audio_data (1, T) float32, sample_rate, index} or None.
+
+        Per-item isolation: an item that fails preparation (a malformed
+        record, a prompt wav that cannot be read) becomes None plus an
+        "error" entry in its text metadata; the rest of the batch still
+        generates. ``adapter``: a registered LoRA voice for the whole batch,
+        or a per-item list of names (None = the base model); an unknown
+        name raises ValueError in the engine. Under a lockstep mesh only
+        rank 0 returns audio (the others None for every item)."""
+        with span("pipeline.prepare", rows=len(batch_items)):
+            texts_data, ok_idx, batch, mask, adapter = self._prepare_batch(
+                batch_items, system_prompt, start_idx, use_normalize,
+                adapter)
+        if batch is None:
+            return texts_data, [None] * len(batch_items)
         # a data axis splits the rows: pad with repeats of the last row to
         # a multiple of it (the extra rows are dropped below)
         n_real = batch.shape[0]
@@ -491,9 +517,11 @@ class TTSPipeline:
                 result = trim(result)
                 if not lead:        # the codec runs on the lead rank only
                     continue
-                inc.feed([c if c is not None else np.zeros((nq, 0), np.int64)
-                          for c in self.extract_codes(result)],
-                         [not bool(u) for u in result.unfinished])
+                with span("pipeline.vocode_feed"):
+                    inc.feed([c if c is not None
+                              else np.zeros((nq, 0), np.int64)
+                              for c in self.extract_codes(result)],
+                             [not bool(u) for u in result.unfinished])
         else:
             result = trim(self.engine.generate(batch, mask, max_new_tokens,
                                                seed=seed, adapter=adapter))
@@ -514,16 +542,18 @@ class TTSPipeline:
         wavs = []
         if valid_codes and lead:
             t0 = time.perf_counter()
-            if inc is not None and len(valid_codes) == len(final_codes):
-                wavs = inc.finish(final_codes)["syn_wav_list"]
-            else:
-                # the serial branch, also when the overlap ran but some rows
-                # made no speech: the serial contract vocodes only the valid
-                # rows, and another vocode batch changes the GEMM shapes
-                wavs = self.spt.decode(
-                    valid_codes, overlap_seconds=self.vocode_overlap_s,
-                    pcm16=True,
-                    rows_per_call=self.vocode_rows_per_call)["syn_wav_list"]
+            with span("pipeline.vocode", rows=len(valid_codes)):
+                if inc is not None and len(valid_codes) == len(final_codes):
+                    wavs = inc.finish(final_codes)["syn_wav_list"]
+                else:
+                    # the serial branch, also when the overlap ran but some
+                    # rows made no speech: the serial contract vocodes only
+                    # the valid rows, and another vocode batch changes the
+                    # GEMM shapes
+                    wavs = self.spt.decode(
+                        valid_codes, overlap_seconds=self.vocode_overlap_s,
+                        pcm16=True, rows_per_call=self.vocode_rows_per_call
+                    )["syn_wav_list"]
             self._add_time("vocode_s", time.perf_counter() - t0)
 
         audio_results = [None] * len(batch_items)

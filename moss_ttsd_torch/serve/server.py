@@ -8,7 +8,12 @@ schedulers, LoRA voices):
                           -> audio/wav bytes
                           with "stream": true -> raw 16-bit PCM chunks
                           (audio/L16) as generation progresses
-  GET  /v1/metrics        -> pipeline and server metrics (utils/profiling)
+  GET  /v1/metrics        -> pipeline and server metrics (utils/profiling):
+                          counters, span totals (<name>_s, _self_s,
+                          _calls), and the windows server_request_latency_s,
+                          server_ttfa_s (the first streamed chunk) and
+                          server_queue_wait_s (submit to being taken for
+                          admission), each as _p50 / _p95 / _observed
   GET  /v1/models         -> the model and its voices (LoRA adapters)
   GET  /health            -> ok
 
@@ -59,7 +64,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..utils.profiling import metrics
+from ..utils.profiling import metrics, span
 from .api_client import wav_bytes_to_array
 
 # per-request generation cap (the hosted API caps max_tokens at 16384); an
@@ -103,7 +108,7 @@ def _register_adapters(register, adapters: Optional[Dict[str, object]],
 class _Request:
     __slots__ = ("item", "max_new_tokens", "seed", "use_normalize", "event",
                  "wav_bytes", "error", "adapter", "stream_q", "cancelled",
-                 "sv")
+                 "sv", "span", "t_submit", "t_taken")
 
     def __init__(self, item, max_new_tokens, seed, use_normalize,
                  adapter=None):
@@ -123,12 +128,26 @@ class _Request:
         # frees its slot at the next segment boundary
         self.cancelled = False
         self.sv = None                  # the request's StreamVocoder
+        # its server.request span (the root of its spans on every thread),
+        # and the perf_counter_ns of its submit and of its admission
+        self.span = None
+        self.t_submit = self.t_taken = 0
 
     def fail(self, msg: str) -> None:
         self.error = msg
         if self.stream_q is not None:
             self.stream_q.put(msg)
         self.event.set()
+
+
+def _queued(req: _Request, cause=None) -> None:
+    """A request taken for admission: its ``server.queue`` span (under
+    its root; ``cause`` is the burst's ``pool.admit``) and a sample of
+    the ``server_queue_wait_s`` window."""
+    metrics.record_span("server.queue", req.t_submit, req.t_taken,
+                        parent=cause, root=req.span)
+    metrics.observe("server_queue_wait_s",
+                    (req.t_taken - req.t_submit) * 1e-9)
 
 
 def _error_code(msg: str) -> int:
@@ -162,6 +181,7 @@ class BatchingWorker:
             if len(self._queue) >= self.max_queue:
                 metrics.add("server_rejected_busy", 1)
                 raise ServerBusy(f"queue full ({self.max_queue} waiting)")
+            req.t_submit = time.perf_counter_ns()
             self._queue.append(req)
             metrics.set(self.queue_gauge, len(self._queue))
             self._cv.notify()
@@ -189,7 +209,11 @@ class BatchingWorker:
             batch = self._queue[:self.max_batch]
             del self._queue[:len(batch)]
             metrics.set(self.queue_gauge, len(self._queue))
-            return batch
+        taken = time.perf_counter_ns()
+        for req in batch:
+            req.t_taken = taken
+            _queued(req)
+        return batch
 
     def _loop(self) -> None:
         while True:
@@ -334,6 +358,7 @@ class ContinuousWorker:
             if len(self._queue) >= self.max_queue:
                 metrics.add("server_rejected_busy", 1)
                 raise ServerBusy(f"queue full ({self.max_queue} waiting)")
+            req.t_submit = time.perf_counter_ns()
             self._queue.append(req)
             metrics.set("server_queue_depth", len(self._queue))
             self._cv.notify()
@@ -360,8 +385,9 @@ class ContinuousWorker:
                 req.event.set()
                 continue
             try:
-                shifted, _ = self.pipeline.prepare_item(
-                    req.item, use_normalize=req.use_normalize)
+                with span("server.prepare", parent=req.span):
+                    shifted, _ = self.pipeline.prepare_item(
+                        req.item, use_normalize=req.use_normalize)
                 if shifted.shape[0] > self.cb.L:
                     # over the pool's prompt bucket: the fallback serves it
                     # (known only once the prompt is tokenized)
@@ -392,6 +418,9 @@ class ContinuousWorker:
                 burst = self._queue[:self.cb.free_slots]
                 del self._queue[:len(burst)]
                 metrics.set("server_queue_depth", len(self._queue))
+            taken = time.perf_counter_ns()
+            for req in burst:
+                req.t_taken = taken
             prepared = self._prepare(burst)
             if not prepared:
                 continue
@@ -423,8 +452,10 @@ class ContinuousWorker:
                 self._join(req, slot)
 
     def _join(self, req: _Request, slot: int) -> None:
-        """Book an admitted request; a streamed one gets its own
-        incremental vocoder (``StreamVocoder``), fed each segment."""
+        """Book an admitted request (its queue span caused by the burst
+        that admitted it); a streamed one gets its own incremental vocoder
+        (``StreamVocoder``), fed each segment."""
+        _queued(req, self.cb.last_admit)
         self._live[slot] = req
         if req.stream_q is not None and req.sv is None:
             from ..pipeline.batch import StreamVocoder
@@ -432,7 +463,7 @@ class ContinuousWorker:
             req.sv = StreamVocoder(
                 spt, StreamVocoder.effective_context(
                     spt, self.pipeline.vocode_overlap_s, self.segment_steps),
-                timings=self.pipeline.timings)
+                timings=self.pipeline.timings, root=req.span)
         metrics.add("server_continuous_joins", 1)
 
     def _drop(self, slot: int) -> None:
@@ -679,14 +710,23 @@ def make_handler(worker, request_timeout_s: float = 600.0):
             except Exception as e:                  # noqa: BLE001
                 return self._json_error(400, f"bad reference audio: {e}")
             normalize = bool(payload.get("normalize", False))
-            if stream:
+            # the root of the request's spans, on this thread and on the
+            # workers' (which name it explicitly)
+            with span("server.request", stream=int(stream)) as root:
+                if not stream:
+                    return self._speech(item, max_tokens, seed, normalize,
+                                        voice, root)
                 if isinstance(worker, ContinuousWorker):
                     return self._stream_pool(item, max_tokens, seed,
-                                             normalize, voice)
+                                             normalize, voice, root)
                 return self._stream_speech(item, max_tokens, seed, normalize,
                                            voice)
 
+        def _speech(self, item, max_tokens, seed, normalize, voice,
+                    root) -> None:
+            """One wav response through the scheduler's worker."""
             req = _Request(item, max_tokens, seed, normalize, adapter=voice)
+            req.span = root
             t0 = time.perf_counter()
             try:
                 worker.submit(req)
@@ -709,7 +749,7 @@ def make_handler(worker, request_timeout_s: float = 600.0):
             self.wfile.write(req.wav_bytes)
 
         def _stream_pool(self, item, max_tokens, seed, normalize,
-                         voice=None) -> None:
+                         voice=None, root=None) -> None:
             """Stream raw PCM out of the continuous pool: each stream holds
             a slot, so streams decode together (no stream lock) while other
             requests join around them. A client that disconnects or times
@@ -717,6 +757,7 @@ def make_handler(worker, request_timeout_s: float = 600.0):
             segment boundary."""
             req = _Request(item, max_tokens, seed, normalize, adapter=voice)
             req.stream_q = queue.Queue()
+            req.span = root
             t0 = time.perf_counter()
             try:
                 worker.submit(req)

@@ -5,7 +5,11 @@ byte-identical to the port's serial branch, with and without
 ``rows_per_call``; a batch with a row that made no speech re-vocodes the
 valid rows serially; a generation inside one window takes the serial
 branch; the overlap output within 1e-4 of JAX ``process_batch`` on the same
-weights (greedy)."""
+weights (greedy); the pipeline's spans (``pipeline.vocode_feed`` only in
+the overlap branch, the tokens the same with every span a profiler label
+under a session)."""
+import json
+
 import numpy as np
 import pytest
 
@@ -15,6 +19,7 @@ torch.set_num_threads(1)
 from moss_ttsd_tpu.models.codec.model import XYTokenizer as JXY  # noqa: E402
 from moss_ttsd_torch.cli.inference import build_tiny_pipeline  # noqa: E402
 from moss_ttsd_torch.models.codec.model import XYTokenizer  # noqa: E402
+from moss_ttsd_torch.utils.profiling import metrics, trace  # noqa: E402
 from tests.test_torch_pipeline import pipes  # noqa: E402,F401
 
 PCM_TOL = 1e-4        # the codec's stated fp32 gap
@@ -120,3 +125,48 @@ def test_overlap_matches_jax_process_batch(pipes):
             assert a["audio_data"].shape == b["audio_data"].shape
             assert float(np.abs(a["audio_data"] - b["audio_data"]).max()) \
                 < PCM_TOL
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_batch_spans_and_tokens_under_a_session(pipe, overlap, tmp_path):
+    """One ``pipeline.batch`` root a call; ``pipeline.vocode_feed`` once a
+    segment the overlap branch feeds, and never in the serial branch;
+    ``pipeline.prepare`` and ``pipeline.vocode`` once. Under a profiler
+    session (each span then also a ``record_function``) the tokens and the
+    audio are those of a run without one."""
+    seen = _segments(pipe.engine)
+    tokens = []
+    orig = pipe.extract_codes
+
+    def extract(result):
+        tokens.append(result.tokens)
+        return orig(result)
+    pipe.extract_codes = extract
+    try:
+        metrics.reset()
+        audio_a = run(pipe, overlap=overlap)[1]
+        n_a = len(tokens)
+        with trace(str(tmp_path)):
+            audio_b = run(pipe, overlap=overlap)[1]
+    finally:
+        del pipe.extract_codes
+    roots = metrics.span_roots("pipeline.batch")
+    assert len(roots) == 2
+    for r in roots:
+        s = r["spans"]
+        assert s["pipeline.batch"]["calls"] == 1
+        assert s["pipeline.prepare"]["calls"] == 1
+        assert s["pipeline.vocode"]["calls"] == 1
+        feeds = s.get("pipeline.vocode_feed", {}).get("calls", 0)
+        assert feeds == (4 if overlap else 0)
+        assert s["engine.step"]["calls"] == 120
+    assert len(seen) == (8 if overlap else 0)
+    # under the session every decoder layer of the prefill and of each
+    # step is a profiler label
+    events = json.loads(next(tmp_path.glob("*.json")).read_text())[
+        "traceEvents"]
+    layers = sum(e.get("name") == "lm.layer" for e in events)
+    assert layers == pipe.lm_cfg.num_hidden_layers * (1 + 120)
+    np.testing.assert_array_equal(tokens[n_a - 1], tokens[-1])
+    for a, b in zip(audio_a, audio_b):
+        np.testing.assert_array_equal(a["audio_data"], b["audio_data"])

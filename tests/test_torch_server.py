@@ -8,7 +8,9 @@ requests joining the pool, the overflow worker for prompts and budgets
 the pool cannot hold, concurrent streams in the pool, a pool stream equal
 to stream_item, cancelled requests freeing their slots); LoRA voices on
 both schedulers and on the streaming path, /v1/models listing them; the
-refusals that still hold; the server CLI on the CPU."""
+refusals that still hold; the server CLI on the CPU; each request's spans
+under its ``server.request`` root, its queue wait caused by the burst that
+admitted it, and the ``server_queue_wait_s`` window."""
 import base64
 import json
 import pathlib
@@ -766,3 +768,59 @@ def test_server_main_attn_impl_xla_and_kernel_build_root(monkeypatch,
     ref = audio[0]["audio_data"][0]
     assert sr == audio[0]["sample_rate"] and wav.shape == ref.shape
     assert float(np.abs(wav - ref).max()) <= LSB * 1.01
+
+
+def _request_roots():
+    return [r for r in metrics.span_roots("server.request")
+            if "server.queue" in r["spans"]]
+
+
+def test_window_request_spans_and_queue_wait(server):
+    """A window-scheduler request: one ``server.request`` root holding its
+    ``server.queue`` span; the wait is a sample of ``server_queue_wait_s``
+    on /v1/metrics, beside the latency window."""
+    metrics.reset()
+    base = _base(server)
+    _post(f"{base}/v1/audio/speech",
+          {"input": "[S1]queue sample[S2]ok", "max_tokens": 8}).read()
+    m = json.loads(urllib.request.urlopen(f"{base}/v1/metrics").read())
+    assert m["server_queue_wait_s_observed"] == 1
+    assert 0 <= m["server_queue_wait_s_p50"] <= \
+        m["server_request_latency_s_p50"]
+    (root,) = _request_roots()
+    assert root["attrs"] == {"stream": 0}
+    assert root["spans"]["server.queue"]["s"] == pytest.approx(
+        m["server_queue_wait_s_p50"])
+    assert m["pipeline.batch_calls"] == 1 and m["engine.step_calls"] >= 1
+
+
+def test_continuous_request_spans_name_their_admitting_burst(
+        continuous_server):
+    """A pool request's ``server.queue`` span is caused by the
+    ``pool.admit`` of the burst that took it, and lies under the request's
+    root with its ``server.prepare``; a stream's chunks lie there too."""
+    metrics.reset()
+    base = _base(continuous_server)
+    _post(f"{base}/v1/audio/speech",
+          {"input": "[S1]pool spans[S2]ok", "max_tokens": 12}).read()
+    _pcm(continuous_server, {"input": "[S1]pool stream spans[S2]ok",
+                             "stream": True, "max_tokens": 20, "seed": 2})
+    m = json.loads(urllib.request.urlopen(f"{base}/v1/metrics").read())
+    assert m["server_queue_wait_s_observed"] == 2
+    roots = _request_roots()
+    assert sorted(r["attrs"]["stream"] for r in roots) == [0, 1]
+    ring = metrics.recent_spans()
+    admits = {s["id"]: s for s in ring if s["name"] == "pool.admit"}
+    queues = [s for s in ring if s["name"] == "server.queue"]
+    assert len(queues) == 2
+    for q in queues:
+        assert q["parent"] in admits
+        assert admits[q["parent"]]["attrs"]["rows"] >= 1
+        assert q["t1_ns"] <= admits[q["parent"]]["t0_ns"]
+    for r in roots:
+        assert r["spans"]["server.prepare"]["calls"] == 1
+    stream = next(r for r in roots if r["attrs"]["stream"])
+    assert stream["spans"]["stream.chunk"]["calls"] >= 1
+    assert m["pool.step_calls"] >= 1 and m["pool.segment_calls"] >= 1
+    assert m["pool.sync_calls"] >= m["pool.step_calls"]
+    assert m["pool.progress_calls"] >= 1
