@@ -27,6 +27,9 @@ Phases, each printing one JSON line:
      (LMConfig(), CodecConfig(), random weights from a seeded generator,
      bf16 LM and codec) over examples/examples_only_text.jsonl with
      max_new_tokens=256; launch counts must be 28 x prefills and 28 x steps;
+     8 steps past the teacher-forcing window, each a captured step's
+     replay, must hold 28 split-K decode kernels a step in a device trace
+     and in the decode wrapper's counter (the int8 long form's likewise);
   5. logits   — fp32-output vs bf16-rounded tied-head logits (time, error);
   6. clone    — voice cloning at the same width: TTSPipeline.process_batch
      over the two voice items of examples/ (a two-speaker prompt, a
@@ -764,14 +767,15 @@ def audio_problems(texts, audio, steps: int, channels: int):
 
 
 def engine_state(eng, ids, mask, buf_steps: int):
-    """A prefilled decode state of ``eng`` on a (B, L, C) prompt (for the
-    measurements that drive the engine's step loop directly)."""
+    """A prefilled decode state of ``eng`` on a (B, L, C) prompt, bound to
+    its key's captured step as a request's is (for the measurements that
+    drive the engine's step loop directly)."""
     import torch
     ids, m, base = eng._bucket_prompt(ids, mask)
-    st = eng.prefill(torch.as_tensor(ids, device="cuda"),
-                     torch.as_tensor(m, device="cuda"), base, buf_steps)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    torch.cuda.synchronize()
+    st, _ = eng._decode_state(torch.as_tensor(ids, device="cuda"),
+                              torch.as_tensor(m, device="cuda"), base,
+                              buf_steps, gen)
     return eng, st, base, gen
 
 
@@ -796,7 +800,7 @@ def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
     """Host syncs of the decode step of a prefilled state, counted by
     torch's sync debug mode over ``steps`` steps past the teacher-forcing
     window (C - 1 steps), i.e. the step that runs for all but the first
-    C - 1 of the budget."""
+    C - 1 of the budget (on the card, a captured step's replay)."""
     import torch
     eng.run(st, base, eng.cfg.channels - 1, gen)
     start = st.step
@@ -809,6 +813,41 @@ def count_syncs_per_step(eng, st, base, gen, steps: int = 16) -> float:
         torch.cuda.set_sync_debug_mode("default")
     n = sum("synchroniz" in str(x.message) for x in w)
     return n / max(st.step - start, 1)
+
+
+def replayed_decode_kernels(eng, ids, mask, steps: int = 8) -> dict:
+    """The decode kernels of ``steps`` steps past the teacher-forcing
+    window (each a captured step's replay), counted two ways: instances of
+    the split-K decode kernel (B2 / B3) in a device trace of the steps
+    (``_device_window``), and the decode wrappers' counters, which a replay
+    raises by the calls its capture recorded. Each must read one call a
+    layer a step; ``problems`` says where not."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.utils.profiling import metrics
+    eng, st, base, gen = engine_state(eng, ids, mask, 64)
+    C, L = eng.cfg.channels, eng.cfg.num_hidden_layers
+    eng.run(st, base, C - 1, gen)
+    torch.cuda.synchronize()
+    c0, r0 = fa.launch_counts(), metrics.get("engine_graph_steps")
+    win = _device_window(lambda: eng.run(st, base, C - 1 + steps, gen),
+                         steps)
+    c1, r1 = fa.launch_counts(), metrics.get("engine_graph_steps")
+    calls = {k: (c1[k] - c0[k]) / steps for k in c1 if c1[k] != c0[k]}
+    traced = win["decode_split_kernel_calls_per_step"]
+    problems = []
+    if r1 - r0 != steps:
+        problems.append(f"{r1 - r0} of {steps} steps replayed")
+    if traced != L:
+        problems.append(f"traced split-K decodes a step {traced} != {L}")
+    if list(calls.values()) != [L]:
+        problems.append(f"decode wrapper calls a step {calls} != {L}")
+    return {"steps": steps, "replayed": r1 - r0,
+            "traced_split_kernels_per_step": traced,
+            "wrapper_calls_per_step": calls,
+            "host_ms_per_step": win["host_ms_per_step"],
+            "device_busy_ms_per_step": win["device_busy_ms_per_step"],
+            "problems": problems}
 
 
 def in_path_prefill(eng, ids, mask, buf_steps: int = 256):
@@ -979,6 +1018,9 @@ def main_path():
 
     state, prefill_ms = in_path_prefill(*decode_inputs(pipe, items))
     syncs = count_syncs_per_step(*state)
+    del state
+    replayed = replayed_decode_kernels(*decode_inputs(pipe, items))
+    problems += replayed["problems"]
     tm = pipe.timings
     line = {"phase": "main_path", "layers": L, "batch": st["batch"],
             "base": st["base"], "buf_steps": st["buf_steps"],
@@ -992,6 +1034,7 @@ def main_path():
             "estimate_gib": memory_estimate_gib(cfg, st["batch"],
                                                 st["steps"], st["base"]),
             "host_syncs_per_step": syncs, "launches": counts,
+            "replayed_steps": replayed,
             "prefill_in_path_ms": prefill_ms,
             "ok": not problems, "problems": problems}
     emit(line)
@@ -1249,6 +1292,8 @@ def int8_phase(profile: bool = False):
     if not ((gen[..., 0] >= 0).all() and (gen[..., 0] < cfg.vocab_size).all()
             and (gen[..., 1:] < cfg.speech_vocab_size).all()):
         problems.append("generated ids out of range")
+    replayed = replayed_decode_kernels(eng, ids, mask)
+    problems += replayed["problems"]
     line = {"phase": "int8", "run": "longform_kv8", "quantized": True,
             "kv_quant": "int8", "batch": 1, "base": res.base,
             "buf_steps": st["buf_steps"], "steps": res.steps,
@@ -1261,7 +1306,8 @@ def int8_phase(profile: bool = False):
                                                 "int8", cache_bytes=1),
             "host_syncs_per_step": count_syncs_per_step(
                 *engine_state(eng, ids, mask, steps)),
-            "launches": counts, "ok": not problems, "problems": problems}
+            "launches": counts, "replayed_steps": replayed,
+            "ok": not problems, "problems": problems}
     emit(line)
     lines.append(line)
     if profile:
@@ -4879,6 +4925,8 @@ def _device_window(run, steps: int, top: int = 6):
     kern.sort(key=lambda x: -x[1])
     split = [(t, c) for k, t, c in kern if "split_kernel" in k]
     return {"host_ms_per_step": wall / steps * 1e3,
+            "decode_split_kernel_calls_per_step":
+                sum(c for _, c in split) / steps,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_idle_share": 1.0 - busy_us / (wall * 1e6),
             "launches_per_step": sum(c for _, _, c in kern) / steps,
@@ -5000,7 +5048,9 @@ def xla_phase(pipe, main_line=None):
                              "shapes": [list(a.shape), list(b.shape)]}
 
     # 8 profiled decode steps of each backend past the TF window, then the
-    # in-path device ms of one attention call of each
+    # in-path device ms of one attention call of each, over the eager
+    # teacher-forcing steps of a fresh state (past them the kernel path
+    # replays a CUDA graph, which calls no wrapper)
     prof, inpath = {}, {}
     for impl, eng in engs.items():
         e, s, bs, g = engine_state(eng, ids, mask, 64)
@@ -5008,8 +5058,9 @@ def xla_phase(pipe, main_line=None):
         prof[impl] = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
         owner, name = ((lm.Qwen3Block, "_dense") if impl == "xla"
                        else (lm, "flash_decode_hs"))
+        e, s, bs, g = engine_state(eng, ids, mask, 64)
         inpath[impl] = _bracketed_ms(owner, name,
-                                     lambda: e.run(s, bs, C + 16, g))[1]
+                                     lambda: e.run(s, bs, C - 1, g))[1]
     line["profile_8_steps"] = prof
     line["host_syncs_per_step"] = count_syncs_per_step(
         *engine_state(engs["xla"], ids, mask, 64))

@@ -24,6 +24,15 @@ one host sync, the ``unfinished.any()`` loop test (counted on the card by
 ``chip_smoke.py``). ``generate_stream`` runs the same loop in segments over
 one decode state and one generator, so its tokens are ``generate``'s.
 
+The step writes the token buffer and ``key_valid`` at the device write
+slot ``DecodeState.pos``, which it advances; past the teacher-forcing
+window it has no host-dependent branch left. On the card a request is
+prefilled into its key's workspace and, past the window, each step is one
+replay of a CUDA graph of the whole step (``decode/step_graph.py``), the
+KV cache written at ``pos`` too. It stays eager on the CPU, on a mesh,
+under ``attn_impl="xla"``, with LoRA adapters (``_graphable``), in the
+teacher-forcing window and on the restricted head's audit steps.
+
 On a ("data", "model") mesh (``parallel/mesh.py``) each process holds its
 model rank's shard of the weights and its data rank's rows; the sampled
 tokens are broadcast from the model group's first rank every step (so the
@@ -50,8 +59,9 @@ from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
 from ..parallel.mesh import batch_spec, shard_params
-from ..utils.profiling import span
+from ..utils.profiling import metrics, span
 from .lora_registry import LoraRegistry
+from .step_graph import StepGraphs, hold
 
 
 class GenerateResult(NamedTuple):
@@ -79,6 +89,9 @@ class DecodeState:
     audit_rows: torch.Tensor     # () int64 — unfinished rows audited
     audit_flagged: torch.Tensor  # () int64 — rows whose full-head best
     #                              out-of-window logit beat the window max
+    pos: torch.Tensor            # () int64 — the write slot base + step
+    graph: Optional[object] = None       # the StepGraph whose workspace
+    #                              holds this state's tensors
 
 
 def sample_channels(gen, text_logits, speech_logits, presence_text,
@@ -230,6 +243,8 @@ class GenerationEngine:
             for c in self.sampling.channels]
         # host-clock split of the last generate() (prefill / decode loop)
         self.last_stats: dict = {}
+        # the captured decode step of the most recent (rows, capacity)
+        self._graphs = StepGraphs(self)
         # multi-LoRA registry: id 0 = the base model; under tensor
         # parallelism its stacks hold the rank's factor slices
         self.lora = LoraRegistry(
@@ -334,23 +349,31 @@ class GenerationEngine:
     @torch.no_grad()
     def prefill(self, tokens_full: torch.Tensor, attn_mask: torch.Tensor,
                 base: int, buf_steps: int,
-                adapters: Optional[dict] = None) -> DecodeState:
+                adapters: Optional[dict] = None,
+                into: Optional[DecodeState] = None) -> DecodeState:
         """tokens_full (B, L, C) shifted prompt (bucketed, left-padded);
         attn_mask (B, L) 1 = real. Runs the first ``base`` rows (the
         reference drops the last C-1 before its loop) into a fresh cache of
-        base + buf_steps slots, through the rows' ``adapters``."""
+        base + buf_steps slots, through the rows' ``adapters``; ``into``: a
+        state of that shape (a captured step's workspace) whose token
+        buffer, ``key_valid`` and cache are zeroed and used instead."""
         cfg, dev = self.cfg, self.device
         C = cfg.channels
         B, L, _ = tokens_full.shape
         S = base + buf_steps
-        buf = torch.zeros((B, S, C), dtype=torch.int64, device=dev)
+        if into is None:
+            buf = torch.zeros((B, S, C), dtype=torch.int64, device=dev)
+            key_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
+            cache = init_cache(cfg, B, S, self.cache_dtype, dev,
+                               self.model.kv_heads)
+        else:
+            buf, key_valid, cache = into.tokens, into.key_valid, into.cache
+            for t in (buf, key_valid, *cache.values()):
+                t.zero_()
         buf[:, :L] = tokens_full
         m = attn_mask[:, :base].to(torch.int64)
         positions = (torch.cumsum(m, dim=1) - 1).clamp_min(0)
-        key_valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
         key_valid[:, :base] = m.to(torch.bool)
-        cache = init_cache(cfg, B, S, self.cache_dtype, dev,
-                           self.model.kv_heads)
         hidden, cache = self.model.backbone(buf[:, :base], positions,
                                             key_valid, cache, 0,
                                             adapters=adapters)
@@ -369,34 +392,123 @@ class GenerationEngine:
                 [presence_from_history(buf[:, :base, i],
                                        cfg.speech_vocab_size)
                  for i in range(1, C)], dim=1),
-            audit_rows=zero, audit_flagged=zero.clone())
+            audit_rows=zero, audit_flagged=zero.clone(),
+            pos=torch.full((), base, dtype=torch.int64, device=dev))
+
+    def _empty_state(self, B: int, S: int) -> DecodeState:
+        """A zeroed decode state of B rows and S slots, shaped and typed as
+        ``prefill`` makes one (a captured step's workspace)."""
+        cfg, dev = self.cfg, self.device
+        lo, hi = self.text_window
+
+        def z(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return DecodeState(
+            step=0, tokens=z(B, S, cfg.channels),
+            cache=init_cache(cfg, B, S, self.cache_dtype, dev,
+                             self.model.kv_heads),
+            key_valid=z(B, S, dtype=torch.bool),
+            hidden_last=z(B, 1, cfg.hidden_size, dtype=self.cache_dtype),
+            last_pos=z(B), needs=z(B), unfinished=z(B, dtype=torch.bool),
+            presence_text=z(B, hi - lo, dtype=torch.bool),
+            presence_speech=z(B, cfg.channels - 1, cfg.speech_vocab_size,
+                              dtype=torch.bool),
+            audit_rows=z(), audit_flagged=z(), pos=z())
+
+    def _graphable(self, gen: Optional[torch.Generator],
+                   adapters: Optional[dict]) -> bool:
+        """Whether a request's steps past the teacher-forcing window may
+        replay a captured step: on the card, with no mesh (collectives),
+        no dense backend (its mask is ``cur_len + 1`` wide), no LoRA
+        adapters and a generator to register."""
+        return (self.device.type == "cuda" and self.mesh is None
+                and self.cfg.attn_impl != "xla" and adapters is None
+                and gen is not None)
+
+    def _decode_state(self, tokens_full: torch.Tensor,
+                      attn_mask: torch.Tensor, base: int, buf_steps: int,
+                      gen: Optional[torch.Generator],
+                      adapters: Optional[dict] = None
+                      ) -> Tuple[DecodeState, float]:
+        """(``prefill``ed state, its seconds, synced on the card): into the
+        workspace of the request's key and bound to its captured step
+        (``StepGraphs.take``, which captures a new key first, outside the
+        prefill's span and seconds) where ``_graphable`` allows it and no
+        live state holds that workspace."""
+        g = None
+        if self._graphable(gen, adapters):
+            g = self._graphs.take(tokens_full.shape[0], base + buf_steps)
+        t0 = time.perf_counter()
+        try:
+            with span("engine.prefill", rows=tokens_full.shape[0]):
+                st = self.prefill(tokens_full, attn_mask, base, buf_steps,
+                                  adapters, into=None if g is None else g.ws)
+                if self.device.type == "cuda":  # the loop's first any()
+                    torch.cuda.synchronize(self.device)   # test syncs anyway
+        except BaseException:
+            if g is not None:
+                g.release()
+            raise
+        prefill_s = time.perf_counter() - t0
+        if g is not None:
+            g.bind(st, gen)
+        return st, prefill_s
 
     @torch.no_grad()
     def _step(self, st: DecodeState, base: int,
               gen: Optional[torch.Generator],
               adapters: Optional[dict] = None) -> None:
-        """One decode step, in place on ``st`` (JAX engine ``body``): the
-        draw (``engine.sample``), then the new token's forward
-        (``engine.forward``)."""
+        """One decode step, in place on ``st`` (JAX engine ``body``).
+
+        A state bound to a captured step (``_decode_state``) replays it
+        past the teacher-forcing window, its audit steps aside; every
+        other step is the eager one: the draw (``engine.sample``), then
+        the new token's forward (``engine.forward``), with a bound state's
+        rebound fields copied back into its workspace."""
         s = st.step
-        cur_len = base + s
-        with span("engine.sample"):
-            next_tokens = self._sample(st, s, cur_len, gen)
-        # forward the new token: cache write at cur_len, extent cur_len + 1
-        with span("engine.forward"):
-            st.key_valid[:, cur_len] = True
-            st.last_pos = st.last_pos + 1
-            hidden, _ = self.model.backbone(
-                next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
-                st.cache, cur_len, adapters=adapters)
-        st.hidden_last = hidden
+        g = st.graph
+        audit = self._audit_step(s)
+        if g is not None and s >= self.cfg.channels - 1 and not audit:
+            g.replay()
+            metrics.add("engine_graph_steps")
+        else:
+            gen = gen if g is None else g.gen
+            with span("engine.sample"):
+                next_tokens = self._sample(st, s, gen, audit)
+            with span("engine.forward"):
+                self._forward(st, next_tokens, base + s, adapters)
+            if g is not None:
+                hold(st, g.fixed)
+            metrics.add("engine_eager_steps")
         st.step = s + 1
 
-    def _sample(self, st: DecodeState, s: int, cur_len: int,
-                gen: Optional[torch.Generator]) -> torch.Tensor:
-        """Step ``s``'s logits, draw, audit and flags: writes its tokens
-        (B, C) to ``st.tokens[:, cur_len]`` and returns them, and updates
-        the presence sets, the flush countdown and the finish flags."""
+    def _audit_step(self, s: int) -> bool:
+        every = self.cfg.restricted_audit_every
+        return (self.cfg.restricted_text_head and every > 0
+                and s % every == 0)
+
+    def _forward(self, st: DecodeState, next_tokens: torch.Tensor,
+                 cache_pos: Union[int, torch.Tensor],
+                 adapters: Optional[dict] = None) -> None:
+        """The new token's forward at the write slot ``st.pos`` (then
+        advanced): the KV cache written at ``cache_pos``, the host's
+        ``base + step`` (the eager step) or ``st.pos`` itself (the captured
+        step), and read up to it."""
+        st.key_valid.index_fill_(1, st.pos.reshape(1), True)
+        st.last_pos = st.last_pos + 1
+        hidden, _ = self.model.backbone(
+            next_tokens[:, None, :], st.last_pos[:, None], st.key_valid,
+            st.cache, cache_pos, adapters=adapters)
+        st.hidden_last = hidden
+        st.pos.add_(1)
+
+    def _sample(self, st: DecodeState, s: int,
+                gen: Optional[torch.Generator],
+                audit: bool = False) -> torch.Tensor:
+        """Step ``s``'s logits, draw, audit (when ``audit``) and flags:
+        writes its tokens (B, C) to ``st.tokens`` at the write slot
+        ``st.pos`` and returns them, and updates the presence sets, the
+        flush countdown and the finish flags."""
         cfg = self.cfg
         C = cfg.channels
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
@@ -417,8 +529,7 @@ class GenerationEngine:
         # restricted-head audit: every N-th step stream the full text head
         # once and count the live rows whose best out-of-window raw logit
         # beats the window max (counters stay on the device: no sync)
-        every = cfg.restricted_audit_every
-        if restricted and every > 0 and s % every == 0:
+        if audit:
             outside = self.model.text_logits_outside_max(st.hidden_last)
             live = st.unfinished & (st.needs < 0)
             st.audit_rows += live.sum()
@@ -434,7 +545,7 @@ class GenerationEngine:
         # teacher forcing: while s < C-1, channels > s come from the prompt
         chan = torch.arange(C, device=self.device)
         if s < C - 1:
-            tf_row = st.tokens[:, cur_len]
+            tf_row = st.tokens.index_select(1, st.pos.reshape(1))[:, 0]
             next_tokens = torch.where(chan[None, :] > s, tf_row, next_tokens)
 
         # staggered EOS flush, then finished rows emit eos/pad
@@ -445,7 +556,7 @@ class GenerationEngine:
                                   next_tokens)
         next_tokens = torch.where(st.unfinished[:, None], next_tokens, fill)
 
-        st.tokens[:, cur_len] = next_tokens
+        st.tokens.index_copy_(1, st.pos.reshape(1), next_tokens[:, None])
         scatter_presence(st.presence_text, next_tokens[:, 0] - lo)
         scatter_presence(st.presence_speech, next_tokens[:, 1:])
         needs = torch.where(needs > 0, needs - 1, needs)
@@ -524,16 +635,12 @@ class GenerationEngine:
                                                               attention_mask)
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(self._seed(seed))
-        t0 = time.perf_counter()
-        with span("engine.prefill", rows=input_ids.shape[0]):
-            st = self.prefill(
-                torch.as_tensor(input_ids[rows], device=dev),
-                torch.as_tensor(attention_mask[rows], device=dev),
-                base, buf_steps, adapters)
-            if dev.type == "cuda":  # the loop's first any() test syncs anyway
-                torch.cuda.synchronize(dev)
+        st, prefill_s = self._decode_state(
+            torch.as_tensor(input_ids[rows], device=dev),
+            torch.as_tensor(attention_mask[rows], device=dev),
+            base, buf_steps, gen, adapters)
         return (st, base, max_steps, buf_steps, gen, input_ids,
-                attention_mask, time.perf_counter() - t0, adapters)
+                attention_mask, prefill_s, adapters)
 
     def _audit_on(self) -> bool:
         return (self.cfg.restricted_text_head

@@ -50,7 +50,7 @@ the cached forward's attention output to q (the cache writes stay).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -220,7 +220,7 @@ class Qwen3Block(nn.Module):
         return y
 
     def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
-                cache_pos: int, key_valid: torch.Tensor,
+                cache_pos: Union[int, torch.Tensor], key_valid: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 write_gate: Optional[torch.Tensor] = None,
                 read_extent: Optional[torch.Tensor] = None,
@@ -244,18 +244,30 @@ class Qwen3Block(nn.Module):
             # An int8 cache ("k_s" present) stores the quantized slice and
             # its per-head-per-token scales. write_gate (B,) bool: rows
             # gated off keep their old sliver (a (B, Hkv, T[, D]) read).
+            # A tensor cache_pos (a () int64 on the device: the captured
+            # decode step's) is a one-token write through index_copy_ on
+            # the slot axis, with no host read of the slot.
             kv8 = "k_s" in cache
-            slot = slice(cache_pos, cache_pos + T)
-            for name, new in (("k", k), ("v", v)):
-                new = new.transpose(1, 2)
-                if kv8:
-                    new, sc = quantize_kv(new)
-                    _write(cache[name + "_s"][layer_idx][:, :, slot], sc,
-                           write_gate)
-                _write(cache[name][layer_idx][:, :, slot], new, write_gate)
+            dev_pos = isinstance(cache_pos, torch.Tensor)
+            if dev_pos and (T != 1 or write_gate is not None):
+                raise ValueError("a tensor cache_pos is one ungated token")
             if T > 1 and cache_pos != 0:
                 raise NotImplementedError(
                     "multi-token segments are prefill-only (cache_pos 0)")
+            for name, new in (("k", k), ("v", v)):
+                new = new.transpose(1, 2)
+                parts = [(name, new)]
+                if kv8:
+                    new, sc = quantize_kv(new)
+                    parts = [(name + "_s", sc), (name, new)]
+                for key, val in parts:
+                    dst = cache[key][layer_idx]
+                    if dev_pos:
+                        dst.index_copy_(2, cache_pos.reshape(1),
+                                        val.to(dst.dtype))
+                    else:
+                        _write(dst[:, :, cache_pos:cache_pos + T], val,
+                               write_gate)
             if self.cfg.ablate_attention:
                 # the bench-only stub: the projections and the cache writes
                 # stay, no attention reads the cache
@@ -270,7 +282,10 @@ class Qwen3Block(nn.Module):
             else:
                 # decode: read only the slots up to the one just written,
                 # or each row up to its own (B,) int32 extent
-                ext = cache_pos + 1 if read_extent is None else read_extent
+                ext = read_extent
+                if ext is None:
+                    ext = (slot_extent(cache_pos, B) if dev_pos
+                           else cache_pos + 1)
                 if kv8:
                     attn = flash_decode_int8_hs(
                         q, cache["k"], cache["k_s"], cache["v"],
@@ -315,6 +330,12 @@ def _write(dst: torch.Tensor, new: torch.Tensor,
         new = torch.where(gate.view((-1,) + (1,) * (dst.dim() - 1)),
                           new.to(dst.dtype), dst)
     dst.copy_(new)
+
+
+def slot_extent(cache_pos: torch.Tensor, batch: int) -> torch.Tensor:
+    """The (B,) int32 decode extent ``cache_pos + 1`` of a device write
+    slot, the form the decode kernels take per row."""
+    return (cache_pos + 1).to(torch.int32).reshape(1).repeat(batch)
 
 
 def select_adapters(stacks: Dict[str, tuple], ids: torch.Tensor
@@ -433,7 +454,7 @@ class AsteroidLM(nn.Module):
 
     def backbone(self, input_ids: torch.Tensor, positions: torch.Tensor,
                  key_valid: torch.Tensor, cache: Optional[dict],
-                 cache_pos: int = 0,
+                 cache_pos: Union[int, torch.Tensor] = 0,
                  write_gate: Optional[torch.Tensor] = None,
                  read_extent: Optional[torch.Tensor] = None,
                  adapters: Optional[Dict[str, tuple]] = None,
@@ -445,7 +466,9 @@ class AsteroidLM(nn.Module):
         key_valid (B, S) cache-slot validity, or (B, T) without a cache;
         cache {"k","v": (L, B, Hkv, S, D)} updated in place, or None;
         cache_pos: the scalar write slot of this segment; a one-token
-        segment reads the cache up to extent cache_pos + 1;
+        segment reads the cache up to extent cache_pos + 1; or a () int64
+        tensor on the device (one ungated token, not the dense backend),
+        written through ``index_copy_`` and read up to the same extent;
         write_gate (B,) bool: ring-addressed decode (the continuous pool),
         rows gated off keep their old cache sliver; slot order is not time
         order there, and key_valid alone carries causality;
@@ -474,6 +497,11 @@ class AsteroidLM(nn.Module):
             mask = causal_mask(q0, T, S, key_valid)
         elif seq is not None:
             raise ValueError("sequence parallelism is cache-free")
+        elif isinstance(cache_pos, torch.Tensor):
+            if c.attn_impl == "xla" and not c.ablate_attention:
+                raise ValueError("the dense backend reads a host cache_pos")
+            if read_extent is None:         # once for every layer
+                read_extent = slot_extent(cache_pos, B)
         elif c.attn_impl == "xla" and not c.ablate_attention:
             # the dense backend's mask (None selects the kernels): a
             # prefill's causal one over its own keys; a sequential decode

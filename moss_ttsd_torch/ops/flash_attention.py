@@ -30,11 +30,14 @@ shared libraries with a plain C interface (loaded with ``ctypes``), cached
 under ``build/moss_ttsd_torch/<hash of the sources>/`` in the checkout, or
 under another root that ``set_build_root`` names before the first build
 (the server's ``--jax_cache_dir``).
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``; a CUDA graph's
+warm-up and capture record theirs apart (``recording_launches``), and each
+replay adds what its capture recorded (``add_launch_counts``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -306,7 +309,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.stride(0), v.stride(1), v.stride(2), key_valid.stride(0),
         out.stride(0), out.stride(1), out.stride(2), stream)
     _check_rc(rc, "flash_prefill")
-    flash_prefill.launches += 1
+    _count(flash_prefill)
     return out
 
 
@@ -590,7 +593,7 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         vt.stride(0), vt.stride(1), vt.stride(2), key_valid.stride(0),
         out.stride(0), out.stride(2), stream)
     _check_rc(rc, "flash_decode_hs")
-    flash_decode_hs.launches += 1
+    _count(flash_decode_hs)
     return out
 
 
@@ -696,7 +699,7 @@ def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         vs.stride(0), vs.stride(1), key_valid.stride(0), out.stride(0),
         out.stride(2), stream)
     _check_rc(rc, what)
-    flash_decode_int8_hs.launches += 1
+    _count(flash_decode_int8_hs)
     return out
 
 
@@ -712,3 +715,36 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' counters: a CUDA
+    graph's replay adds the calls it captured."""
+    for fn in _WRAPPERS:
+        fn.launches += counts.get(fn.__name__, 0)
+
+
+_recording = threading.local()
+
+
+def _count(fn) -> None:
+    """One call of the wrapper ``fn``: into this thread's open recording
+    (``recording_launches``), else into ``fn.launches``."""
+    calls = getattr(_recording, "calls", None)
+    if calls is None:
+        fn.launches += 1
+    else:
+        calls[fn.__name__] = calls.get(fn.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The wrapper calls this thread makes inside the block, by name, kept
+    out of the counters (a CUDA graph's warm-up and capture: its replays
+    add what the capture recorded). Other threads count as before."""
+    prev = getattr(_recording, "calls", None)
+    _recording.calls = calls = {}
+    try:
+        yield calls
+    finally:
+        _recording.calls = prev

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each Hopper kernel against its plain version,
 ``quantize_kv`` on the card against the CPU, and the tiny LM engine (bf16
 path and int8 serving) on the card (kernels) against the same engine on the
-CPU (plain versions), the tiny codec encode on the card against the CPU,
+CPU (plain versions), the engine's CUDA-graph decode step against the
+same engine held eager, the tiny codec encode on the card against the CPU,
 full and LoRA training steps and the tiny codec's train steps on the card
 against the CPU, sequence parallelism and GPipe as two gloo processes
 sharing the card against one process on the CPU. Imports no
@@ -583,6 +584,183 @@ def test_generate_stream_on_card_equals_generate(cuda, do_sample):
     np.testing.assert_array_equal(res[-1].tokens, full.tokens)
 
 
+def _graph_parts(B, kind, do_sample, seed=0):
+    """A tiny engine config (bf16; head_dim 64 for the bf16 prefill
+    kernel), its sampling, weights, policy and a (B, 20) prompt."""
+    from moss_ttsd_torch.core.config import (ChannelSamplingConfig,
+                                             LMConfig, SamplingConfig)
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    cfg = LMConfig(dtype="bfloat16", param_dtype="float32").tiny(
+        head_dim=64, speech_token_range=(0, 160))
+    sampling = SamplingConfig(channels=[ChannelSamplingConfig(
+        do_sample=do_sample, temperature=0.9 if do_sample else None,
+        top_k=20 if do_sample else None, top_p=0.9 if do_sample else None)
+        for _ in range(cfg.channels)], max_new_tokens=30)
+    model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
+    with torch.no_grad():       # EOS logit 0: rows decode their budgets
+        model.embed_text[cfg.eos_token_id] = 0.0
+    policy = {} if kind == "bf16" else dict(quant="int8", kv_quant="int8")
+    return cfg, sampling, model, policy, _graph_prompt(cfg, B, seed)
+
+
+def _graph_prompt(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    prompt = np.full((B, 20, cfg.channels), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = rng.integers(1, 90, (B, 20))
+    mask = np.ones((B, 20), np.int64)
+    for b in range(B):
+        mask[b, :rng.integers(0, 9)] = 0
+    return prompt, mask
+
+
+def _graph_engines(cfg, sampling, model, policy):
+    """(the engine, the same engine held eager: the reference)."""
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    eng, ref = (GenerationEngine(cfg, model, sampling, bucket=32,
+                                 device="cuda", **policy) for _ in range(2))
+    ref._graphable = lambda gen, adapters: False
+    return eng, ref
+
+
+GRAPH_COUNTERS = ("engine_graph_steps", "engine_eager_steps",
+                  "engine_graph_captures")
+
+
+def _counters():
+    from moss_ttsd_torch.utils.profiling import metrics
+    return np.array([metrics.get(k) for k in GRAPH_COUNTERS])
+
+
+@pytest.mark.parametrize("do_sample", [False, True],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_graph_step_replays_equal_eager(cuda, B, kind, do_sample):
+    """The captured step past the teacher-forcing window: the tokens of
+    the eager step, through generate and then generate_stream (the
+    same key, not captured again), sampled rows drawing the eager
+    noise from the registered generator; the registry counts C - 1
+    eager steps and the rest replayed, one capture, and the decode
+    wrapper's counter one call a layer a step, replays included."""
+    cfg, sampling, model, policy, (prompt, mask) = _graph_parts(
+        B, kind, do_sample)
+    eng, ref = _graph_engines(cfg, sampling, model, policy)
+    C, L = cfg.channels, cfg.num_hidden_layers
+    c0 = _counters()
+    fa.reset_launch_counts()
+    got = eng.generate(prompt, mask, 30, seed=4)
+    counts = fa.launch_counts()
+    c1 = _counters()
+    want = ref.generate(prompt, mask, 30, seed=4)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.steps == want.steps > C + 8
+    dec, other = (("flash_decode_hs", "flash_decode_int8_hs")
+                  if kind == "bf16" else
+                  ("flash_decode_int8_hs", "flash_decode_hs"))
+    assert counts == {"flash_prefill": L, dec: L * got.steps, other: 0}
+    assert list(c1 - c0) == [got.steps - (C - 1), C - 1, 1]
+    res = list(eng.generate_stream(prompt, mask, 30, seed=4,
+                                   boundaries=[C + 3, 19]))
+    np.testing.assert_array_equal(res[-1].tokens, want.tokens)
+    assert _counters()[2] == c1[2] and eng._graphs.kept is not None
+
+
+def test_graph_step_two_keys_and_a_reused_key(cuda):
+    """Two keys captured and alive at once (interleaved streams of 2 and
+    3 rows: the second replaces the kept key, the first keeps its own);
+    two live requests of one key (the second decodes eagerly while the
+    first holds the workspace); then the kept key reused by a later
+    request with other prompts, not captured again. Every stream's tokens
+    are the eager engine's."""
+    cfg, sampling, model, policy, (p2, m2) = _graph_parts(2, "bf16", True)
+    p3, m3 = _graph_prompt(cfg, 3, 1)
+    q2, n2 = _graph_prompt(cfg, 2, 2)
+    eng, ref = _graph_engines(cfg, sampling, model, policy)
+    C = cfg.channels
+
+    def interleaved(*reqs):
+        """The last result of each request's stream, the streams advanced
+        a segment each in turn."""
+        streams = [eng.generate_stream(p, m, 30, seed=s, boundaries=[12, 20])
+                   for p, m, s in reqs]
+        out, live = [None] * len(streams), list(range(len(streams)))
+        while live:
+            for i in list(live):
+                r = next(streams[i], None)
+                if r is None:
+                    live.remove(i)
+                else:
+                    out[i] = r
+        return out
+
+    c0 = _counters()
+    got = interleaved((p2, m2, 1), (p3, m3, 2))
+    c1 = _counters()
+    assert c1[2] - c0[2] == 2 and eng._graphs.kept.key[0] == 3
+    assert c1[0] - c0[0] == sum(r.steps - (C - 1) for r in got)
+    for (p, m, s), r in zip(((p2, m2, 1), (p3, m3, 2)), got):
+        np.testing.assert_array_equal(r.tokens,
+                                      ref.generate(p, m, 30, seed=s).tokens)
+    c1 = _counters()
+    got = interleaved((p2, m2, 5), (q2, n2, 6))
+    c2 = _counters()
+    # the 2-row key captured again; the second stream ran eagerly
+    assert c2[2] - c1[2] == 1
+    assert c2[0] - c1[0] == got[0].steps - (C - 1)
+    for (p, m, s), r in zip(((p2, m2, 5), (q2, n2, 6)), got):
+        np.testing.assert_array_equal(r.tokens,
+                                      ref.generate(p, m, 30, seed=s).tokens)
+    c2 = _counters()
+    res = eng.generate(q2, n2, 30, seed=7)
+    c3 = _counters()
+    assert c3[2] == c2[2] and c3[0] - c2[0] == res.steps - (C - 1)
+    np.testing.assert_array_equal(res.tokens,
+                                  ref.generate(q2, n2, 30, seed=7).tokens)
+
+
+@pytest.mark.parametrize("keys", ["one", "two"])
+def test_graph_step_two_threads_share_one_engine(cuda, keys):
+    """generate in one thread and generate_stream in another on one
+    engine (the server's batch worker and stream handler), over one key
+    or two: each request's tokens are the eager engine's, however the
+    threads interleave captures, warm-ups, binds and replays; some steps
+    replayed."""
+    import threading
+    cfg, sampling, model, policy, (p3, m3) = _graph_parts(3, "bf16", True)
+    q, n = ((p3[::-1].copy(), m3[::-1].copy()) if keys == "one" else
+            _graph_prompt(cfg, 2, 2))
+    eng, ref = _graph_engines(cfg, sampling, model, policy)
+    out, errors = {}, []
+
+    def batch(i):
+        out["batch", i] = eng.generate(p3, m3, 30, seed=i).tokens
+
+    def stream(i):
+        *_, last = eng.generate_stream(q, n, 30, seed=i, boundaries=[9, 17])
+        out["stream", i] = last.tokens
+
+    def loop(fn):
+        try:
+            for i in range(4):
+                fn(i)
+        except Exception as e:          # reported below
+            errors.append(e)
+    c0 = _counters()
+    threads = [threading.Thread(target=loop, args=(f,))
+               for f in (batch, stream)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert (_counters() - c0)[0] > 0
+    for i in range(4):
+        np.testing.assert_array_equal(
+            out["batch", i], ref.generate(p3, m3, 30, seed=i).tokens)
+        np.testing.assert_array_equal(
+            out["stream", i], ref.generate(q, n, 30, seed=i).tokens)
+
+
 def _pool_rows(B, S, base):
     """Ring-addressed valid bits of a pool of B rows (prefix left pads,
     then each row's own wrapped span of the ring) and the pool's per-row
@@ -687,6 +865,29 @@ def test_tiny_pool_on_card_matches_cpu(cuda, kv_quant):
         cb.register_adapter("v1", lora, alpha=8.0)
         out.append(_drive_pool(cb, prompts, [30, 24, 28], [0, 0, 0],
                                [None, "v1", None]))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pool_of_a_captured_engine_on_card_matches_cpu(cuda):
+    """The continuous pool keeps its own eager step: a pool made from an
+    engine that has captured its step (``make_pool``, the weights shared)
+    gives the CPU pool's tokens, and its steps replay nothing."""
+    from moss_ttsd_torch.decode.continuous import ContinuousBatcher
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    cfg, sampling, model, prompts = _tiny_pool_parts()
+    eng = GenerationEngine(cfg, model, sampling, bucket=32, device="cuda")
+    eng.generate(prompts[0][None], np.ones((1, len(prompts[0])), np.int64),
+                 20)
+    assert eng._graphs.kept is not None
+    c0 = _counters()
+    out = []
+    for cb in (eng.make_pool(slots=3, base=24, max_steps=40),
+               ContinuousBatcher(cfg, model, sampling, slots=3, base=24,
+                                 max_steps=40, device="cpu")):
+        out.append(_drive_pool(cb, prompts, [30, 24, 28], [0, 0, 0],
+                               [None] * 3))
+    assert list(_counters() - c0) == [0, 0, 0]
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
 
