@@ -25,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import client, counts, program, traffic
+from . import arch, client, program, traffic
 from .reference.prompt import prompt_tokens
 from .trace import Capture
 
@@ -177,6 +177,7 @@ class BatchProbe:
 
     def finish(self, cfg: dict, records: list) -> dict:
         trace = self.cap.reduce(STEP_LABEL) if self.cap.done else {}
+        work = arch.of(cfg)
         valid = [prompt_tokens(s) for s in records[0]["scripts"]]
         steps = []
         # the profiled batch's timers carry the profiler's cost: leave it
@@ -187,16 +188,16 @@ class BatchProbe:
             keys = [[v + s + 1 for v in pv] for s in range(st["steps"])]
             steps.append({"prefill_s": st["prefill_s"],
                           "decode_s": st["decode_s"], "steps": st["steps"],
-                          "flops": sum(counts.decode_flops(cfg, k)
+                          "flops": sum(work.decode_flops(cfg, k)
                                        for k in keys),
                           "vocode_s": r["vocode_s"],
                           "audio_s": sum(len(x) / 24000.0 for x in r["audio"]
                                          if x is not None)})
-        b2 = [counts.decode_attention_work(cfg, [v + s + 1 for v in valid],
-                                           len(valid), 2)
+        b2 = [work.decode_attention_work(cfg, [v + s + 1 for v in valid],
+                                         len(valid), 2)
               for s in range(self.n)]
         return {"trace": trace, "batches": steps,
-                "b1": counts.b1_work(cfg, valid), "b2": b2}
+                "b1": work.b1_work(cfg, valid), "b2": b2}
 
 
 # ---------------------------------------------------------------------------
@@ -449,14 +450,15 @@ class PoolProbe:
 
     def finish(self, cfg: dict) -> dict:
         trace = self.cap.reduce(STEP_LABEL) if self.cap.done else {}
-        runs = [(dt, done, sum(counts.decode_flops(cfg, self._keys(rows, j))
+        work = arch.of(cfg)
+        runs = [(dt, done, sum(work.decode_flops(cfg, self._keys(rows, j))
                                for j in range(done)))
                 for dt, done, rows in self.runs]
         b3 = []
         if self.traced_rows is not None:
             for j in range(2, 2 + self.n):
                 keys = self._keys(self.traced_rows, j)
-                b3.append(counts.decode_attention_work(
+                b3.append(work.decode_attention_work(
                     cfg, keys + [1] * (self.slots - len(keys)), self.slots,
                     self.kv_bytes))
         return {"trace": trace, "join_waits": self.waits,

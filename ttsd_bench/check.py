@@ -11,14 +11,21 @@ Numbers compared, each against the cell's limit (``limits/<cell>.json``):
 * ``lm_gap_max``: over every sampled (position, channel), the reference's
   best allowed logit minus its logit of the token served there, the
   widest such gap; ``lm_gap_mean``, the same gaps' mean;
+* ``lm_gap_rel``: ``lm_gap_mean`` over the mean gap, at the same positions,
+  of the tokens that a plain computation of the same model in bf16 (the
+  configuration's weights, bf16 arithmetic) puts first. The raw mean is
+  set by how often the seed's random model nearly ties its best logits,
+  and swings 10x between seeds; the ratio divides that out;
 * ``codec_err``: the served PCM against the reference decoder's PCM of the
   served codes, as the norm of the difference over the norm of the
   reference (both int16, the whole sampled audio); a length that differs
   reads 1.
 
-The reference is handed nothing the program made: the prompts are built
-again from the scripts, the weights made again from the seed, the int8
-weights or cache quantized again where the configuration states them.
+A cell compares the numbers its limits file names. The reference is the
+configuration's architecture's (``arch/<name>.py``), and is handed nothing
+the program made: the prompts are built again from the scripts, the
+weights made again from the seed, the int8 weights or cache quantized
+again where the configuration states them.
 A control replaces the tokens the program served by the tokens a
 lower-precision reference puts first at each position (``lm``), or the
 audio by a lower-precision decoder's (``codec``).
@@ -31,12 +38,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import weights
+from . import arch, weights
 from .reference import codec as rcodec
 from .reference import lm as rlm
 from .reference.prompt import shifted_prompt
 
-NUMBERS = ("prompt_mismatch", "lm_gap_max", "lm_gap_mean", "codec_err")
+NUMBERS = ("prompt_mismatch", "lm_gap_max", "lm_gap_mean", "lm_gap_rel",
+           "codec_err")
 
 
 def pool_int8_kv(pool: dict) -> bool:
@@ -60,10 +68,11 @@ def _voices(cfg: dict, seed: int, samples: List[dict], device):
         return {}
     n = max(int(v[len("voice"):]) for v in names) + 1
     scale = rlm.lora_scale(weights.LORA_RANK, weights.LORA_ALPHA)
+    targets = arch.of(cfg).lora_targets(cfg)
     out = {}
     for i, v in enumerate(weights.voices(cfg, seed, n, device)):
         out[f"voice{i}"] = {t: (v[f"{t}.a"], v[f"{t}.b"] * scale)
-                            for t in weights.LORA_TARGETS}
+                            for t in targets}
     return out
 
 
@@ -104,21 +113,23 @@ def judge(cfg: dict, kind: str, samples: List[dict], seed: int, device,
     ones (fmt "int8", "int4", "fp8")."""
     _strict_fp32()
     out = {"prompt_mismatch": 0.0, "lm_gap_max": 0.0, "lm_gap_mean": 0.0,
-           "codec_err": 1.0}
+           "lm_gap_rel": 0.0, "codec_err": 1.0}
     if not samples:
         return out
     pool_base = pool["pool_base"] if pool else None
     kv_bits = 8 if pool and pool_int8_kv(pool) else None
     fmt = "int8" if cfg["quant"] == "int8" else None
-    W = weights.make(rlm.lm_spec(cfg), weights.lm_rule, seed,
+    lm_arch = arch.of(cfg)
+    W = weights.make(lm_arch.lm_spec(cfg), lm_arch.lm_rule, seed,
                      weights.GROUPS["lm"], device, torch.bfloat16)
-    ref = rlm.RefLM(cfg, W, fmt)
+    ref = lm_arch.reference(cfg, W, fmt)
+    plain = lm_arch.reference(cfg, W, fmt, dtype=torch.bfloat16)
     ctl = None
     if control and control.startswith("lm:"):
-        ctl = rlm.RefLM(cfg, W, control[3:], dtype=torch.bfloat16)
+        ctl = lm_arch.reference(cfg, W, control[3:], dtype=torch.bfloat16)
     del W
     voices = _voices(cfg, seed, samples, device)
-    all_gaps, mism, codes = [], 0, []
+    all_gaps, plain_gaps, mism, codes = [], [], 0, []
     for s in samples:
         ids, T, gen, m = _row(cfg, s, pool_base)
         mism += m
@@ -132,21 +143,29 @@ def judge(cfg: dict, kind: str, samples: List[dict], seed: int, device,
                 hc = ctl.hidden(ids_t, T, kv_bits, voice)[T - 1:-1]
                 served = rlm.argmax_tokens(ctl, hc, steps)
                 del hc
-            g = rlm.gaps(ref, hid, served, steps,
-                         _judged(gen, cfg).to(device))
+            judged = _judged(gen, cfg).to(device)
+            g = rlm.gaps(ref, hid, served, steps, judged)
+            hp = plain.hidden(ids_t, T, kv_bits, voice)[T - 1:-1]
+            gp = rlm.gaps(ref, hid, rlm.argmax_tokens(plain, hp, steps),
+                          steps, judged)
+            del hp
         all_gaps.append(g.float().cpu())
+        plain_gaps.append(gp.float().cpu())
         codes.append(rcodec.unshift(
             np.asarray(s["tokens"]),
             s["base"] if s["base"] is not None else pool_base,
             cfg["channels"], cfg["speech_token_range"][0],
             cfg["speech_pad_token"], cfg["codec"]["quantizer"]["codebook_size"]))
-    del ref, ctl
+    del ref, plain, ctl
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     gaps = torch.cat(all_gaps)
     out["prompt_mismatch"] = float(mism)
     out["lm_gap_max"] = float(gaps.max()) if gaps.numel() else 0.0
     out["lm_gap_mean"] = float(gaps.mean()) if gaps.numel() else 0.0
+    plain_mean = float(torch.cat(plain_gaps).mean()) if gaps.numel() else 0.0
+    out["lm_gap_rel"] = (out["lm_gap_mean"] / max(plain_mean, 1e-12)
+                         if out["lm_gap_mean"] else 0.0)
     # not compared: the readings' look at how often a served token is not
     # the reference's best
     out["lm_flips"] = float((gaps > 0).float().mean()) if gaps.numel() else 0.0

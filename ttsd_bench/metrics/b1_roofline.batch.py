@@ -1,6 +1,6 @@
 """flash_prefill's share of its roofline in the traced batch's prefill:
-the FLOPs and bytes one call needs (``counts.b1_work`` over the rows'
-valid prompt tokens) over the kernel's device time a call."""
+the FLOPs and bytes one call needs (the architecture's ``b1_work`` over
+the rows' valid prompt tokens) over the kernel's device time a call."""
 from ttsd_bench.readers import roofline
 
 

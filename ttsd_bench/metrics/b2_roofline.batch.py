@@ -1,7 +1,7 @@
 """flash_decode_hs's share of its roofline in the traced decode steps:
-the bytes one call needs (``counts.decode_attention_work``: the query,
-the output and each row's valid bf16 keys and values) over the kernel's
-device time a call."""
+the bytes one call needs (the architecture's ``decode_attention_work``:
+the query, the output and each row's valid bf16 keys and values) over
+the kernel's device time a call."""
 from ttsd_bench.readers import is_decode_int8, roofline
 
 

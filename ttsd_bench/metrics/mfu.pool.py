@@ -1,6 +1,6 @@
 """The pool steps' share of the chip's bf16 peak: the model FLOPs of the
-rows that advance (``counts.decode_flops``) over the segments' wall time
-(``ContinuousBatcher.run``) and 989 TFLOP/s."""
+rows that advance (the architecture's ``decode_flops``) over the
+segments' wall time (``ContinuousBatcher.run``) and 989 TFLOP/s."""
 from ttsd_bench.counts import PEAK_BF16_FLOPS
 
 

@@ -5,20 +5,20 @@ that imports the port.
 The weights come from ``ttsd_bench/weights.py`` as state dicts on the card
 (bf16 LM, float32 codec masters that the codec casts itself); their names
 and shapes are read from the port's modules on the meta device and must
-equal the reference's lists, so both sides are handed the same tensors'
-values.
+equal the reference's lists (the LM's: its architecture's ``lm_spec``,
+``arch/<name>.py``), so both sides are handed the same tensors' values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict, Optional
 
 import torch
 
-from . import weights
+from . import arch, weights
 from .reference.codec import decoder_spec
-from .reference.lm import lm_spec
 
 
 def lm_config(cfg: dict):
@@ -49,13 +49,15 @@ def _spec(module) -> list:
 
 
 def lm_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    from moss_ttsd_torch.models.lm import AsteroidLM
+    lm_arch = arch.of(cfg)
+    module, _, name = lm_arch.port_model.rpartition(".")
+    model = getattr(importlib.import_module(module), name)
     with torch.device("meta"):
-        spec = _spec(AsteroidLM(lm_config(cfg)))
-    if spec != sorted(lm_spec(cfg)):
+        spec = _spec(model(lm_config(cfg)))
+    if spec != sorted(lm_arch.lm_spec(cfg)):
         raise RuntimeError("the port's LM tensors differ from the "
                            "reference's list (names or shapes)")
-    return weights.make(spec, weights.lm_rule, seed, weights.GROUPS["lm"],
+    return weights.make(spec, lm_arch.lm_rule, seed, weights.GROUPS["lm"],
                         device, torch.bfloat16)
 
 
@@ -113,5 +115,5 @@ def voice_trees(cfg: dict, seed: int, n: int, device) -> Dict[str, dict]:
     for i, v in enumerate(weights.voices(cfg, seed, n, device)):
         out[f"voice{i}"] = {
             f"voice/{t}/kernel": {"a": v[f"{t}.a"], "b": v[f"{t}.b"]}
-            for t in weights.LORA_TARGETS}
+            for t in arch.of(cfg).lora_targets(cfg)}
     return out

@@ -5,8 +5,11 @@ A full causal forward of one row (no cache, no kernels, no batching):
 eight embedding tables summed (channel 0 over the text vocab, channels 1-7
 over the speech vocab), Qwen3 blocks (RMSNorm, grouped-query attention with
 per-head q/k RMSNorm and rotate-half RoPE, SwiGLU), the final RMSNorm, and
-the eight heads tied to their tables. Weights carry the port's state-dict
-names, so ``ttsd_bench/weights.py`` gives both sides the same values.
+the eight heads tied to their tables: the ``asteroid-qwen3`` architecture
+(``ttsd_bench/arch/asteroid-qwen3.py`` lists its tensors). Weights carry the
+port's state-dict names, so ``ttsd_bench/weights.py`` gives both sides the
+same values. The masks, gaps and quantizers below do not depend on the
+architecture, and every architecture's check shares them.
 
 Precisions: the reference computes in float32 with TF32 off, over the
 configuration's weights (int8 weights, per output row, quantized here from
@@ -20,34 +23,13 @@ precision.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
         "down_proj")
-
-
-def lm_spec(cfg: dict) -> List[Tuple[str, Tuple[int, ...]]]:
-    H, Hkv, D = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                 cfg["head_dim"])
-    hid, ffn = cfg["hidden_size"], cfg["intermediate_size"]
-    spec = [("embed_text", (cfg["vocab_size"], hid)),
-            ("embed_speech", (cfg["channels"] - 1, cfg["speech_vocab_size"],
-                              hid)),
-            ("final_norm.weight", (hid,))]
-    shapes = {"q_proj": (H * D, hid), "k_proj": (Hkv * D, hid),
-              "v_proj": (Hkv * D, hid), "o_proj": (hid, H * D),
-              "gate_proj": (ffn, hid), "up_proj": (ffn, hid),
-              "down_proj": (hid, ffn)}
-    for i in range(cfg["num_hidden_layers"]):
-        p = f"layers.{i}."
-        spec += [(p + "input_ln.weight", (hid,)),
-                 (p + "post_ln.weight", (hid,)),
-                 (p + "q_norm.weight", (D,)), (p + "k_norm.weight", (D,))]
-        spec += [(p + n + ".weight", s) for n, s in shapes.items()]
-    return spec
 
 
 def fake_quant(w: torch.Tensor, fmt: str) -> torch.Tensor:

@@ -118,6 +118,10 @@ def execute(spec: dict, seed: int, seconds: float, trace: bool,
     import torch
     from . import cells, check, readers
     cell, t = spec["cell"], spec["traffic"]
+    unknown = set(spec["limits"]) - set(check.NUMBERS)
+    if unknown:
+        raise SystemExit("limits name no number of check.py: "
+                         + ", ".join(sorted(unknown)))
     args = cells.Args(cfg=spec["cfg"], traffic=t,
                       seed=seed, seconds=seconds, trace=trace,
                       t_start=t_start, device=device, quant=quant, rate=rate)
@@ -141,7 +145,7 @@ def execute(spec: dict, seed: int, seconds: float, trace: bool,
     res["notes"]["check_s"] = time.perf_counter() - t_check
     limits = spec["limits"]
     compared = {k: {"value": numbers[k], "limit": limits[k]}
-                for k in check.NUMBERS}
+                for k in check.NUMBERS if k in limits}
     correct = all(v["value"] <= v["limit"] for v in compared.values())
     if trace:
         metrics = {}

@@ -1,7 +1,8 @@
-"""The benchmark harness on the CPU at tiny sizes: discovery by name, the
-seeded traffic, the work counters, the reference against the port's plain
-path, the import guard, and whole runs of both entries with the timed path
-broken underneath (``correct`` must come out false).
+"""The benchmark harness on the CPU at tiny sizes: discovery by name (a
+second architecture among it), the seeded traffic, the work counters, the
+reference against the port's plain path, the import guard, and whole runs
+of both entries with the timed path broken underneath (``correct`` must
+come out false).
 
     python -m pytest ttsd_bench/tests -q
 
@@ -10,14 +11,17 @@ Tests that need the card carry the ``cuda`` marker and skip here."""
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from ttsd_bench import cells, counts, faults, readers, run, traffic, weights
+from ttsd_bench import (arch, cells, check, counts, faults, program, readers,
+                        run, traffic, weights)
 from ttsd_bench.reference import lm as rlm
 from ttsd_bench.reference import prompt
 from ttsd_bench.trace import summarize
@@ -59,7 +63,8 @@ def tiny_spec(cell: str, **over) -> dict:
                                max_batches=2)
     spec["traffic"].update(over)
     spec["limits"] = {"prompt_mismatch": 0, "lm_gap_max": 1e-3,
-                      "lm_gap_mean": 1e-4, "codec_err": 1e-3}
+                      "lm_gap_mean": 1e-4, "lm_gap_rel": 1.0,
+                      "codec_err": 1e-3}
     return spec
 
 
@@ -70,7 +75,9 @@ def test_cell_files_found_by_name(cell):
     spec = run.load_cell(cell)
     assert spec["traffic"]["entry"] in ("batch", "server")
     assert set(spec["limits"]) >= {"prompt_mismatch", "lm_gap_max",
-                                   "lm_gap_mean", "codec_err"}
+                                   "codec_err"}
+    assert set(spec["limits"]) & {"lm_gap_mean", "lm_gap_rel"}
+    assert set(spec["limits"]) <= set(check.NUMBERS)
     assert any(m["name"] == "setup_s" for m in spec["end_to_end"])
     assert len(spec["end_to_end"]) >= 2 and spec["per_layer"]
     for m in spec["per_layer"]:
@@ -94,6 +101,199 @@ def test_benchmark_names_only_its_own_cells():
         w["config"] for w in bench["workloads"]}
     with pytest.raises(SystemExit):
         run.load_cell("bf16-pool-stream")
+
+
+# -- architectures -----------------------------------------------------------
+
+def _digest(*parts) -> str:
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p if isinstance(p, bytes) else repr(p).encode())
+    return h.hexdigest()[:16]
+
+
+def _tensors_digest(W: dict) -> str:
+    return _digest(*[x for n in sorted(W) for x in (
+        n.encode(), W[n].contiguous().float().numpy().tobytes())])
+
+
+@pytest.mark.parametrize("config", sorted(
+    {c["file"] for c in BENCH["configs"]}
+    | {f"ttsd_bench/configs/{POOL[0]}.json"}))
+def test_every_configuration_names_an_architecture(config):
+    cfg = json.loads((run.ROOT / config).read_text())
+    mod = arch.of(cfg)
+    assert mod is arch.load(cfg["architecture"])
+    for name in arch.INTERFACE:
+        assert hasattr(mod, name), name
+    assert isinstance(mod.port_model, str)
+    assert all(callable(getattr(mod, n)) for n in arch.INTERFACE[1:])
+
+
+def test_missing_or_unknown_architecture_stops_the_run():
+    cfg = tiny_spec("bf16-dialogue-b8")["cfg"]
+    for name in (None, "", "no-such-architecture"):
+        bad = {**cfg, "architecture": name}
+        with pytest.raises(SystemExit, match="architecture"):
+            arch.of(bad)
+        with pytest.raises(SystemExit, match="architecture"):
+            program.lm_weights(bad, 1, "cpu")
+    with pytest.raises(SystemExit, match="architecture"):
+        arch.of({k: v for k, v in cfg.items() if k != "architecture"})
+
+
+def test_asteroid_qwen3_gives_what_the_harness_gave_before_it():
+    """The spec, the weights and voices on a fixed seed, the reference's
+    hidden states and the work counts of ``asteroid-qwen3``, pinned to what
+    the harness computed before the architecture had a module of its own.
+    Digests are exact; the hidden states are summed over float32 CPU
+    matrix products, whose kernels may add in another order on another CPU
+    (a few ulp), where a tensor moved or renamed changes them outright."""
+    full = run.load_cell("bf16-dialogue-b8")["cfg"]
+    a = arch.of(full)
+    assert len(a.lm_spec(full)) == 311
+    assert _digest(sorted(a.lm_spec(full))) == "383bfb0fc1f032c4"
+    cfg = tiny_spec("bf16-dialogue-b8")["cfg"]
+    seed = 2 ** 31 + 11
+    assert _digest(sorted(a.lm_spec(cfg))) == "d5273d81d094e7b1"
+    W = weights.make(a.lm_spec(cfg), a.lm_rule, seed, weights.GROUPS["lm"],
+                     "cpu", torch.float32)
+    assert _tensors_digest(W) == "1fbae4b016d3c3eb"
+    Wb = weights.make(a.lm_spec(cfg), a.lm_rule, seed, weights.GROUPS["lm"],
+                      "cpu", torch.bfloat16)
+    assert _tensors_digest(Wb) == "cedee49a61710fbc"
+    assert [_tensors_digest(v) for v in weights.voices(cfg, seed, 2, "cpu")] \
+        == ["8c37b77611b5c81e", "5a32d785f9d7123b"]
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, 33, (40, 8), generator=g)
+    ids[:, 0] = torch.randint(0, 160, (40,), generator=g)
+    for fmt, total, absolute, row in (
+            (None, -93.35132620151853, 2061.6486807864276,
+             [0.6826072931289673, -0.9577236175537109, -2.0948374271392822]),
+            ("int8", -87.29536186737823, 2061.67047214412,
+             [0.6774007678031921, -0.9574113488197327, -2.0776517391204834])):
+        h = a.reference(cfg, Wb, fmt).hidden(ids, 30, 8).double()
+        assert float(h.sum()) == pytest.approx(total, rel=1e-6)
+        assert float(h.abs().sum()) == pytest.approx(absolute, rel=1e-6)
+        assert h[5, :3].tolist() == pytest.approx(row, rel=1e-5)
+    for cell in CELLS:
+        c = run.load_cell(cell)["cfg"]
+        w = arch.of(c)
+        assert w.decode_flops(c, [1000, 17, 640]) == 10800386048.0
+        assert w.b1_work(c, [225, 575, 10]) == {"flops": 1562009600.0,
+                                                "bytes": 9954090.0}
+        assert w.decode_attention_work(c, [100, 200, 1], 3, 2) == {
+            "flops": 2465792.0, "bytes": 1257773.0}
+        assert w.decode_attention_work(c, [100, 200, 1], 16, 1) == {
+            "flops": 2465792.0, "bytes": 767085.0}
+
+
+TOY = '''"""toy-dense: asteroid-qwen3's tensors under an init of its own, two
+LoRA targets, a reference that records its building, and work counted
+by rules of its own: what the harness reads of it can only come from
+here."""
+import torch
+from ttsd_bench import arch
+
+base = arch.load("asteroid-qwen3")
+port_model = base.port_model
+EXTRA = []      # tensors the port lacks: the spec check must refuse them
+MADE = []       # (weight format, dtype) of the references built
+
+
+def lm_spec(cfg):
+    return base.lm_spec(cfg) + EXTRA
+
+
+def lm_rule(name, shape):
+    if name.endswith("norm.weight"):
+        return "const", 0.5
+    return base.lm_rule(name, shape)
+
+
+def lora_targets(cfg):
+    t = base.lora_targets(cfg)
+    return {"q_proj": t["q_proj"], "v_proj": t["v_proj"]}
+
+
+def reference(cfg, weights, weight_format=None, dtype=torch.float32):
+    MADE.append((weight_format, dtype))
+    return base.reference(cfg, weights, weight_format, dtype)
+
+
+def decode_flops(cfg, keys):
+    return 7.0 * len(list(keys))
+
+
+def b1_work(cfg, valid):
+    return {"flops": 5.0, "bytes": float(sum(valid))}
+
+
+def decode_attention_work(cfg, keys, rows, kv_bytes):
+    return {"flops": 3.0, "bytes": float(rows * kv_bytes)}
+'''
+
+
+@pytest.fixture
+def toy(monkeypatch, tmp_path):
+    """A second architecture, added as files only: ``toy-dense.py`` beside
+    a copy of ``asteroid-qwen3.py`` in an ``arch/`` directory of its own."""
+    d = tmp_path / "arch"
+    d.mkdir()
+    shutil.copy(arch.DIR / "asteroid-qwen3.py", d)
+    (d / "toy-dense.py").write_text(TOY)
+    monkeypatch.setattr(arch, "DIR", d)
+    return arch.load("toy-dense")
+
+
+def test_toy_architecture_is_found_by_name(toy):
+    cfg = {**tiny_spec("bf16-dialogue-b8")["cfg"], "architecture": "toy-dense"}
+    assert arch.of(cfg) is toy
+    W = program.lm_weights(cfg, 3, "cpu")
+    assert set(W) == {n for n, _ in toy.lm_spec(cfg)}
+    assert bool((W["final_norm.weight"] == 0.5).all())
+    assert bool((W["layers.0.q_norm.weight"] == 0.5).all())
+    v = weights.voices(cfg, 3, 1, "cpu")[0]
+    assert sorted(v) == ["q_proj.a", "q_proj.b", "v_proj.a", "v_proj.b"]
+    assert sorted(program.voice_trees(cfg, 3, 1, "cpu")["voice0"]) == [
+        "voice/q_proj/kernel", "voice/v_proj/kernel"]
+    assert sorted(check._voices(cfg, 3, [{"voice": "voice0"}], "cpu")[
+        "voice0"]) == ["q_proj", "v_proj"]
+    toy.EXTRA.append(("layers.0.router.weight", (4, 64)))
+    with pytest.raises(RuntimeError, match="differ"):
+        program.lm_weights(cfg, 3, "cpu")
+
+
+@pytest.mark.parametrize("cell", ["bf16-dialogue-b8", "bf16-pool-stream"])
+def test_toy_architecture_drives_a_whole_run(toy, cell):
+    """Both entries on the toy: its weights on both sides (``correct``), its
+    reference in ``judge``, its counts in the traced run's work lists."""
+    spec = tiny_spec(cell, trace_steps=3,
+                     **({"rate_per_s": 8.0} if "pool" in cell else {}))
+    spec["cfg"]["architecture"] = "toy-dense"
+    t = spec["traffic"]
+    args = cells.Args(cfg=spec["cfg"], traffic=t, seed=2 ** 31 + 81,
+                      seconds=1.0, trace=True, t_start=0.0, device="cpu")
+    res, _ = cells.ENTRIES[t["entry"]](args)
+    numbers = check.judge(spec["cfg"], res["kind"], res["samples"],
+                          2 ** 31 + 81, "cpu",
+                          t if res["kind"] == "server" else None)
+    assert toy.MADE == [(None, torch.float32), (None, torch.bfloat16)]
+    assert all(numbers[k] <= spec["limits"][k] for k in check.NUMBERS), \
+        numbers
+    layer = res["layer"]
+    if t["entry"] == "batch":
+        assert layer["b1"]["flops"] == 5.0 and layer["b1"]["bytes"] > 0
+        assert layer["b2"] and all(w == {"flops": 3.0, "bytes": 6.0}
+                                   for w in layer["b2"])
+        assert layer["batches"]
+        for b in layer["batches"]:
+            assert b["flops"] == 7.0 * t["batch"] * b["steps"]
+    else:
+        assert layer["runs"] and all(f == 7.0 * int(f / 7.0) and f > 0
+                                     for _, _, f in layer["runs"])
+        assert layer["b3"] and all(w == {"flops": 3.0, "bytes": 4.0}
+                                   for w in layer["b3"])
 
 
 # -- traffic -----------------------------------------------------------------
@@ -128,17 +328,18 @@ def test_percentile_counts_missing_as_infinite():
 
 def test_flop_and_byte_counts_by_hand():
     cfg = run.load_cell("bf16-dialogue-b8")["cfg"]
-    p = counts.lm_params(cfg)
+    work = arch.of(cfg)
+    p = work.lm_params(cfg)
     assert p["backbone"] == 28 * (2 * 2048 * 2048 + 2 * 2048 * 1024
                                   + 3 * 2048 * 6144)
     assert p["heads"] == (152704 + 7 * 1025) * 2048
-    one = counts.decode_flops(cfg, [1000])
+    one = work.decode_flops(cfg, [1000])
     assert one == 2 * (p["backbone"] + p["heads"]) + 28 * 4 * 16 * 128 * 1000
-    w = counts.decode_attention_work(cfg, [100, 200], 2, 2)
+    w = work.decode_attention_work(cfg, [100, 200], 2, 2)
     assert w["bytes"] == 2 * 2 * 2048 * 2 + 300 * (2 * 1024 * 2 + 1)
-    w8 = counts.decode_attention_work(cfg, [100], 1, 1)
+    w8 = work.decode_attention_work(cfg, [100], 1, 1)
     assert w8["bytes"] == 2048 * 2 * 2 + 100 * (2 * 1024 + 2 * 8 * 4 + 1)
-    b1 = counts.b1_work(cfg, [10])
+    b1 = work.b1_work(cfg, [10])
     assert b1["flops"] == 4 * 16 * 128 * 100 / 2
     assert b1["bytes"] == 10 * (2 * 2048 + 2 * 1024) * 2 + 10
     assert counts.roofline_percent(0, 3.35e12, 2.0) == 50.0
@@ -172,10 +373,10 @@ def test_trace_reduction():
 
 def test_reference_lm_matches_the_port_plain_path():
     from moss_ttsd_torch.models.lm import AsteroidLM
-    from ttsd_bench import program
     cfg = tiny_spec("bf16-dialogue-b8")["cfg"]
     cfg["param_dtype"] = cfg["dtype"] = "float32"
-    W = weights.make(rlm.lm_spec(cfg), weights.lm_rule, 5,
+    lm_arch = arch.of(cfg)
+    W = weights.make(lm_arch.lm_spec(cfg), lm_arch.lm_rule, 5,
                      weights.GROUPS["lm"], "cpu", torch.float32)
     with torch.device("meta"):
         model = AsteroidLM(program.lm_config(cfg))
@@ -183,7 +384,7 @@ def test_reference_lm_matches_the_port_plain_path():
     ids = torch.randint(0, 33, (1, 40, 8))
     ids[..., 0] = torch.randint(0, 160, (1, 40))
     text, speech = model(ids)
-    ref = rlm.RefLM(cfg, W)
+    ref = lm_arch.reference(cfg, W)
     h = ref.hidden(ids[0], 40)
     torch.testing.assert_close(ref.logits(h, 0), text[0], rtol=1e-4,
                                atol=1e-4)
@@ -238,6 +439,18 @@ def test_sound_run_is_correct(lively, cell):
     assert out["correct"], out["compared"]
     assert out["failed"] == 0 and out["attempted"] > 0
     assert list(out)[-1] == "compared"
+    assert set(out["compared"]) == set(tiny_spec(cell)["limits"])
+
+
+def test_a_cell_compares_the_numbers_its_limits_name():
+    spec = tiny_spec("bf16-dialogue-b8")
+    del spec["limits"]["lm_gap_mean"]
+    out = run.execute(spec, 2 ** 31 + 83, 0.5, False, device="cpu")
+    assert list(out["compared"]) == ["prompt_mismatch", "lm_gap_max",
+                                     "lm_gap_rel", "codec_err"]
+    spec["limits"]["lm_gap_spread"] = 1.0
+    with pytest.raises(SystemExit, match="lm_gap_spread"):
+        run.execute(spec, 2 ** 31 + 83, 0.5, False, device="cpu")
 
 
 @pytest.mark.parametrize("cell", ["bf16-dialogue-b8", "bf16-pool-stream"])
@@ -272,8 +485,9 @@ def lively(monkeypatch):
     greedy tokens independent of what came before from the second step
     on; embeddings at scale 1 let a frozen state show in the tokens. Both
     sides read the rule, so they still hold the same weights."""
-    rule = weights.lm_rule
-    monkeypatch.setattr(weights, "lm_rule", lambda n, s: (
+    lm_arch = arch.load("asteroid-qwen3")
+    rule = lm_arch.lm_rule
+    monkeypatch.setattr(lm_arch, "lm_rule", lambda n, s: (
         ("normal", 1.0) if n.startswith("embed_") else rule(n, s)))
 
 

@@ -7,11 +7,12 @@ order of the sorted names, scaled by the group's rule. The program and the
 reference each call ``make`` with their own list of (name, shape), so both
 hold the same values and share no tensor.
 
-Rules (the port's own init scales): LM embeddings N(0, 0.02), projections
-N(0, 1/fan_in), norms 1; codec codebooks N(0, 1), matrices and convolutions
-N(0, 1/fan_in), norms 1, biases 0, ConvNeXt layer scales 1/num_layers;
-LoRA ``a`` N(0, 1/in) and ``b`` N(0, LORA_B_STD), so that a voice moves the
-projections by about a tenth at the LoRA scale 32/sqrt(16).
+Rules (the port's own init scales): the LM's is its architecture's
+(``arch/<name>.py``'s ``lm_rule``); codec codebooks N(0, 1), matrices and
+convolutions N(0, 1/fan_in), norms 1, biases 0, ConvNeXt layer scales
+1/num_layers; LoRA ``a`` N(0, 1/in) and ``b`` N(0, LORA_B_STD), so that a
+voice moves the projections by about a tenth at the LoRA scale
+32/sqrt(16).
 """
 
 from __future__ import annotations
@@ -22,14 +23,12 @@ from typing import Callable, Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from . import arch
+
 Spec = List[Tuple[str, Tuple[int, ...]]]
 LORA_RANK = 16
 LORA_ALPHA = 32.0
 LORA_B_STD = 0.003
-LORA_TARGETS = {"q_proj": ("hidden", "heads"), "k_proj": ("hidden", "kv"),
-                "v_proj": ("hidden", "kv"), "o_proj": ("heads", "hidden"),
-                "gate_proj": ("hidden", "ffn"), "up_proj": ("hidden", "ffn"),
-                "down_proj": ("ffn", "hidden")}
 GROUPS = {"lm": 1, "codec_decoder": 2, "codec_encoder": 3, "voice": 10}
 
 
@@ -62,16 +61,6 @@ def make(spec: Iterable[Tuple[str, Tuple[int, ...]]],
             out[name] = torch.full(shape, v, dtype=dtype, device=device)
     del flat
     return out
-
-
-def lm_rule(name: str, shape) -> Tuple[str, float]:
-    if name.startswith("embed_"):
-        return "normal", 0.02
-    if name.endswith(("norm.weight", "ln.weight")):
-        return "const", 1.0
-    if name.endswith(".bias"):
-        return "const", 0.0
-    return "normal", 1.0 / math.sqrt(shape[1])
 
 
 _CONV_T = ("up_conv.weight", "deconv1.weight", "deconv2.weight")
@@ -107,11 +96,12 @@ def is_codec_decoder(name: str) -> bool:
         "acoustic_decoder.", "vocos."))
 
 
-def voice_spec(dims: Dict[str, int], layers: int) -> Spec:
+def voice_spec(targets: Dict[str, Tuple[int, int]], layers: int) -> Spec:
+    """A voice's factors of each target {name: (in, out)}, every layer."""
     spec = []
-    for t, (fi, fo) in LORA_TARGETS.items():
-        spec.append((f"{t}.a", (layers, dims[fi], LORA_RANK)))
-        spec.append((f"{t}.b", (layers, LORA_RANK, dims[fo])))
+    for t, (fi, fo) in targets.items():
+        spec.append((f"{t}.a", (layers, fi, LORA_RANK)))
+        spec.append((f"{t}.b", (layers, LORA_RANK, fo)))
     return spec
 
 
@@ -121,16 +111,11 @@ def voice_rule(name: str, shape) -> Tuple[str, float]:
     return "normal", LORA_B_STD
 
 
-def lm_dims(cfg: dict) -> Dict[str, int]:
-    return {"hidden": cfg["hidden_size"],
-            "heads": cfg["num_attention_heads"] * cfg["head_dim"],
-            "kv": cfg["num_key_value_heads"] * cfg["head_dim"],
-            "ffn": cfg["intermediate_size"]}
-
-
 def voices(cfg: dict, seed: int, n: int, device) -> List[Dict[str, torch.Tensor]]:
-    """``n`` rank-16 LoRA voices on the seven projections of every layer,
-    fp32, {"<target>.a": (L, in, r), "<target>.b": (L, r, out)}."""
-    spec = voice_spec(lm_dims(cfg), cfg["num_hidden_layers"])
+    """``n`` rank-16 LoRA voices on the architecture's ``lora_targets`` in
+    every layer, fp32, {"<target>.a": (L, in, r), "<target>.b": (L, r,
+    out)}."""
+    spec = voice_spec(arch.of(cfg).lora_targets(cfg),
+                      cfg["num_hidden_layers"])
     return [make(spec, voice_rule, seed, GROUPS["voice"] + i, device,
                  torch.float32) for i in range(n)]
