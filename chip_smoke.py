@@ -179,6 +179,22 @@ Phases, each printing one JSON line:
      per-rank peak, s/step, sends and receives a step, the collectives,
      loss and grad norm within 2^-8 of one process's K 4 accumulation
      step on the same rows; no phase of 13-15 launches a kernel of csrc/;
+ 16. afmoe    — the AFMoE block (the afmoe-longform-b16 cell's LM) at its
+     widths, cut to 4 layers (1 dense, 3 of experts; 3 sliding-window
+     layers, then a full one), 16 rows of prompts of 200-600 tokens, 1900
+     greedy steps (past 2048 slots in every row): an eager run holds each
+     kernel call of the prefill and of five steps against its plain
+     version on the same inputs (B1 and B2 at the layer's window within
+     5e-3 and 4e-4 + 2^-7 |ref|, the kernels at W - 1 and W + 1 missing
+     it; the expert op, the grouped GEMM in the prefill and the decode
+     kernel in the steps, within 2^-7 |ref| + 2^-9 of its scale, the
+     plain op with the call's most chosen expert dropped missing it), B1
+     at a 2304-token prefill the window cuts likewise; then the captured
+     run: its tokens equal the eager run's, every step past the
+     teacher-forcing window a replay, launches (reset just before the run)
+     L B1, L x steps B2 and 3 x (steps + 1) expert calls, and a device
+     trace of 8 replayed steps past the window with 3 decode expert
+     kernels and L split-K decodes a step;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
@@ -5330,12 +5346,313 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the AFMoE block (afmoe-longform-b16's architecture)
+# ---------------------------------------------------------------------------
+
+AFMOE_CONFIG = os.path.join(ROOT, "ttsd_bench", "configs",
+                            "trinity-mini-ep2-bf16.json")
+AFMOE_WIN_RTOL = 2.0 ** -7   # one bf16 ulp of the output, relative
+# + the fp32 sums' order and P's bf16 rounding against the plain version's:
+# B1's online max against the plain global one (at most 1.7e-3 measured on
+# the H100 at the cell's and a 2304-token prefill's shapes; a key off the
+# window's edge 3.0e-2 and more), B2 at the kernel's own split plan (1.4e-4
+# measured; a key off 1.5e-3 and more)
+AFMOE_WIN_ATOL = {"flash_prefill": 5e-3, "flash_decode_hs": 4e-4}
+
+
+def afmoe_config(layers: int = 4, dense: int = 1):
+    """The afmoe-longform-b16 cell's LM at its widths (hidden 2048, 32 / 4
+    heads of 128, window 2048, 64 of 128 experts of 1024, top 8, vocab
+    200192, bf16), cut to ``layers`` layers (3 sliding, then full) with
+    ``dense`` dense ones first."""
+    from moss_ttsd_torch.core.config import LMConfig
+    with open(AFMOE_CONFIG) as f:
+        spec = json.load(f)
+    names = {f.name for f in dataclasses.fields(LMConfig)}
+    d = {k: v for k, v in spec.items() if k in names}
+    d.update(num_hidden_layers=layers, num_dense_layers=dense,
+             layer_types=d["layer_types"][:layers])
+    return LMConfig.from_dict(d)
+
+
+def afmoe_window_verdict(kernel, got, want, wrong):
+    """``got`` (``kernel`` at the layer's window W) against ``want`` (the
+    plain version at W, fp32): |got - want| <= AFMOE_WIN_ATOL[kernel] +
+    AFMOE_WIN_RTOL |want|. ``wrong``: the kernel at W - 1 and W + 1 on the
+    same inputs, each of which must miss that tolerance (a window edge one
+    key off shows)."""
+    import torch
+    atol = AFMOE_WIN_ATOL[kernel]
+
+    def excess(out):
+        d = (out.float() - want).abs() - AFMOE_WIN_RTOL * want.abs()
+        return float(d.max())
+    res = {"max_abs_err": float((got.float() - want).abs().max()),
+           "excess": excess(got),
+           "off_by_one_excess": [excess(w) for w in wrong],
+           "finite": bool(torch.isfinite(got).all())}
+    res["ok"] = (res["finite"] and res["excess"] <= atol
+                 and all(e > atol for e in res["off_by_one_excess"]))
+    return res
+
+
+def afmoe_expert_verdict(got, want, dropped):
+    """The expert op against ``moe_experts_plain`` (both bf16 out): within
+    one bf16 ulp (2^-7 relative) plus 2^-9 of the output's scale (act
+    rounded to bf16 one ulp apart where the fp32 sums' order tips it).
+    ``dropped``: the plain op with the call's most chosen held expert left
+    out, which must miss that tolerance (one expert's share shows)."""
+    want = want.float()
+    scale = float(want.abs().max())
+
+    def excess(out):
+        d = (out.float() - want).abs() - 2.0 ** -7 * want.abs()
+        return float(d.max())
+    tol = 2.0 ** -9 * scale
+    res = {"max_abs_err": float((got.float() - want).abs().max()),
+           "scale": scale, "excess": excess(got), "tolerance": tol,
+           "dropped_expert_excess": excess(dropped)}
+    res["ok"] = res["excess"] <= tol and res["dropped_expert_excess"] > tol
+    return res
+
+
+def afmoe_long_prefill_check(gen):
+    """B1 where the window cuts a prefill: 2 rows of 2304 (one left-padded
+    by 100), 32 / 4 heads of 128, bf16, window 2048 against the bf16-P
+    plain version, and the kernel at 2047 and 2049 missing it."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    B, T, H, Hkv, D, W = 2, 2304, 32, 4, 128, 2048
+    q = _rand(gen, (B, T, H, D), torch.bfloat16)
+    k = _rand(gen, (B, T, Hkv, D), torch.bfloat16)
+    v = _rand(gen, (B, T, Hkv, D), torch.bfloat16)
+    valid = _left_pad_valid(B, T, [0, 100])
+    got = fa.flash_prefill(q, k, v, valid, D ** -0.5, window=W)
+    want = fa.flash_prefill_plain(q, k, v, valid, D ** -0.5,
+                                  out_dtype=torch.float32,
+                                  p_dtype=torch.bfloat16, window=W)
+    wrong = [fa.flash_prefill(q, k, v, valid, D ** -0.5, window=w)
+             for w in (W - 1, W + 1)]
+    return {"kernel": "flash_prefill", "step": "window cuts the prefill",
+            "shape": [B, T, H, Hkv, D], "window": W,
+            **afmoe_window_verdict("flash_prefill", got, want, wrong)}
+
+
+def afmoe_phase(steps: int = 1900):
+    """The AFMoE block at the cell's widths (``afmoe_config``: 4 layers,
+    1 dense and 3 of experts, random weights), 16 rows of prompts of
+    200-600 tokens bucketed to 640, greedy, ``steps`` decode steps (past
+    2048 positions in every row). An eager run holds every kernel call of
+    the prefill and of chosen steps against its plain version on the same
+    inputs: B1 and B2 at their window, the kernel at W - 1 and W + 1
+    missing the tolerance; the expert op (the grouped GEMM in the
+    prefill, the decode kernel in the steps), the plain op with one expert
+    dropped missing it. Then the captured run: the same greedy tokens,
+    every step past the teacher-forcing window a replay, the launches
+    counted from the wrappers (reset just before the run) and from a
+    device trace of replayed steps past the window."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from moss_ttsd_torch.decode.engine import GenerationEngine
+    from moss_ttsd_torch.models import lm
+    from moss_ttsd_torch.models.lm import AsteroidLM
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops import moe as pmoe
+    from moss_ttsd_torch.utils.profiling import metrics
+    t0 = time.perf_counter()
+    cfg = afmoe_config()
+    L, C = cfg.num_hidden_layers, cfg.channels
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    model = AsteroidLM.init_random(cfg, seed=20, device="cuda")
+    B = 16
+    lens = np.rint(200 + (np.arange(B) + 0.5) / B * 400).astype(int)
+    Lp = int(lens.max())
+    prompt = np.full((B, Lp, C), cfg.speech_pad_token, np.int64)
+    prompt[..., 0] = np.random.default_rng(20).integers(1, 150000, (B, Lp))
+    mask = np.zeros((B, Lp), np.int64)
+    for b, n in enumerate(lens):
+        mask[b, Lp - n:] = 1
+    check_steps = {0, C, 1500, 1700, steps - 1}
+    checks, where = [], {"step": -1}
+    orig = {"flash_prefill": lm.flash_prefill,
+            "flash_decode_hs": lm.flash_decode_hs,
+            "moe_experts": lm.moe_experts}
+
+    def prefill_spy(q, k, v, valid, scale, window=0):
+        out = orig["flash_prefill"](q, k, v, valid, scale, window=window)
+        want = fa.flash_prefill_plain(q, k, v, valid, scale,
+                                      out_dtype=torch.float32,
+                                      p_dtype=torch.bfloat16, window=window)
+        checks.append({"kernel": "flash_prefill", "step": "prefill",
+                       "shape": list(q.shape), "window": window,
+                       **afmoe_window_verdict("flash_prefill", out, want,
+                                              [])})
+        return out
+
+    def decode_spy(q, kt, vt, valid, scale, extent=None, layer=None,
+                   window=0):
+        out = orig["flash_decode_hs"](q, kt, vt, valid, scale, extent=extent,
+                                      layer=layer, window=window)
+        if where["step"] in check_steps:
+            n_split, chunk = fa.decode_split_plan(
+                q.shape[0], kt.shape[-3], kt.shape[-2], fa.sm_count(q.device))
+            want = fa.flash_decode_hs_split_plain(
+                q, kt, vt, valid, scale, extent, layer=layer,
+                n_split=n_split, chunk=chunk, out_dtype=torch.float32,
+                p_dtype=torch.bfloat16, window=window)
+            cuts = window and int(extent) > window
+            wrong = [orig["flash_decode_hs"](q, kt, vt, valid, scale,
+                                             extent=extent, layer=layer,
+                                             window=w)
+                     for w in ((window - 1, window + 1) if cuts else ())]
+            checks.append({"kernel": "flash_decode_hs",
+                           "step": where["step"], "layer": layer,
+                           "extent": int(extent), "window": window,
+                           **afmoe_window_verdict("flash_decode_hs", out,
+                                                  want, wrong)})
+        return out
+
+    def moe_spy(x, idx, w, gate, up, down, offset, counts=None):
+        out = orig["moe_experts"](x, idx, w, gate, up, down, offset, counts)
+        if where["step"] == -1 or where["step"] in check_steps:
+            want = pmoe.moe_experts_plain(x, idx, w, gate, up, down, offset)
+            held = idx[(idx >= offset) & (idx < offset + gate.shape[0])]
+            most = torch.mode(held).values
+            drop = pmoe.moe_experts_plain(
+                x, torch.where(idx == most, -1, idx), w, gate, up, down,
+                offset)
+            checks.append({"kernel": "moe_experts", "step": where["step"],
+                           "tokens": x.shape[0],
+                           "path": ("decode" if x.shape[0]
+                                    <= pmoe.KERNEL_ROWS else "grouped"),
+                           **afmoe_expert_verdict(out, want, drop)})
+        return out
+
+    eager = GenerationEngine(cfg, model, _greedy(C, steps), bucket=128,
+                             device="cuda")
+    eager._graphable = lambda *a: False
+    step = eager._step
+
+    def counted_step(st, *a, **kw):
+        where["step"] = st.step
+        return step(st, *a, **kw)
+    eager._step = counted_step
+    lm.flash_prefill, lm.flash_decode_hs, lm.moe_experts = (
+        prefill_spy, decode_spy, moe_spy)
+    try:
+        t1 = time.perf_counter()
+        ref = eager.generate(prompt, mask, steps)
+        eager_s = time.perf_counter() - t1
+    finally:
+        lm.flash_prefill = orig["flash_prefill"]
+        lm.flash_decode_hs = orig["flash_decode_hs"]
+        lm.moe_experts = orig["moe_experts"]
+    checks.append(afmoe_long_prefill_check(
+        torch.Generator(device="cuda").manual_seed(21)))
+    del eager
+
+    eng = GenerationEngine(cfg, model, _greedy(C, steps), bucket=128,
+                           device="cuda")
+    eng.generate(prompt, mask, 16)          # capture the step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    g0 = metrics.get("engine_graph_steps")
+    t1 = time.perf_counter()
+    res = eng.generate(prompt, mask, steps)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t1
+    counts = dict(fa.launch_counts(), moe_experts=pmoe.moe_experts.launches)
+    replayed = metrics.get("engine_graph_steps") - g0
+    peak = torch.cuda.max_memory_allocated()
+
+    # a device trace of replayed steps past the window
+    st_eng, st, base, gen = engine_state(eng, prompt, mask, steps)
+    past = 2100 - base
+    eng.run(st, base, past, gen)
+    torch.cuda.synchronize()
+    n_tr = 8
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(st, base, past + n_tr, gen)
+        torch.cuda.synchronize()
+    kern = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def per_step(pat):
+        return sum(c for k, c in kern.items() if pat in k) / n_tr
+    traced = {"moe_gate_up": per_step("moss::moe::gate_up_kernel"),
+              "moe_grouped": per_step("moss::moe_grouped::"),
+              "decode_split": per_step("split_kernel")}
+    del st, st_eng
+
+    problems = []
+    if not np.array_equal(res.tokens, ref.tokens):
+        diff = np.argwhere(res.tokens != ref.tokens)
+        problems.append(f"captured tokens differ from eager at "
+                        f"{diff[:4].tolist()}")
+    if res.steps != steps:
+        problems.append(f"decoded {res.steps} of {steps} steps")
+    if replayed != steps - (C - 1):
+        problems.append(f"{replayed} of {steps - (C - 1)} steps replayed")
+    want_counts = {"flash_prefill": L, "flash_decode_hs": L * steps,
+                   "flash_decode_int8_hs": 0,
+                   "moe_experts": n_moe * (steps + 1)}
+    if counts != want_counts:
+        problems.append(f"launches {counts} != {want_counts}")
+    if traced != {"moe_gate_up": n_moe, "moe_grouped": 0,
+                  "decode_split": L}:
+        problems.append(f"traced kernels a replayed step {traced}")
+    kinds = {(c["kernel"], c.get("path")) for c in checks}
+    if not {("moe_experts", "grouped"), ("moe_experts", "decode")} <= kinds:
+        problems.append(f"expert paths checked: {sorted(map(str, kinds))}")
+    if not any(c.get("off_by_one_excess") for c in checks
+               if c["kernel"] == "flash_decode_hs"):
+        problems.append("no checked decode step was past the window")
+    problems += [f"{c['kernel']} at step {c['step']}: {c}" for c in checks
+                 if not c["ok"]]
+    line = {"phase": "afmoe", "layers": L, "moe_layers": n_moe,
+            "batch": B, "prompt_tokens": lens.tolist(), "steps": res.steps,
+            "slots": int(res.base + res.steps),
+            "eager_s": eager_s, "graph_s": graph_s,
+            "graph_steps_per_s": res.steps / graph_s,
+            "replayed_steps": replayed, "launches": counts,
+            "traced_per_replayed_step": traced,
+            "peak_mem_gib": peak / 2 ** 30, "checks": len(checks),
+            "worst_excess": {k: max((c["excess"] for c in checks
+                                     if c["kernel"] == k), default=None)
+                             for k in ("flash_prefill", "flash_decode_hs",
+                                       "moe_experts")},
+            "window_tolerance": {k: f"{a:g} + {AFMOE_WIN_RTOL:g}*|ref|"
+                                 for k, a in AFMOE_WIN_ATOL.items()},
+            "off_by_one_min_excess": {
+                k: min((e for c in checks if c["kernel"] == k
+                        for e in c.get("off_by_one_excess", [])),
+                       default=None)
+                for k in AFMOE_WIN_ATOL},
+            "dropped_expert_min_excess_over_tol": min(
+                (c["dropped_expert_excess"] / c["tolerance"] for c in checks
+                 if c["kernel"] == "moe_experts"), default=None),
+            "seconds": time.perf_counter() - t0,
+            "ok": not problems, "problems": problems[:8]}
+    emit(line)
+    if problems:
+        for c in checks:
+            print(json.dumps(c), flush=True)
+        raise SystemExit(f"afmoe phase failed: {problems[:8]}")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
                          "stream,overlap,podcast,server,pool,xla,ablate,"
-                         "clone,int8,"
+                         "clone,int8,afmoe,"
                          "mesh,comm,seqpar,pipe,load,train,codec_train,cli,"
                          "profile,sweep (default all = every phase but "
                          "profile and sweep; comm runs the mesh phase)")
@@ -5353,7 +5670,8 @@ def main(argv=None) -> int:
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
                "overlap", "podcast", "server", "pool", "xla", "ablate",
-               "clone", "int8", "mesh", "comm", "seqpar", "pipe", "load",
+               "clone", "int8", "afmoe", "mesh", "comm", "seqpar", "pipe",
+               "load",
                "train", "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
     if "comm" in phases:
@@ -5427,6 +5745,8 @@ def main(argv=None) -> int:
         longform = int8_phase("profile" in phases)[-1]
         torch.cuda.empty_cache()
     mesh_line = None
+    if "afmoe" in phases:
+        afmoe_phase()
     if "mesh" in phases:
         # the ranks share the card: this process holds nothing of before
         _release()

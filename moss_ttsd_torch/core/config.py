@@ -105,9 +105,67 @@ class LMConfig:
     ablate_rope: bool = False
     fuse_qk_norm_rope: bool = False
 
+    # The AFMoE block (arcee-ai's Trinity, HF model_type "afmoe"; the port
+    # only: the JAX package has none). block_type "afmoe" builds every
+    # layer as models/lm.AFMoEBlock: gated attention, sandwich norms, RoPE
+    # only in sliding layers; the first num_dense_layers have a SwiGLU of
+    # intermediate_size, the others num_experts routed experts of
+    # moe_intermediate_size held here (experts [expert_offset,
+    # expert_offset + num_experts) of the router's router_experts; 0 = all
+    # of them), num_experts_per_tok chosen per token by score_func (only
+    # "sigmoid") over the router plus its expert_bias, weighted by
+    # route_scale (normalised over the chosen ones with route_norm), and
+    # num_shared_experts always run. layer_types names each layer
+    # "sliding_attention" (keys in (p - sliding_window, p]) or
+    # "full_attention"; mup_enabled scales the summed embeddings by
+    # sqrt(hidden_size). At their defaults these fields leave a config as
+    # it was, and to_dict leaves them out.
+    block_type: str = "qwen3"         # "qwen3" | "afmoe"
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: int = 0
+    num_dense_layers: int = 0
+    num_experts: int = 0
+    router_experts: int = 0
+    expert_offset: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_shared_experts: int = 0
+    route_scale: float = 1.0
+    route_norm: bool = True
+    score_func: str = "sigmoid"
+    mup_enabled: bool = False
+
     @property
     def num_kv_groups(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+    @property
+    def afmoe(self) -> bool:
+        return self.block_type == "afmoe"
+
+    def refuse_afmoe(self, what: str, why: str = "") -> None:
+        """ValueError naming ``what`` when this config's layers are AFMoE
+        blocks: the paths that do not run them refuse them here."""
+        if self.afmoe:
+            raise ValueError(f"{what} does not run the AFMoE block (routed "
+                             f"experts, windowed attention)"
+                             + (f": {why}" if why else ""))
+
+    def layer_window(self, i: int) -> int:
+        """Layer i's attention window: sliding_window for a
+        "sliding_attention" layer, 0 (every earlier key) otherwise."""
+        if self.layer_types is None:
+            return 0
+        return (self.sliding_window
+                if self.layer_types[i] == "sliding_attention" else 0)
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.afmoe and self.num_experts > 0 and \
+            i >= self.num_dense_layers
+
+    @property
+    def router_width(self) -> int:
+        return self.router_experts or self.num_experts
 
     def text_head_window(self) -> Tuple[int, int]:
         """(lo, hi) channel-0 head rows computed per decode step.
@@ -133,6 +191,8 @@ class LMConfig:
         if "speech_token_range" in d and isinstance(d["speech_token_range"], list):
             r = d["speech_token_range"]
             d["speech_token_range"] = tuple(r) if r else (151665, 152689)
+        if isinstance(d.get("layer_types"), list):
+            d["layer_types"] = tuple(d["layer_types"])
         return _from_dict(cls, d)
 
     @classmethod
@@ -143,6 +203,10 @@ class LMConfig:
         return cls.from_dict(d)
 
     def __post_init__(self):
+        if self.block_type not in ("qwen3", "afmoe"):
+            raise ValueError(f"unknown block_type {self.block_type!r}")
+        if self.afmoe:
+            self._check_afmoe()
         if self.quantized and self.lora_rank:
             # int8 weights carry no LoRA leaves: a "QLoRA" finetune would
             # silently train nothing (the JAX package's rule, kept)
@@ -151,9 +215,43 @@ class LMConfig:
                 "path): train LoRA on the unquantized model, or serve "
                 "adapters via GenerationEngine.register_adapter")
 
+    def _check_afmoe(self) -> None:
+        L = self.num_hidden_layers
+        kinds = ("sliding_attention", "full_attention")
+        if self.layer_types is not None and (
+                len(self.layer_types) != L
+                or any(k not in kinds for k in self.layer_types)):
+            raise ValueError(f"layer_types must name {L} layers, each one of "
+                             f"{kinds}")
+        if self.layer_types is not None and "sliding_attention" in \
+                self.layer_types and self.sliding_window < 1:
+            raise ValueError("sliding layers need sliding_window >= 1")
+        if self.score_func != "sigmoid":
+            raise ValueError(f"score_func {self.score_func!r}: only "
+                             "'sigmoid' is implemented")
+        if self.num_experts and not (
+                0 <= self.expert_offset
+                and self.expert_offset + self.num_experts <= self.router_width
+                and 0 < self.num_experts_per_tok <= self.router_width
+                and self.moe_intermediate_size > 0):
+            raise ValueError(
+                f"experts [{self.expert_offset}, {self.expert_offset} + "
+                f"{self.num_experts}) of a {self.router_width}-wide router, "
+                f"top {self.num_experts_per_tok}, width "
+                f"{self.moe_intermediate_size}: out of range")
+        if self.quantized:
+            self.refuse_afmoe("int8 serving (quantized)")
+        if self.lora_rank:
+            self.refuse_afmoe("LoRA (lora_rank > 0)")
+
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d["speech_token_range"] = list(self.speech_token_range)
+        if d["layer_types"] is not None:
+            d["layer_types"] = list(d["layer_types"])
+        for f in AFMOE_FIELDS:            # a Qwen3 config's dict as before
+            if d[f] == _DEFAULTS[f]:
+                del d[f]
         return d
 
     def tiny(self, **overrides) -> "LMConfig":
@@ -166,6 +264,14 @@ class LMConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+AFMOE_FIELDS = ("block_type", "layer_types", "sliding_window",
+                "num_dense_layers", "num_experts", "router_experts",
+                "expert_offset", "num_experts_per_tok",
+                "moe_intermediate_size", "num_shared_experts", "route_scale",
+                "route_norm", "score_func", "mup_enabled")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(LMConfig)}
 
 
 @dataclass

@@ -11,6 +11,10 @@
 //     ops/flash_attention.py). The extent never reaches the host: a block
 //     reads its row's extent on the device, and a chunk at or past it exits
 //     at once (still taking its ticket), so a call is graph-capturable;
+//   * a window W > 0 (an AFMoE sliding layer, over a cache of q's type; the
+//     TPU kernels have none) reads only the slots [extent - W, extent): the
+//     kernel is instantiated apart for it (WIN), and a chunk wholly before
+//     the window exits at once as one past the extent does;
 //   * 64-slot tiles move by 16-byte cp.async into two stages (over an int8
 //     cache the tile's k and v scales beside them, 4 bytes a slot), tile
 //     j + 1 in flight while tile j computes;
@@ -65,6 +69,7 @@ struct Args {
   float* ws_acc;             // n_split > 1: B * Hkv * n_split * G * D floats,
   float* ws_ml;              //   B * Hkv * n_split * G * 2 floats
   int* counters;             //   and B * Hkv ints, 0 between launches
+  int window;                // WIN: slots [extent - window, extent)
   long long sq_b, sq_h, sk_b, sk_h, sk_s, sv_b, sv_h, sv_s, sks_b, sks_h,
       svs_b, svs_h, sval_b, so_b, so_h;
 };
@@ -78,7 +83,7 @@ size_t smem_bytes(int G) {
          sizeof(float) * ((size_t)G * D + (size_t)G * BK + 3 * (size_t)G);
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool WIN>
 __global__ void __launch_bounds__(THREADS) split_kernel(const Args a) {
   constexpr bool Q8 = kInt8<C>;
   constexpr int VEC = Vec16<C>::N;
@@ -107,8 +112,8 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Args a) {
 
   int kend = a.extent != nullptr ? a.extent[b] : a.extent_scalar;
   kend = max(0, min(kend, a.S));
-  const int c0 = sp * a.chunk;
-  const int c1 = min(kend, c0 + a.chunk);
+  const int c0 = WIN ? max(sp * a.chunk, kend - a.window) : sp * a.chunk;
+  const int c1 = min(kend, sp * a.chunk + a.chunk);
   const int h0 = hk * G;
   const long long part = ((long long)b * Hkv + hk) * a.n_split + sp;
   float* ml = a.ws_ml + part * G * 2;
@@ -269,7 +274,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(const Args a) {
                  reinterpret_cast<float*>(smem_raw));
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool WIN>
 int launch_typed(const Args& a, int B, int Hkv, cudaStream_t stream) {
   if (a.G * D > 2 * MAXP * THREADS || a.chunk <= 0 || a.chunk % BK ||
       a.n_split <= 0 || (long long)a.n_split * a.chunk < a.S)
@@ -277,7 +282,7 @@ int launch_typed(const Args& a, int B, int Hkv, cudaStream_t stream) {
   // the tiles, or the merge's weights if those take more
   const size_t smem = max(smem_bytes<C, D>(a.G),
                           sizeof(float) * (2 * (size_t)a.n_split * a.G + a.G));
-  auto kern = split_kernel<T, C, D>;
+  auto kern = split_kernel<T, C, D, WIN>;
   // raise the dynamic shared-memory cap once per size, not per launch (so
   // a launch captured into a CUDA graph makes no attribute call)
   static size_t smem_cap = 48 * 1024;
@@ -291,16 +296,26 @@ int launch_typed(const Args& a, int B, int Hkv, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool INT8_CACHE>
+template <typename T, bool INT8_CACHE, bool WIN>
 int launch_d(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
   using C = typename std::conditional<INT8_CACHE, int8_t, T>::type;
   switch (D) {
-    case 16: return launch_typed<T, C, 16>(a, B, Hkv, stream);
-    case 32: return launch_typed<T, C, 32>(a, B, Hkv, stream);
-    case 64: return launch_typed<T, C, 64>(a, B, Hkv, stream);
-    case 128: return launch_typed<T, C, 128>(a, B, Hkv, stream);
+    case 16: return launch_typed<T, C, 16, WIN>(a, B, Hkv, stream);
+    case 32: return launch_typed<T, C, 32, WIN>(a, B, Hkv, stream);
+    case 64: return launch_typed<T, C, 64, WIN>(a, B, Hkv, stream);
+    case 128: return launch_typed<T, C, 128, WIN>(a, B, Hkv, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// a.window > 0 selects the windowed instantiation; only a cache of q's
+// type has one (an int8 cache with a window is refused)
+template <typename T, bool INT8_CACHE>
+int launch_w(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
+  if (a.window < 0) return (int)cudaErrorInvalidValue;
+  if (a.window == 0) return launch_d<T, INT8_CACHE, false>(D, a, B, Hkv, stream);
+  if constexpr (INT8_CACHE) return (int)cudaErrorInvalidValue;
+  else return launch_d<T, false, true>(D, a, B, Hkv, stream);
 }
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. Returns
@@ -310,8 +325,8 @@ int launch_d(int D, const Args& a, int B, int Hkv, cudaStream_t stream) {
 template <bool INT8_CACHE>
 int launch(int dtype, int D, const Args& a, int B, int Hkv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float, INT8_CACHE>(D, a, B, Hkv, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16, INT8_CACHE>(D, a, B, Hkv, st);
+  if (dtype == 0) return launch_w<float, INT8_CACHE>(D, a, B, Hkv, st);
+  if (dtype == 1) return launch_w<__nv_bfloat16, INT8_CACHE>(D, a, B, Hkv, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,8 @@
 // type. Softmax in fp32, finite for a row with no valid key (output 0). As
 // in the TPU kernel (p.astype(v.dtype)), the probabilities are rounded to
 // the cache's type before P.V (bf16; fp32 is exact) and the denominator sums
-// them unrounded.
+// them unrounded. window > 0 (an AFMoE sliding layer) reads only the slots
+// [extent - window, extent) of each row.
 //
 // What bounds it on an H100: bytes. Each decode step reads every written
 // K/V slot of the layer once (2 * B * Hkv * extent * D elements) for
@@ -29,8 +30,8 @@
 // chunk (a multiple of 64) and n_split (n_split * chunk >= S) come from
 // decode_split_plan; for n_split > 1, ws_acc holds B * Hkv * n_split * G * D
 // floats, ws_ml B * Hkv * n_split * G * 2, and counters B * Hkv ints that
-// are 0 between launches. See moss::decode::launch for dtype and the
-// return code.
+// are 0 between launches; window 0 reads every slot below the extent. See
+// moss::decode::launch for dtype and the return code.
 extern "C" int moss_flash_decode(
     int dtype, const void* q, const void* k, const void* v,
     const uint8_t* valid, const int* extent, int extent_scalar, void* out,
@@ -38,10 +39,10 @@ extern "C" int moss_flash_decode(
     float* ws_acc, float* ws_ml, int* counters, long long sq_b,
     long long sq_h, long long sk_b, long long sk_h, long long sk_s,
     long long sv_b, long long sv_h, long long sv_s, long long sval_b,
-    long long so_b, long long so_h, void* stream) {
+    long long so_b, long long so_h, int window, void* stream) {
   const moss::decode::Args a{
       q, k, v, nullptr, nullptr, valid, extent, extent_scalar, out, S, G,
-      scale, chunk, n_split, ws_acc, ws_ml, counters, sq_b, sq_h, sk_b, sk_h,
-      sk_s, sv_b, sv_h, sv_s, 0, 0, 0, 0, sval_b, so_b, so_h};
+      scale, chunk, n_split, ws_acc, ws_ml, counters, window, sq_b, sq_h,
+      sk_b, sk_h, sk_s, sv_b, sv_h, sv_s, 0, 0, 0, 0, sval_b, so_b, so_h};
   return moss::decode::launch<false>(dtype, D, a, B, Hkv, stream);
 }

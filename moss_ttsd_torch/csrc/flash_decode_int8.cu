@@ -47,7 +47,7 @@ extern "C" int moss_flash_decode_int8(
     long long so_h, void* stream) {
   const moss::decode::Args a{
       q, kq, vq, ks, vs, valid, extent, extent_scalar, out, S, G, scale,
-      chunk, n_split, ws_acc, ws_ml, counters, sq_b, sq_h, sk_b, sk_h, sk_s,
+      chunk, n_split, ws_acc, ws_ml, counters, 0, sq_b, sq_h, sk_b, sk_h, sk_s,
       sv_b, sv_h, sv_s, sks_b, sks_h, svs_b, svs_h, sval_b, so_b, so_h};
   return moss::decode::launch<true>(dtype, D, a, B, Hkv, stream);
 }

@@ -5,7 +5,10 @@
 //
 // Contract (the same as the TPU kernel's): q (B, T, H, D); k/v (B, T, Hkv, D)
 // with D contiguous; key_valid (B, T) bool masks left padding; query t sees
-// keys s <= t that are valid. Out (B, T, H, D) in q's type. Online softmax in
+// keys s <= t that are valid, and with a window W > 0 (an AFMoE sliding
+// layer; the TPU kernel has none) only those with s > t - W: each kernel is
+// instantiated apart for it (WIN), starts at the first key tile the window
+// reaches and masks the window's edge with the causal one. Out (B, T, H, D) in q's type. Online softmax in
 // fp32 over key tiles; a query row with no valid key (a left-padded row)
 // comes out as 0, finite.
 //
@@ -64,7 +67,7 @@ constexpr size_t simt_smem_bytes() {
                           (size_t)BKP * D + (size_t)BQ * (BKP + 1));
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -73,7 +76,8 @@ prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     long long sq_t, long long sq_h, long long sk_b,
                     long long sk_t, long long sk_h, long long sv_b,
                     long long sv_t, long long sv_h, long long sval_b,
-                    long long so_b, long long so_t, long long so_h) {
+                    long long so_b, long long so_t, long long so_h,
+                    int window) {
   constexpr int QROW = D + 1;
   constexpr int KROW = D + 1;
   constexpr int PROW = BKP + 1;
@@ -113,7 +117,9 @@ prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int kmax = min(T_len, q0 + BQ);     // causal limit of this q tile
-  for (int k0 = 0; k0 < kmax; k0 += BKP) {
+  // the window's first key tile (the tile of key q0 - W + 1)
+  const int kfirst = WIN ? max(0, q0 - window + 1) / BKP * BKP : 0;
+  for (int k0 = kfirst; k0 < kmax; k0 += BKP) {
     __syncthreads();          // Q loaded / previous tile fully consumed
     for (int i = tid; i < BKP * D; i += THREADS) {
       const int r = i / D, d = i % D;
@@ -153,7 +159,8 @@ prefill_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int kj = k0 + tx + 8 * j;
-        const bool ok = kj <= qi && kj < T_len && validb[kj] != 0;
+        const bool ok = kj <= qi && kj < T_len && validb[kj] != 0 &&
+                        (!WIN || kj > qi - window);
         s[i][j] = ok ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -240,7 +247,7 @@ __device__ __forceinline__ void load_tile_async(uint8_t* dst,
   }
 }
 
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(WG)
 prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -251,7 +258,7 @@ prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                      long long sq_h, long long sk_b, long long sk_t,
                      long long sk_h, long long sv_b, long long sv_t,
                      long long sv_h, long long sval_b, long long so_b,
-                     long long so_t, long long so_h) {
+                     long long so_t, long long so_h, int window) {
   constexpr int NP = D / 64;           // 64-column panels per row
   constexpr int TILE = NP * PANEL;
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
@@ -273,9 +280,11 @@ prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * sv_b + hk * sv_h;
   const uint8_t* validb = valid + b * sval_b;
 
+  // key tiles j0 .. qt: the causal limit, and the window's first tile
+  const int j0 = WIN ? max(0, q0 - window + 1) / TK : 0;
   load_tile_async<D>(Qs, qb, sq_t, q0, T_len, tid);
-  load_tile_async<D>(Ks, kb, sk_t, 0, T_len, tid);
-  load_tile_async<D>(Vs, vb, sv_t, 0, T_len, tid);
+  load_tile_async<D>(Ks, kb, sk_t, j0 * TK, T_len, tid);
+  load_tile_async<D>(Vs, vb, sv_t, j0 * TK, T_len, tid);
   sm90::cp_async_commit();
 
   // accumulator fragment: this thread holds rows rw + 8 * v1 (v1 = 0, 1) and
@@ -290,9 +299,9 @@ prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   float m_r[2] = {NEG_INF, NEG_INF};   // running max (log2 domain)
   float l_r[2] = {0.f, 0.f};           // this thread's share of the row sum
 
-  const int ntiles = qt + 1;           // causal limit: tiles 0 .. qt
-  for (int j = 0; j < ntiles; ++j) {
-    const int st = j & 1;
+  const int ntiles = qt + 1;           // causal limit: tiles j0 .. qt
+  for (int j = j0; j < ntiles; ++j) {
+    const int st = (j - j0) & 1;
     if (j + 1 < ntiles) {
       load_tile_async<D>(Ks + (st ^ 1) * TILE, kb, sk_t, (j + 1) * TK, T_len,
                          tid);
@@ -340,7 +349,9 @@ prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int v0 = 0; v0 < 2; ++v0) {
           const int i = 4 * jj + 2 * v1 + v0;
-          const bool ok = kv_ok[2 * jj + v0] && k0 + 8 * jj + cq + v0 <= row;
+          const int c = k0 + 8 * jj + cq + v0;
+          const bool ok = kv_ok[2 * jj + v0] && c <= row &&
+                          (!WIN || c > row - window);
           s[i] = ok ? s[i] * scale_log2 : -INFINITY;
           mx = fmaxf(mx, s[i]);
         }
@@ -427,16 +438,16 @@ int smem_cap_once(K kern, size_t smem, bool& done) {
   return 0;
 }
 
-template <int D>
+template <int D, bool WIN>
 int launch_simt(const void* q, const void* k, const void* v,
                 const uint8_t* valid, void* out, int B, int T_len, int H,
                 int G, float scale, long long sq_b, long long sq_t,
                 long long sq_h, long long sk_b, long long sk_t, long long sk_h,
                 long long sv_b, long long sv_t, long long sv_h,
                 long long sval_b, long long so_b, long long so_t,
-                long long so_h, cudaStream_t stream) {
+                long long so_h, int window, cudaStream_t stream) {
   const size_t smem = simt_smem_bytes<D>();
-  auto kern = prefill_simt_kernel<D>;
+  auto kern = prefill_simt_kernel<D, WIN>;
   static bool cap = false;
   if (const int e = smem_cap_once(kern, smem, cap)) return e;
   dim3 grid((T_len + BQ - 1) / BQ, H, B);
@@ -444,22 +455,23 @@ int launch_simt(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), valid, static_cast<float*>(out), T_len, G,
       scale, sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, sval_b,
-      so_b, so_t, so_h);
+      so_b, so_t, so_h, window);
   const int e = (int)cudaGetLastError();
   kernel_launches[0] += e == 0;
   return e;
 }
 
-template <int D>
+template <int D, bool WIN>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const uint8_t* valid, void* out, int B, int T_len, int H,
                  int G, float scale, long long sq_b, long long sq_t,
                  long long sq_h, long long sk_b, long long sk_t,
                  long long sk_h, long long sv_b, long long sv_t,
                  long long sv_h, long long sval_b, long long so_b,
-                 long long so_t, long long so_h, cudaStream_t stream) {
+                 long long so_t, long long so_h, int window,
+                 cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes<D>();
-  auto kern = prefill_wgmma_kernel<D>;
+  auto kern = prefill_wgmma_kernel<D, WIN>;
   static bool cap = false;
   if (const int e = smem_cap_once(kern, smem, cap)) return e;
   dim3 grid((T_len + TQ - 1) / TQ, H, B);
@@ -469,7 +481,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v), valid,
       static_cast<__nv_bfloat16*>(out), T_len, G, scale * 1.4426950408889634f,
       sq_b, sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, sval_b, so_b,
-      so_t, so_h);
+      so_t, so_h, window);
   const int e = (int)cudaGetLastError();
   kernel_launches[1] += e == 0;
   return e;
@@ -479,6 +491,8 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (SIMT kernel, D in {16, 32, 64, 128}), 1 = bfloat16
 // (wgmma kernel, D in {64, 128}); no dtype falls back to the other kernel.
+// window: 0 = every earlier key (the causal attention of the TPU kernel),
+// W > 0 = keys s with t - W < s <= t.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unsupported dtype / head_dim.
 extern "C" int moss_flash_prefill(
@@ -487,13 +501,18 @@ extern "C" int moss_flash_prefill(
     float scale, long long sq_b, long long sq_t, long long sq_h,
     long long sk_b, long long sk_t, long long sk_h, long long sv_b,
     long long sv_t, long long sv_h, long long sval_b, long long so_b,
-    long long so_t, long long so_h, void* stream) {
+    long long so_t, long long so_h, int window, void* stream) {
   if (T_len <= 0 || B <= 0) return 0;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MOSS_PREFILL(FN, DD)                                                 \
-  return FN<DD>(q, k, v, valid, out, B, T_len, H, G, scale, sq_b, sq_t, sq_h, \
-                sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, sval_b, so_b, so_t, so_h, \
-                st)
+  return window > 0                                                          \
+      ? FN<DD, true>(q, k, v, valid, out, B, T_len, H, G, scale, sq_b, sq_t, \
+                     sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, sval_b, so_b, \
+                     so_t, so_h, window, st)                                 \
+      : FN<DD, false>(q, k, v, valid, out, B, T_len, H, G, scale, sq_b,      \
+                      sq_t, sq_h, sk_b, sk_t, sk_h, sv_b, sv_t, sv_h, sval_b, \
+                      so_b, so_t, so_h, 0, st)
   if (dtype == 0) {
     switch (D) {
       case 16: MOSS_PREFILL(launch_simt, 16);

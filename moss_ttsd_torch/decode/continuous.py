@@ -119,6 +119,8 @@ class ContinuousBatcher:
                  restricted_text_head: Optional[bool] = None,
                  lora: Optional[LoraRegistry] = None,
                  ablate: frozenset = frozenset()):
+        cfg.refuse_afmoe("the continuous pool", "its ring slots are not in "
+                         "time order, so a window over slots would be wrong")
         unknown = set(ablate) - set(ABLATE_COMPONENTS)
         if unknown:
             raise ValueError(f"unknown pool components {sorted(unknown)} "

@@ -59,7 +59,7 @@ from ..ops.sampling import (ChannelParams, apply_repetition_penalty,
                             presence_from_history, sample_from_channel,
                             scatter_presence)
 from ..parallel.mesh import batch_spec, shard_params
-from ..utils.profiling import metrics, span
+from ..utils.profiling import metrics, profiler_on, span
 from .lora_registry import LoraRegistry
 from .step_graph import StepGraphs, hold
 
@@ -148,6 +148,8 @@ def channel_logits(text_logits, speech_logits, presence_text,
 
 
 ATTN_IMPLS = ("mixed", "pallas", "xla")
+# the AFMoE block's device counters, in the order of ``AsteroidLM.moe_counts``
+MOE_COUNTERS = ("moe_pairs_held", "moe_experts_read", "moe_calls")
 
 
 def _check_policies(cfg: LMConfig) -> None:
@@ -165,6 +167,11 @@ def _check_policies(cfg: LMConfig) -> None:
                          f"(choices: {', '.join(ATTN_IMPLS)})")
     if cfg.kv_quant not in ("none", "int8"):
         raise ValueError(f"unknown kv_quant mode {cfg.kv_quant!r}")
+    if cfg.attn_impl == "xla":
+        cfg.refuse_afmoe('attn_impl="xla"', "the dense backend's masks "
+                         "have no window")
+    if cfg.kv_quant == "int8":
+        cfg.refuse_afmoe("the int8 KV cache")
 
 
 class GenerationEngine:
@@ -194,6 +201,17 @@ class GenerationEngine:
     ``cfg.lora_rank`` > 0 config serves its own ``lora_a`` / ``lora_b``
     factors layerwise (JAX ``LoRADense``); int8 serving drops them, as the
     JAX engine does.
+
+    The AFMoE block (``cfg.block_type == "afmoe"``) runs here, with the
+    captured step past the teacher-forcing window; it refuses int8 weights
+    or cache, LoRA voices, a tensor-parallel mesh and the dense backend.
+    Its expert layers' device counters are read back with each request's
+    tokens and published as ``moe_pairs_held``, ``moe_experts_read`` and
+    ``moe_calls`` (``utils/profiling.metrics``); their growth over the
+    decode steps that ran under a ``torch.profiler`` session goes to
+    ``moe_pairs_held_traced``, ``moe_experts_read_traced`` and
+    ``moe_calls_traced`` too, so a trace's expert kernels and their
+    counted work come from the same calls.
 
     ``mesh`` (``parallel/mesh.Mesh``): tensor-parallel weights over its
     "model" axis (the full weights are cast, quantized and then sharded;
@@ -250,12 +268,15 @@ class GenerationEngine:
         self.lora = LoraRegistry(
             self.cache_dtype, cfg.num_hidden_layers, self.device,
             shard=None if self.tp is None else self.tp.shard_lora)
+        self._moe_read = torch.zeros(3, dtype=torch.int64)  # last published
+        self._moe_traced_from: Optional[torch.Tensor] = None
 
     def register_adapter(self, name: str, lora: dict, alpha: float = 32.0,
                          use_rslora: bool = True) -> int:
         """Register a LoRA adapter for per-row serving; returns its id (see
         ``LoraRegistry.register`` for the tree formats and the scale).
         Register every adapter before serving traffic."""
+        self.cfg.refuse_afmoe("LoRA adapters")
         return self.lora.register(name, lora, alpha, use_rslora)
 
     def _adapter_operands(self, adapter, batch: int,
@@ -576,9 +597,53 @@ class GenerationEngine:
                 live = self._any(st.unfinished)
             if not live:
                 break
+            self._note_traced_moe()
             with span("engine.step"):
                 self._step(st, base, gen, adapters)
+        self._note_traced_moe()
         return st
+
+    def _note_traced_moe(self) -> None:
+        """The expert counters at the start and at the end of a profiler
+        session's steps (a copy of three ints after the loop's own sync,
+        made only when the session starts or has ended): their growth in
+        between is published as ``moe_*_traced``."""
+        if self.model.moe_counts is None:
+            return
+        on = profiler_on()
+        if on == (self._moe_traced_from is not None):
+            return
+        now = self._publish_moe_counts()
+        if on:
+            self._moe_traced_from = now
+            return
+        for name, d in zip(MOE_COUNTERS, (now - self._moe_traced_from
+                                          ).tolist()):
+            metrics.add(f"{name}_traced", d)
+        self._moe_traced_from = None
+
+    def _publish_moe_counts(self, now: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+        """The expert counters (read now unless given): each one's growth
+        since the last read goes to the registry. Returns them."""
+        if now is None:
+            now = self.model.moe_counts.to("cpu", copy=True)
+        for name, d in zip(MOE_COUNTERS, (now - self._moe_read).tolist()):
+            metrics.add(name, d)
+        self._moe_read = now
+        return now
+
+    def _with_moe_counts(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` copied to the host, with the expert layers' device
+        counters in the same copy (no sync of their own) when the model
+        has them; each counter's growth since the last read goes to the
+        registry."""
+        counts = self.model.moe_counts
+        if counts is None:
+            return x.cpu()
+        flat = torch.cat([x.reshape(-1), counts.to(x.dtype)]).cpu()
+        self._publish_moe_counts(flat[-3:].to(torch.int64))
+        return flat[:-3].reshape(x.shape)
 
     def _any(self, flags: torch.Tensor) -> bool:
         if self.mesh is None:
@@ -668,7 +733,8 @@ class GenerationEngine:
         t1 = time.perf_counter()
         st = self.run(st, base, max_steps, gen, ad)
         with span("engine.readback"):
-            tokens = self._gather(st.tokens[:, :base + st.step]).cpu().numpy()
+            tokens = self._with_moe_counts(
+                self._gather(st.tokens[:, :base + st.step])).numpy()
             audit = None
             if self._audit_on():
                 audit = tuple(int(v) for v in self._data_sum(
@@ -724,7 +790,7 @@ class GenerationEngine:
                 if audit_on:
                     parts.append(self._data_sum(
                         torch.stack([st.audit_rows, st.audit_flagged])))
-                vals = torch.cat(parts).cpu().numpy()
+                vals = self._with_moe_counts(torch.cat(parts)).numpy()
                 n_new = B * (steps - done) * C
                 host[:, base + done:base + steps] = vals[:n_new].reshape(
                     B, steps - done, C)

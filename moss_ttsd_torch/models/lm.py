@@ -5,7 +5,8 @@ adapters for serving, the training forward).
   * 8 embedding tables summed into one hidden stream (``embed``);
   * Qwen3 blocks: RMSNorm, GQA attention with per-head q/k RMSNorm + RoPE,
     SwiGLU MLP; ``attention_bias`` puts a bias on q/k/v and o_proj;
-  * 8 LM heads tied to their embedding tables, fp32 logits (``logits_all``),
+  * 8 LM heads tied to their embedding tables (or untied), fp32 logits
+    (``logits_all``),
     optionally over the restricted text-head window only;
   * a static head-major KV cache (L, B, Hkv, S, D) written in place, in the
     compute dtype or int8 with per-head-per-token fp32 scales.
@@ -45,6 +46,17 @@ Bench-only stubs (``bench_full.py`` reads them in JAX; ``chip_smoke.py``
 on the card): ``cfg.ablate_norms`` makes every RMSNorm ``x * w``,
 ``cfg.ablate_rope`` skips the q/k rotations, ``cfg.ablate_attention`` sets
 the cached forward's attention output to q (the cache writes stay).
+
+``cfg.block_type == "afmoe"`` (the port only; arcee-ai's Trinity) builds
+every layer as an ``AFMoEBlock``: gated attention with sandwich norms,
+RoPE and a window (``cfg.layer_window``) in the sliding layers only, and a
+dense SwiGLU in the first ``cfg.num_dense_layers`` or else a ``MoE`` of the
+experts held here (``ops/moe.py``: routed on the device, one grouped
+kernel a decode call); ``cfg.mup_enabled`` scales the summed embeddings by
+sqrt(hidden); ``cfg.tie_word_embeddings`` False gives the eight heads
+tables of their own (``head_text``, ``head_speech``). The expert block
+serves through the static engine only (``GenerationEngine``); the paths
+that do not run it refuse it (``LMConfig.refuse_afmoe``).
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from ..core.device import DeviceLike, resolve_device, torch_dtype
 from ..ops.attention import causal_mask, gqa_attention, gqa_attention_hs
 from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
                                    flash_prefill)
+from ..ops.moe import moe_experts, route
 from ..ops.quantize import quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..utils.convert_lora import lora_scale
@@ -322,6 +335,143 @@ class Qwen3Block(nn.Module):
         return gqa_attention_hs(q, kv[0], kv[1], mask, scale)
 
 
+class MoE(nn.Module):
+    """The AFMoE block's expert MLP: a shared SwiGLU of ``num_shared_experts``
+    x ``moe_intermediate_size`` that every token runs, plus the routed
+    experts held here, ``cfg.num_experts`` of the router's
+    ``cfg.router_width`` from ``cfg.expert_offset``, stored as the grouped
+    kernel reads them: ``gate_proj`` / ``up_proj`` (E, I, H) and
+    ``down_proj`` (E, H, I). The router (``router``, ``expert_bias``)
+    routes over all of them; pairs routed to experts held elsewhere are
+    dropped (on one chip the exchange that would add them is left out).
+    ``counts``, set by the model, gains each decode call's pairs, experts
+    read and call (``ops/moe.py``)."""
+
+    def __init__(self, cfg: LMConfig):
+        super().__init__()
+        c = cfg
+        hid, I, E = c.hidden_size, c.moe_intermediate_size, c.num_experts
+        self.cfg = cfg
+        self.router = Dense(hid, c.router_width)
+        self.expert_bias = nn.Parameter(torch.zeros(c.router_width))
+        self.gate_proj = nn.Parameter(torch.empty(E, I, hid))
+        self.up_proj = nn.Parameter(torch.empty(E, I, hid))
+        self.down_proj = nn.Parameter(torch.empty(E, hid, I))
+        width = c.num_shared_experts * I
+        self.shared = (SwiGLU(hid, width) if width else None)
+        self.counts: Optional[torch.Tensor] = None
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        B, T, H = h.shape
+        x = h.reshape(B * T, H)
+        with label("lm.moe.route"):
+            idx, w = route(x, self.router.weight, self.expert_bias,
+                           c.num_experts_per_tok, c.route_scale, c.route_norm)
+        with label("lm.moe.experts"):
+            y = moe_experts(x, idx, w, self.gate_proj, self.up_proj,
+                            self.down_proj, c.expert_offset,
+                            self.counts if T == 1 else None)
+        y = y.reshape(B, T, H)
+        return y if self.shared is None else self.shared(h) + y
+
+
+class SwiGLU(nn.Module):
+    """down(silu(gate h) * up h), the dense MLP of the AFMoE block."""
+
+    def __init__(self, hid: int, width: int):
+        super().__init__()
+        self.gate_proj = Dense(hid, width)
+        self.up_proj = Dense(hid, width)
+        self.down_proj = Dense(width, hid)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+
+
+class AFMoEBlock(nn.Module):
+    """One AFMoE decoder layer (arcee-ai's Trinity, HF ``afmoe``):
+
+        h = input_ln(x); q, k, v = proj(h), q and k RMSNormed per head, RoPE
+        in a sliding layer only (a full layer has no position encoding);
+        x += post_attn_ln(o_proj(attn(q, k, v) * sigmoid(g_proj(h))));
+        x += post_mlp_ln(mlp(pre_mlp_ln(x)))
+
+    with the attention over keys in (p - window, p] in a sliding layer
+    (``cfg.layer_window``), and ``mlp`` a ``SwiGLU`` of intermediate_size
+    in the first ``num_dense_layers`` layers, a ``MoE`` after them. It runs
+    only over the static engine's contiguous cache (slot order is time
+    order, so a window over slots is exact): prefill through
+    ``flash_prefill`` and decode through ``flash_decode_hs``, each with the
+    layer's window; the cache-free (training) forward refuses it."""
+
+    def __init__(self, cfg: LMConfig, layer: int):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        H, Hkv, D = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        self.heads, self.kv_heads = H, Hkv
+        self.window = c.layer_window(layer)
+        hid = c.hidden_size
+
+        def norm(dim):
+            return RMSNorm(dim, c.rms_norm_eps, ablate=c.ablate_norms)
+
+        self.input_ln = norm(hid)
+        self.q_proj = Dense(hid, H * D, c.attention_bias)
+        self.k_proj = Dense(hid, Hkv * D, c.attention_bias)
+        self.v_proj = Dense(hid, Hkv * D, c.attention_bias)
+        self.g_proj = Dense(hid, H * D)
+        self.o_proj = Dense(H * D, hid, c.attention_bias)
+        self.q_norm = norm(D)
+        self.k_norm = norm(D)
+        self.post_attn_ln = norm(hid)
+        self.pre_mlp_ln = norm(hid)
+        self.post_mlp_ln = norm(hid)
+        self.mlp = (MoE(c) if c.is_moe_layer(layer)
+                    else SwiGLU(hid, c.intermediate_size))
+
+    def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
+                cache_pos: Union[int, torch.Tensor], key_valid: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                write_gate: Optional[torch.Tensor] = None,
+                read_extent: Optional[torch.Tensor] = None,
+                adapters: Optional[dict] = None, seq=None):
+        if cache is None:
+            self.cfg.refuse_afmoe("the cache-free forward")
+        H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
+        B, T, _ = x.shape
+        W = self.window
+        h = self.input_ln(x)
+        q = self.q_norm(self.q_proj(h).reshape(B, T, H, D))
+        k = self.k_norm(self.k_proj(h).reshape(B, T, Hkv, D))
+        v = self.v_proj(h).reshape(B, T, Hkv, D)
+        if W and not self.cfg.ablate_rope:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        scale = D ** -0.5
+        dev_pos = isinstance(cache_pos, torch.Tensor)
+        for name, new in (("k", k), ("v", v)):
+            dst = cache[name][layer_idx]
+            new = new.transpose(1, 2).to(dst.dtype)
+            if dev_pos:
+                dst.index_copy_(2, cache_pos.reshape(1), new)
+            else:
+                dst[:, :, cache_pos:cache_pos + T].copy_(new)
+        if T > 1:
+            attn = flash_prefill(q, k, v, key_valid[:, :T], scale, window=W)
+        else:
+            ext = read_extent
+            if ext is None:
+                ext = (slot_extent(cache_pos, B) if dev_pos
+                       else cache_pos + 1)
+            attn = flash_decode_hs(q, cache["k"], cache["v"], key_valid,
+                                   scale, extent=ext, layer=layer_idx,
+                                   window=W)
+        gated = attn.reshape(B, T, H * D) * torch.sigmoid(self.g_proj(h))
+        x = x + self.post_attn_ln(self.o_proj(gated))
+        return x + self.post_mlp_ln(self.mlp(self.pre_mlp_ln(x)))
+
+
 def _write(dst: torch.Tensor, new: torch.Tensor,
            gate: Optional[torch.Tensor]) -> None:
     """In-place cache write of one sliver (B, Hkv, T[, D]); rows with a
@@ -360,6 +510,8 @@ class AsteroidLM(nn.Module):
     def __init__(self, cfg: LMConfig, tp=None):
         super().__init__()
         c = cfg
+        if tp is not None:
+            c.refuse_afmoe("a tensor-parallel mesh")
         self.cfg = cfg
         self.tp = tp
         v0, v1 = (0, c.vocab_size) if tp is None else tp.vocab
@@ -376,9 +528,20 @@ class AsteroidLM(nn.Module):
         else:
             self.embed_text = nn.Parameter(torch.empty(text))
             self.embed_speech = nn.Parameter(torch.empty(speech))
-        self.layers = nn.ModuleList(Qwen3Block(c, tp)
-                                    for _ in range(c.num_hidden_layers))
+        if not c.tie_word_embeddings:
+            if c.quantized or tp is not None:
+                raise ValueError("untied heads are served unquantized on one "
+                                 "model rank")
+            self.head_text = nn.Parameter(torch.empty(text))
+            self.head_speech = nn.Parameter(torch.empty(speech))
+        if c.afmoe:
+            self.layers = nn.ModuleList(AFMoEBlock(c, i)
+                                        for i in range(c.num_hidden_layers))
+        else:
+            self.layers = nn.ModuleList(Qwen3Block(c, tp)
+                                        for _ in range(c.num_hidden_layers))
         self.kv_heads = self.layers[0].kv_heads if self.layers else 0
+        self.moe_counts: Optional[torch.Tensor] = None
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps,
                                   ablate=c.ablate_norms)
 
@@ -390,8 +553,10 @@ class AsteroidLM(nn.Module):
         asks for the CPU; no card raises) from a seeded generator:
         embeddings N(0, 0.02), projections N(0, 1/fan_in), norms 1, biases 0,
         LoRA factors ``lora_a`` N(0, 0.02) and ``lora_b`` 0 (the JAX init's
-        scales; the draws differ). Float weights: an int8 model is quantized
-        from them (``GenerationEngine(quant="int8")``)."""
+        scales; the draws differ); the AFMoE block's untied heads and
+        experts N(0, 1/fan_in) too, its ``expert_bias`` N(0, 0.05) (so that
+        the bias moves some choices). Float weights: an int8 model is
+        quantized from them (``GenerationEngine(quant="int8")``)."""
         device = resolve_device(device)
         dtype = dtype or torch_dtype(cfg.param_dtype)
         with torch.device(device):
@@ -405,8 +570,11 @@ class AsteroidLM(nn.Module):
                     p.fill_(1.0)
                 elif name.endswith(".bias") or name.endswith(".lora_b"):
                     p.zero_()
-                else:
-                    p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+                elif name.endswith(".expert_bias"):
+                    p.normal_(0.0, 0.05, generator=gen)
+                else:       # (out, in), or an expert stack (E, out, in)
+                    p.normal_(0.0, 1.0 / math.sqrt(p.shape[-1]),
+                              generator=gen)
         return model.eval().requires_grad_(False)
 
     # -- embeddings ----------------------------------------------------------
@@ -435,7 +603,10 @@ class AsteroidLM(nn.Module):
         x = self._text_rows(ids[0], lambda i: F.embedding(i, self.embed_text))
         for i in range(1, c.channels):
             x = x + F.embedding(ids[i], self.embed_speech[i - 1])
-        return x.to(dtype)
+        x = x.to(dtype)
+        if c.mup_enabled:                   # the muP input scale
+            x = x * math.sqrt(c.hidden_size)
+        return x
 
     def _text_rows(self, ids: torch.Tensor, lookup) -> torch.Tensor:
         """``lookup`` of the clamped text ids; vocab-parallel: each rank
@@ -490,6 +661,8 @@ class AsteroidLM(nn.Module):
             raise ValueError("ring-addressed writes are decode-only (T 1)")
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
         mask = None
+        if c.afmoe and c.num_experts:
+            self._attach_counts(x.device)
         if cache is None:
             # each query's global position against all of the row's keys
             S = key_valid.shape[1]
@@ -533,7 +706,19 @@ class AsteroidLM(nn.Module):
                      else layer(*args))
         return self.final_norm(x), cache
 
-    # -- tied heads ----------------------------------------------------------
+    def _attach_counts(self, device: torch.device) -> None:
+        """The expert layers' device counters ``moe_counts`` (held pairs,
+        experts read, calls; ``ops/moe.py``), made on the first forward on
+        ``device`` (eager: a capture finds them made) and shared by every
+        ``MoE`` layer."""
+        if self.moe_counts is not None and self.moe_counts.device == device:
+            return
+        self.moe_counts = torch.zeros(3, dtype=torch.int64, device=device)
+        for layer in self.layers:
+            if isinstance(layer.mlp, MoE):
+                layer.mlp.counts = self.moe_counts
+
+    # -- heads (tied to the tables, or their own) ----------------------------
 
     def logits_all(self, hidden: torch.Tensor, restricted: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -557,12 +742,18 @@ class AsteroidLM(nn.Module):
             s = (matmul_f32_out(h, w.t())
                  * self.embed_speech_s.reshape(Cm1 * Vs).float())
         else:
-            s = matmul_f32_out(h, self.embed_speech.reshape(Cm1 * Vs, Hd).t())
+            table = (self.embed_speech if c.tie_word_embeddings
+                     else self.head_speech)
+            s = matmul_f32_out(h, table.reshape(Cm1 * Vs, Hd).t())
         return t, s.reshape(*lead, Cm1, Vs)
+
+    def _text_table(self) -> torch.Tensor:
+        return (self.embed_text if self.cfg.tie_word_embeddings
+                else self.head_text)
 
     def _head_input(self, hidden: torch.Tensor) -> torch.Tensor:
         dtype = (torch_dtype(self.cfg.dtype) if self.cfg.quantized
-                 else self.embed_text.dtype)
+                 else self._text_table().dtype)
         return hidden.to(dtype).reshape(-1, hidden.shape[-1])
 
     def _text_head(self, hidden: torch.Tensor, lo: int, hi: int
@@ -587,7 +778,7 @@ class AsteroidLM(nn.Module):
         if self.cfg.quantized:
             w = self.embed_text_q[a:b].to(h.dtype)
             return matmul_f32_out(h, w.t()) * self.embed_text_s[a:b, 0].float()
-        return matmul_f32_out(h, self.embed_text[a:b].t())
+        return matmul_f32_out(h, self._text_table()[a:b].t())
 
     def text_logits_outside_max(self, hidden: torch.Tensor) -> torch.Tensor:
         """Max channel-0 logit outside the restricted-head window — the

@@ -16,6 +16,13 @@ Ports the three TPU kernels of ``moss_ttsd_tpu/ops/pallas_attention.py``:
                                decodes are ``csrc/decode_split.cuh``'s
                                kernel over their cache type).
 
+``flash_prefill`` and ``flash_decode_hs`` take a ``window`` W (the AFMoE
+block's sliding layers; the TPU kernels have none): a query at position i
+sees the keys j with i - W < j <= i, and a decode row the slots [extent -
+W, extent). 0 keeps every earlier key, the kernels' instantiations of
+before. The same build holds ``csrc/moe_experts.cu``, the AFMoE block's
+grouped expert product (``ops/moe.py``).
+
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain PyTorch version beside it, which is also the
 kernel's oracle on the card. Both compute the softmax in fp32, round the
@@ -59,7 +66,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"flash_prefill": "flash_prefill.cu",
            "flash_decode": "flash_decode.cu",
-           "flash_decode_int8": "flash_decode_int8.cu"}
+           "flash_decode_int8": "flash_decode_int8.cu",
+           "moe_experts": "moe_experts.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
 PREFILL_BF16_HEAD_DIMS = (64, 128)   # the wgmma kernel's 128-byte panels
 DECODE_TILE = 64                     # flash_decode.cu key slots per tile
@@ -177,13 +185,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     if name == "flash_prefill":
         fn = lib.moss_flash_prefill
-        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F] + [LL] * 13 + [P]
+        fn.argtypes = [I, P, P, P, P, P, I, I, I, I, I, F] + [LL] * 13 + [I, P]
         lib.moss_flash_prefill_kernel_launches.argtypes = [I]
         lib.moss_flash_prefill_kernel_launches.restype = LL
     elif name == "flash_decode":
         fn = lib.moss_flash_decode
         fn.argtypes = ([I, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I, P, P, P]
-                       + [LL] * 11 + [P])
+                       + [LL] * 11 + [I, P])
+    elif name == "moe_experts":
+        fn = lib.moss_moe_experts
+        fn.argtypes = [I] + [P] * 10 + [I] * 5 + [LL] * 3 + [P]
+        grouped = lib.moss_moe_experts_grouped
+        grouped.argtypes = [I] + [P] * 12 + [I] * 5 + [LL] * 3 + [P]
+        grouped.restype = I
     else:
         fn = lib.moss_flash_decode_int8
         fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I,
@@ -232,20 +246,24 @@ def _check_rows_16b(t: torch.Tensor, what: str, name: str) -> None:
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: torch.Tensor, scale: float,
                         out_dtype: Optional[torch.dtype] = None,
-                        p_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        p_dtype: Optional[torch.dtype] = None,
+                        window: int = 0) -> torch.Tensor:
     """Plain version of ``flash_prefill``: dense causal masked softmax in
     fp32 from the same inputs. ``out_dtype`` defaults to q.dtype (fp32 keeps
     the unrounded oracle). ``p_dtype`` rounds the probabilities to that
     dtype before the P.V product (the denominator sums them in fp32), as
-    the bf16 kernel and the TPU kernel's ``p.astype(v.dtype)`` do."""
+    the bf16 kernel and the TPU kernel's ``p.astype(v.dtype)`` do.
+    ``window`` > 0: query i sees keys j > i - window only."""
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     qf = q.float().reshape(B, T, Hkv, G, D)
     s = torch.einsum("bthgd,bshd->bhgts", qf, k.float()) * scale
     pos = torch.arange(T, device=q.device)
-    mask = (pos[None, :] <= pos[:, None])[None] & key_valid[:, None, :]
+    causal = pos[None, :] <= pos[:, None]
+    if window:
+        causal = causal & (pos[None, :] > pos[:, None] - window)
+    mask = causal[None] & key_valid[:, None, :]
     mask = mask[:, None, None]                              # (B,1,1,T,T)
     out = _masked_softmax_pv(s, mask, v.float(), "bhgts,bshd->bthgd",
                              p_dtype)
@@ -271,17 +289,21 @@ def _p_for_pv(p, vscale, p_dtype):
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  key_valid: torch.Tensor, scale: float) -> torch.Tensor:
+                  key_valid: torch.Tensor, scale: float,
+                  window: int = 0) -> torch.Tensor:
     """Causal GQA prefill attention.
 
     q (B, T, H, D); k/v (B, T, Hkv, D) (prefill writes cache slots [0, T));
-    key_valid (B, T) bool. Returns (B, T, H, D) in q.dtype. On the card,
+    key_valid (B, T) bool; ``window`` > 0: query i sees keys j > i - window
+    only. Returns (B, T, H, D) in q.dtype. On the card,
     bf16 runs the wgmma tensor-core kernel (head_dim 64 or 128, rows 16-byte
     aligned) and fp32 the SIMT kernel (head_dim in ``HEAD_DIMS``); any other
     bf16 shape raises."""
+    if window < 0:
+        raise ValueError(f"flash_prefill: window {window} < 0")
     if q.device.type != "cuda":
         return flash_prefill_plain(q, k, v, key_valid, scale,
-                                   p_dtype=q.dtype)
+                                   p_dtype=q.dtype, window=window)
     B, T, H, D = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or H % Hkv:
@@ -307,7 +329,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), key_valid.stride(0),
-        out.stride(0), out.stride(1), out.stride(2), stream)
+        out.stride(0), out.stride(1), out.stride(2), int(window), stream)
     _check_rc(rc, "flash_prefill")
     _count(flash_prefill)
     return out
@@ -328,14 +350,24 @@ def prefill_kernel_launches() -> Dict[str, int]:
 # Decode
 # ---------------------------------------------------------------------------
 
-def _extent_mask(extent, B: int, S: int, device) -> Optional[torch.Tensor]:
+def _extent_mask(extent, B: int, S: int, device,
+                 window: int = 0) -> Optional[torch.Tensor]:
+    """(B, S) slots below each row's extent (and, with a window, at or past
+    extent - window), or None: every slot."""
     if extent is None:
-        return None
+        if not window:
+            return None
+        extent = S
     pos = torch.arange(S, device=device)
     if isinstance(extent, torch.Tensor):
         ext = extent.to(device=device, dtype=torch.int64).reshape(-1)
-        return pos[None, :] < ext.expand(B)[:, None]
-    return (pos < int(extent))[None, :].expand(B, S)
+        ext = ext.expand(B)[:, None]
+    else:
+        ext = torch.full((B, 1), int(extent), device=device)
+    mask = pos[None, :] < ext
+    if window:
+        mask = mask & (pos[None, :] >= ext - window)
+    return mask
 
 
 def _extent_arg(extent, B: int, device, S: int, what: str):
@@ -431,18 +463,18 @@ class _SplitLaunch:
                          self.ws[parts * D:].data_ptr(), c.data_ptr())
 
 
-def _decode_scores(q, k, key_valid, scale, extent, ks=None):
+def _decode_scores(q, k, key_valid, scale, extent, ks=None, window=0):
     """(B, Hkv, G, S) fp32 scores of a single-query decode as the kernels
     form them, (q . k) * scale, or over an int8 cache (q . kq) *
-    (ks * scale); -inf at the slots that are not valid or lie at or past
-    the extent."""
+    (ks * scale); -inf at the slots that are not valid, lie at or past
+    the extent, or (a window) before extent - window."""
     B, _, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     qg = q[:, 0].float().reshape(B, Hkv, H // Hkv, D)
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
     s = s * scale if ks is None else s * (ks.float() * scale)[:, :, None, :]
     mask = key_valid
-    ext = _extent_mask(extent, B, S, q.device)
+    ext = _extent_mask(extent, B, S, q.device, window)
     if ext is not None:
         mask = mask & ext
     return s.masked_fill(~mask[:, None, None, :], float("-inf"))
@@ -461,8 +493,8 @@ def _softmax_sums(s, v, vscale, p_dtype):
 
 
 def _decode_dense(q, k, v, ks, vs, key_valid, scale, extent, p_dtype,
-                  out_dtype):
-    s = _decode_scores(q, k, key_valid, scale, extent, ks)
+                  out_dtype, window=0):
+    s = _decode_scores(q, k, key_valid, scale, extent, ks, window)
     vscale = None if vs is None else vs.float()[:, :, None, :]
     _, l, acc = _softmax_sums(s, v, vscale, p_dtype)
     out = acc / l.clamp_min(_L_FLOOR)[..., None]
@@ -470,14 +502,14 @@ def _decode_dense(q, k, v, ks, vs, key_valid, scale, extent, p_dtype,
 
 
 def _decode_split(q, k, v, ks, vs, key_valid, scale, extent, n_split, chunk,
-                  p_dtype, out_dtype):
+                  p_dtype, out_dtype, window=0):
     """The split-K kernel's arithmetic (see flash_decode_hs_split_plain),
     over a cache of q's type (ks = vs = None) or an int8 one."""
     S = k.shape[2]
     if chunk is None:
         tiles = -(-S // DECODE_TILE)
         chunk = -(-tiles // n_split) * DECODE_TILE
-    s = _decode_scores(q, k, key_valid, scale, extent, ks)
+    s = _decode_scores(q, k, key_valid, scale, extent, ks, window)
     vscale = None if vs is None else vs.float()[:, :, None, :]
     ms, ls, accs = [], [], []
     # a chunk past the capacity is empty: weight 0 in the merge, left out
@@ -502,17 +534,18 @@ def flash_decode_hs_plain(q: torch.Tensor, kt: torch.Tensor,
                           vt: torch.Tensor, key_valid: torch.Tensor,
                           scale: float, extent=None, layer=None,
                           out_dtype: Optional[torch.dtype] = None,
-                          p_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
+                          p_dtype: Optional[torch.dtype] = None,
+                          window: int = 0) -> torch.Tensor:
     """Plain version of ``flash_decode_hs``: dense masked softmax in fp32
-    over the slots below the extent. ``p_dtype`` rounds the probabilities
+    over the slots below the extent (at or past extent - ``window`` when
+    one is given). ``p_dtype`` rounds the probabilities
     to that dtype before the P.V product (the denominator sums them in
     fp32), as the bf16 kernel and the TPU kernel's ``p.astype(v.dtype)``
     do; None keeps them fp32."""
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
     return _decode_dense(q, kt, vt, None, None, key_valid, scale, extent,
-                         p_dtype, out_dtype)
+                         p_dtype, out_dtype, window)
 
 
 def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
@@ -521,10 +554,11 @@ def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
                                 n_split: int = 1,
                                 chunk: Optional[int] = None,
                                 out_dtype: Optional[torch.dtype] = None,
-                                p_dtype: Optional[torch.dtype] = None
-                                ) -> torch.Tensor:
+                                p_dtype: Optional[torch.dtype] = None,
+                                window: int = 0) -> torch.Tensor:
     """The split-K arithmetic of the ``flash_decode_hs`` kernel in plain
-    torch (for the tests and the card's checks): per chunk of ``chunk``
+    torch (for the tests and the card's checks), over the slots of
+    ``flash_decode_hs_plain``: per chunk of ``chunk``
     slots (default: the 64-slot tiles dealt evenly over ``n_split``) the
     running max m, denominator l and unnormalised sum acc (P rounded to
     ``p_dtype`` as in ``flash_decode_hs_plain``, against the chunk's max),
@@ -535,14 +569,15 @@ def flash_decode_hs_split_plain(q: torch.Tensor, kt: torch.Tensor,
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
     return _decode_split(q, kt, vt, None, None, key_valid, scale, extent,
-                         n_split, chunk, p_dtype, out_dtype)
+                         n_split, chunk, p_dtype, out_dtype, window)
 
 
 def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
                     key_valid: torch.Tensor, scale: float,
                     extent: Union[None, int, torch.Tensor] = None,
                     layer: Optional[int] = None,
-                    split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                    split: Optional[Tuple[int, int]] = None,
+                    window: int = 0) -> torch.Tensor:
     """Single-query GQA decode attention over the head-major cache.
 
     q (B, 1, H, D); kt/vt (B, Hkv, S, D), or the full (L, B, Hkv, S, D)
@@ -555,16 +590,20 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     ``decode_split_plan``'s; the fp32 partials go to a workspace allocated
     here, and the last block of each (row, kv-head) merges them in the same
     launch. On the CPU a given ``split`` runs the plain split arithmetic.
-    P is rounded to q's type before P.V, on the card and on the CPU."""
+    P is rounded to q's type before P.V, on the card and on the CPU.
+    ``window`` > 0: each row reads only the slots [extent - window,
+    extent)."""
+    if window < 0:
+        raise ValueError(f"flash_decode_hs: window {window} < 0")
     if layer is not None:
         kt, vt = kt[int(layer)], vt[int(layer)]
     if q.device.type != "cuda":
         if split is not None:
             return flash_decode_hs_split_plain(
                 q, kt, vt, key_valid, scale, extent, n_split=split[0],
-                chunk=split[1], p_dtype=q.dtype)
+                chunk=split[1], p_dtype=q.dtype, window=window)
         return flash_decode_hs_plain(q, kt, vt, key_valid, scale, extent,
-                                     p_dtype=q.dtype)
+                                     p_dtype=q.dtype, window=window)
     B, one, H, D = q.shape
     Hkv, S = kt.shape[1], kt.shape[2]
     if (one != 1 or kt.shape != (B, Hkv, S, D) or vt.shape != kt.shape
@@ -591,7 +630,7 @@ def flash_decode_hs(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         B, Hkv, G, S, D, float(scale), *sp.args, q.stride(0), q.stride(2),
         kt.stride(0), kt.stride(1), kt.stride(2),
         vt.stride(0), vt.stride(1), vt.stride(2), key_valid.stride(0),
-        out.stride(0), out.stride(2), stream)
+        out.stride(0), out.stride(2), int(window), stream)
     _check_rc(rc, "flash_decode_hs")
     _count(flash_decode_hs)
     return out
@@ -706,21 +745,35 @@ def flash_decode_int8_hs(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
 flash_decode_int8_hs.launches = 0
 
 _WRAPPERS = (flash_prefill, flash_decode_hs, flash_decode_int8_hs)
+# every counted wrapper: the attention ones and those of other modules whose
+# kernels are built here (count_launches)
+_COUNTED = list(_WRAPPERS)
+
+
+def count_launches(fn) -> None:
+    """Count the wrapper ``fn``'s launches as this module counts its own
+    (``fn.launches``, recorded in a capture and added by each replay): a
+    kernel of another module built here (``ops/moe.moe_experts``).
+    ``launch_counts`` stays the attention wrappers'."""
+    fn.launches = 0
+    if fn not in _COUNTED:
+        _COUNTED.append(fn)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
+    for fn in _COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
+    """The attention wrappers' launches."""
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
     """Add ``counts`` (by wrapper name) to the wrappers' counters: a CUDA
     graph's replay adds the calls it captured."""
-    for fn in _WRAPPERS:
+    for fn in _COUNTED:
         fn.launches += counts.get(fn.__name__, 0)
 
 

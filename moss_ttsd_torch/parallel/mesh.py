@@ -135,6 +135,7 @@ class Mesh:
         """The model axis's layout of ``cfg``'s LM, None without one."""
         if self.model == 1:
             return None
+        cfg.refuse_afmoe("a tensor-parallel mesh")
         return TensorParallel(cfg, self.model_rank, self.model, self)
 
     def sequence_parallel(self) -> Optional["SequenceParallel"]:

@@ -301,6 +301,7 @@ def make_train_step(cfg: LMConfig, optimizer: ClippedAdamW,
     clip, and the metrics are the global batch's. ``seq``
     (``parallel/mesh.SequenceParallel``): sequence parallelism; ``batch``
     is the data rank's whole rows and ``group`` spans data x seq."""
+    cfg.refuse_afmoe("the training step")
     del cfg     # the model carries its config; kept for the JAX signature
     if seq is not None and group is None:
         raise ValueError("a sequence-parallel step sums over a data x seq "
@@ -387,6 +388,7 @@ def init_train_state(cfg: LMConfig, optimizer: ClippedAdamW,
     """A full-finetune state: ``model`` (or a random one in
     ``cfg.param_dtype`` from ``seed`` on ``device``) with every parameter
     trainable, and the optimizer over all of them."""
+    cfg.refuse_afmoe("the training step")
     if model is None:
         model = AsteroidLM.init_random(cfg, seed=seed, device=device,
                                        dtype=torch_dtype(cfg.param_dtype))

@@ -46,6 +46,7 @@ def export_asteroid_state_dict(params, cfg: LMConfig,
     ``lm_heads.{i}.weight`` too, as the JAX exporter does. LoRA leaves are
     not exported: merge them first (``save_asteroid_checkpoint(lora=)``,
     ``train/lora.fold_lora_tree``)."""
+    cfg.refuse_afmoe("the reference (Qwen3-named) checkpoint format")
     p = params.state_dict() if isinstance(params, torch.nn.Module) \
         else params
     if "embed_text" not in p:
@@ -151,6 +152,7 @@ def load_asteroid_checkpoint(model_dir: str, cfg: LMConfig,
     ``pytorch_model*.bin`` (``torch.load(weights_only=True)``). Safetensors
     are read tensor by tensor, each cast once and moved to ``device`` as it
     is read; the tied heads and the inner ``embed_tokens`` are not read."""
+    cfg.refuse_afmoe("the reference (Qwen3-named) checkpoint format")
     sd: dict = {}
     st_files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
     if st_files:

@@ -20,7 +20,7 @@
     also opens a ``record_function`` of its name, so it lands in the
     session's trace over the operations it issued; otherwise that costs
     one flag test. ``label(name)`` is that profiler label alone, with no
-    span;
+    span; ``profiler_on()`` says whether such a session runs;
   * ``sanitize`` / ``assert_finite`` — NaN/Inf handling on tensors. The
     port runs eagerly, so ``assert_finite`` raises at once.
 """
@@ -79,6 +79,11 @@ def label(name: str):
     if _profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_LABEL
+
+
+def profiler_on() -> bool:
+    """Whether a ``torch.profiler`` session is recording."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 class _Thread(threading.local):
