@@ -195,6 +195,19 @@ Phases, each printing one JSON line:
      L B1, L x steps B2 and 3 x (steps + 1) expert calls, and a device
      trace of 8 replayed steps past the window with 3 decode expert
      kernels and L split-K decodes a step;
+ 17. w8a16    — the int8 weights' decode product (csrc/w8a16.cu) at the
+     int8-dialogue-b8 cell's shapes, 8 rows (q/o, k/v, gate/up, down of
+     MOSS-TTSD v0.5, the 152704-row text head, its restricted window and
+     the 7175-row speech heads): kernel ms over rotated weight sets (more
+     bytes than L2 holds), its byte bound, the plain version's ms (the
+     dequantized copy and cuBLAS), the largest error against the plain
+     version's weights in float64 within the fp32 sum's bound, and the
+     kernel's launch counter; the same grouped as the LM launches them
+     (q/k/v, gate/up); the int8 phase's runs count (4 L + 2) kernel
+     launches a decode step; then the many-row kernel (w8a16_gemm) at a
+     prefill's 8 x 640 rows: its ms against its FLOP bound, the plain
+     version's (copy and cuBLAS) and cuBLAS's bf16 GEMM over an already
+     dequantized weight (the bf16 model's product), the error likewise;
 then the ``kernels`` line (times, bounds, launches; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
@@ -1208,6 +1221,7 @@ def int8_pipeline_run(name, pipe, items):
     whole vocab is speech and the run must take all 256 steps; with it a
     row may stop on <|end_of_speech|>, so it must take at least C - 1 steps
     past the teacher-forcing window, and its audit must have counted rows."""
+    from moss_ttsd_torch.ops.w8a16 import w8a16_group
     texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items)
     cfg = pipe.lm_cfg
     C, L, steps = cfg.channels, cfg.num_hidden_layers, st["steps"]
@@ -1216,6 +1230,13 @@ def int8_pipeline_run(name, pipe, items):
             "flash_decode_int8_hs": 0}
     if counts != want:
         problems.append(f"launches {counts} != {want}")
+    # the w8a16 kernel: four launches a layer (q/k/v, o, gate/up, down)
+    # and one a head every step (an audit step's full-table probe one
+    # more); the prefill's rows none
+    products = w8a16_group.launches
+    if products < (4 * L + 2) * steps or (
+            not cfg.restricted_audit_every and products != (4 * L + 2) * steps):
+        problems.append(f"{products} w8a16 launches in {steps} steps")
     if not cfg.restricted_text_head and steps != 256:
         problems.append(f"decode ran {steps} of 256 steps")
     if cfg.restricted_text_head and steps < 2 * (C - 1):
@@ -1235,6 +1256,7 @@ def int8_pipeline_run(name, pipe, items):
             "host_syncs_per_step": count_syncs_per_step(
                 *decode_state(pipe, items)),
             "audit_rows_flagged": audit, "launches": counts,
+            "w8a16_launches": products,
             "ok": not problems, "problems": problems}
     emit(line)
     return line
@@ -1253,6 +1275,7 @@ def int8_phase(profile: bool = False):
     from moss_ttsd_torch.core.config import LMConfig
     from moss_ttsd_torch.decode.engine import GenerationEngine
     from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops.w8a16 import w8a16_group
     from moss_ttsd_torch.pipeline.batch import TTSPipeline
     from moss_ttsd_torch.utils.mock_tokenizer import MockTokenizer
 
@@ -1297,11 +1320,14 @@ def int8_phase(profile: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, st = fa.launch_counts(), eng.last_stats
+    products = w8a16_group.launches
     problems = []
     want = {"flash_prefill": L, "flash_decode_hs": 0,
             "flash_decode_int8_hs": L * steps}
     if counts != want:
         problems.append(f"launches {counts} != {want}")
+    if products != (4 * L + 2) * res.steps:
+        problems.append(f"{products} w8a16 launches in {res.steps} steps")
     if res.steps != steps:
         problems.append(f"decode ran {res.steps} of {steps} steps")
     gen = res.tokens[:, res.base:]
@@ -1322,7 +1348,8 @@ def int8_phase(profile: bool = False):
                                                 "int8", cache_bytes=1),
             "host_syncs_per_step": count_syncs_per_step(
                 *engine_state(eng, ids, mask, steps)),
-            "launches": counts, "replayed_steps": replayed,
+            "launches": counts, "w8a16_launches": products,
+            "replayed_steps": replayed,
             "ok": not problems, "problems": problems}
     emit(line)
     lines.append(line)
@@ -5647,12 +5674,176 @@ def afmoe_phase(steps: int = 1900):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the w8a16 decode product (int8-dialogue-b8's weights)
+# ---------------------------------------------------------------------------
+
+# (name, [N of each weight of one launch], K, head) at MOSS-TTSD v0.5's
+# widths, grouped as the LM launches them; the text window is the
+# restricted head's [151665, 152689)
+W8A16_SHAPES = (("q_k_v", [2048, 1024, 1024], 2048, False),
+                ("o", [2048], 2048, False),
+                ("gate_up", [6144, 6144], 2048, False),
+                ("down", [2048], 6144, False),
+                ("text_head", [152704], 2048, True),
+                ("text_window", [1024], 2048, True),
+                ("speech_heads", [7175], 2048, True))
+W8A16_PER_STEP = {"q_k_v": 28, "o": 28, "gate_up": 28, "down": 28,
+                  "text_head": 1, "speech_heads": 1}
+# a prefill of int8-dialogue-b8: 8 rows of a 640-token bucket
+W8A16_PREFILL_ROWS = 8 * 640
+
+
+def w8a16_phase(rows: int = 8):
+    """The w8a16 kernel at the int8 cell's shapes and ``rows`` rows (B 8
+    decode), one launch as the LM makes it: per launch, weight sets rotated
+    so that every call reads its weights from HBM (at least 120 MB a
+    round, 2.4x L2), the kernel's and the plain version's device ms
+    (``cuda_ms``; the plain version one call a weight), the byte bound
+    (weights, scales, x and the outputs once), and the largest error of
+    the kernel against the plain version's weights in float64, within the
+    fp32 sum's bound 2 K 2^-24 sum |terms| (plus half a bf16 ulp for a
+    projection's bf16 output), one launch counted; then a decode step's
+    sum over its 4 x 28 + 2 launches."""
+    import torch
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops import w8a16 as W
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out_rows, problems = [], []
+    for name, Ns, K, head in W8A16_SHAPES:
+        nbytes_w = sum(N * K + 4 * N for N in Ns)
+        sets = max(2, -(-120_000_000 // nbytes_w))
+        ws = [[(torch.randint(-127, 128, (N, K), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                (torch.rand((N,) if head else (N, 1), generator=gen,
+                            device="cuda") + 0.5) * 2e-4, None)
+               for N in Ns] for _ in range(sets)]
+        xs = [torch.randn((rows, K), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(sets)]
+        kern = lambda i: W.w8a16_group(xs[i % sets], ws[i % sets], head)
+        plain = lambda i: [W.w8a16_plain(xs[i % sets], q, s, None, head)
+                           for q, s, _ in ws[i % sets]]
+        fa.reset_launch_counts()
+        outs = kern(0)
+        torch.cuda.synchronize()
+        launched = W.w8a16_group.launches
+        xd = xs[0].double()
+        err, excess, finite = 0.0, float("-inf"), True
+        for out, (q, s, _) in zip(outs, ws[0]):
+            w = (q.to(torch.bfloat16) if head else
+                 q.to(torch.bfloat16) * s.to(torch.bfloat16)).double()
+            sd = s.double() if head else 1.0
+            ref = (xd @ w.t()) * sd
+            bound = 2.0 * K * 2.0 ** -24 * (xd.abs() @ w.abs().t()) * sd
+            e = (out.double() - ref).abs()
+            ex = e - bound - (0.0 if head else 2.0 ** -8 * ref.abs())
+            err, excess = max(err, float(e.max())), max(excess,
+                                                        float(ex.max()))
+            finite = finite and bool(torch.isfinite(out).all())
+            del w, ref, bound, e, ex
+        ok = finite and excess <= 0
+        iters = max(sets, 28)
+        ms = cuda_ms(kern, iters)
+        plain_ms = cuda_ms(plain, iters)
+        nbytes = nbytes_w + rows * K * 2 + rows * sum(Ns) * (4 if head else 2)
+        row = {"name": name, "N": Ns, "K": K, "rows": rows, "head": head,
+               "blocks": sum(-(-N // 16) for N in Ns), "weight_sets": sets,
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               **_bound(nbytes, 2.0 * rows * sum(Ns) * K), "bytes": nbytes,
+               "max_abs_err": err, "max_excess_over_tolerance": excess,
+               "launches": launched, "pass": ok and launched == 1}
+        row["roofline_percent"] = 100.0 * row["bound_ms"] / ms
+        if not row["pass"]:
+            problems.append(name)
+        out_rows.append(row)
+        emit({"phase": "w8a16", **row})
+        del ws, xs, outs, xd
+        torch.cuda.empty_cache()
+    step = {k: sum(W8A16_PER_STEP.get(r["name"], 0) * r[k] for r in out_rows)
+            for k in ("kernel_ms", "bound_ms", "plain_ms")}
+    pre = w8a16_prefill_rows(gen, problems)
+    emit({"phase": "w8a16", "decode_step_products_ms": step["kernel_ms"],
+          "decode_step_bound_ms": step["bound_ms"],
+          "decode_step_plain_ms": step["plain_ms"],
+          "roofline_percent": 100.0 * step["bound_ms"] / step["kernel_ms"],
+          **{f"prefill_products_{k}": sum(28 * r[k] for r in pre)
+             for k in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")},
+          "ok": not problems, "problems": problems})
+    if problems:
+        raise SystemExit(f"w8a16 phase failed: {problems}")
+
+
+def w8a16_prefill_rows(gen, problems, rows: int = W8A16_PREFILL_ROWS):
+    """The many-row kernel at a prefill's ``rows`` over the projections of
+    one layer, grouped as the LM launches them: its device ms, the plain
+    version's (the dequantized copy, then cuBLAS), cuBLAS's bf16 product
+    over a weight dequantized beforehand (``library_ms``: the bf16 model's
+    GEMM, no copy), the FLOP bound, and the largest error against the
+    plain version's weights in float64 over 256 of the rows."""
+    import torch
+    import torch.nn.functional as F
+    from moss_ttsd_torch.ops import flash_attention as fa
+    from moss_ttsd_torch.ops import w8a16 as W
+    out_rows = []
+    for name, Ns, K, head in W8A16_SHAPES[:4]:
+        sets = 2
+        ws = [[(torch.randint(-127, 128, (N, K), generator=gen,
+                              device="cuda", dtype=torch.int8),
+                (torch.rand((N, 1), generator=gen, device="cuda") + 0.5)
+                * 2e-4, None) for N in Ns] for _ in range(sets)]
+        deq = [[q.to(torch.bfloat16) * s.to(torch.bfloat16)
+                for q, s, _ in w] for w in ws]
+        xs = [torch.randn((rows, K), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(sets)]
+        kern = lambda i: W.w8a16_gemm(xs[i % sets], ws[i % sets])
+        plain = lambda i: [W.w8a16_plain(xs[i % sets], q, s)
+                           for q, s, _ in ws[i % sets]]
+        lib = lambda i: [F.linear(xs[i % sets], w) for w in deq[i % sets]]
+        fa.reset_launch_counts()
+        outs = kern(0)
+        torch.cuda.synchronize()
+        launched = W.w8a16_gemm.launches
+        xd = xs[0][:256].double()
+        err, excess = 0.0, float("-inf")
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        for out, w in zip(outs, deq[0]):
+            wd = w.double()
+            ref = xd @ wd.t()
+            bound = 2.0 * K * 2.0 ** -24 * (xd.abs() @ wd.abs().t())
+            e = (out[:256].double() - ref).abs()
+            ex = e - bound - 2.0 ** -8 * ref.abs()
+            err = max(err, float(e.max()))
+            excess = max(excess, float(ex.max()))
+            del wd, ref, bound, e, ex
+        iters = 8
+        ms, plain_ms, lib_ms = (cuda_ms(f, iters) for f in (kern, plain, lib))
+        flops = 2.0 * rows * sum(Ns) * K
+        nbytes = sum(N * K + 4 * N for N in Ns) + rows * K * 2 \
+            + rows * sum(Ns) * 2
+        row = {"name": f"prefill_{name}", "N": Ns, "K": K, "rows": rows,
+               "blocks": sum(-(-N // 128) for N in Ns) * -(-rows // 128),
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "cuBLAS bf16 over a dequantized weight",
+               **_bound(nbytes, flops), "tflops": flops / ms * 1e-9,
+               "max_abs_err": err, "max_excess_over_tolerance": excess,
+               "launches": launched,
+               "pass": finite and excess <= 0 and launched == 1}
+        row["roofline_percent"] = 100.0 * row["bound_ms"] / ms
+        if not row["pass"]:
+            problems.append(row["name"])
+        out_rows.append(row)
+        emit({"phase": "w8a16", **row})
+        del ws, deq, xs, outs, xd
+        torch.cuda.empty_cache()
+    return out_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,reference,main,logits,"
                          "stream,overlap,podcast,server,pool,xla,ablate,"
-                         "clone,int8,afmoe,"
+                         "clone,int8,afmoe,w8a16,"
                          "mesh,comm,seqpar,pipe,load,train,codec_train,cli,"
                          "profile,sweep (default all = every phase but "
                          "profile and sweep; comm runs the mesh phase)")
@@ -5670,7 +5861,8 @@ def main(argv=None) -> int:
     from moss_ttsd_torch.ops import flash_attention as fa
     phases = ({"kernels", "reference", "main", "logits", "stream",
                "overlap", "podcast", "server", "pool", "xla", "ablate",
-               "clone", "int8", "afmoe", "mesh", "comm", "seqpar", "pipe",
+               "clone", "int8", "afmoe", "w8a16", "mesh", "comm", "seqpar",
+               "pipe",
                "load",
                "train", "codec_train", "cli"}
               if args.phases == "all" else set(args.phases.split(",")))
@@ -5747,6 +5939,9 @@ def main(argv=None) -> int:
     mesh_line = None
     if "afmoe" in phases:
         afmoe_phase()
+    if "w8a16" in phases:
+        w8a16_phase()
+        _release()
     if "mesh" in phases:
         # the ranks share the card: this process holds nothing of before
         _release()

@@ -77,6 +77,7 @@ from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
 from ..ops.moe import moe_experts, route
 from ..ops.quantize import quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.w8a16 import matmul_f32_out, w8a16_product, w8a16_products
 from ..utils.convert_lora import lora_scale
 from ..utils.profiling import label
 
@@ -114,7 +115,9 @@ class QLinear(nn.Module):
     """Weight-only int8 linear (w8a16, JAX ``QDense``): an int8 (out, in)
     weight, an fp32 (out, 1) per-output-row scale and an optional float
     bias. The scale is cast to the compute dtype before the product, as the
-    JAX layer does; activations stay in the compute dtype."""
+    JAX layer does; activations stay in the compute dtype. The product is
+    ``ops/w8a16.w8a16_product``: on the card a kernel that reads the int8
+    weight as it is."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = False):
@@ -126,10 +129,8 @@ class QLinear(nn.Module):
 
     def forward(self, x: torch.Tensor, add_bias: bool = True
                 ) -> torch.Tensor:
-        w = self.weight_q.to(x.dtype) * self.weight_s.to(x.dtype)
-        b = (None if self.bias is None or not add_bias
-             else self.bias.to(x.dtype))
-        return F.linear(x, w, b)
+        b = None if self.bias is None or not add_bias else self.bias
+        return w8a16_product(x, self.weight_q, self.weight_s, b)
 
 
 class Dense(nn.Linear):
@@ -214,15 +215,18 @@ class Qwen3Block(nn.Module):
         self.down_proj = dense(ffn, hid, False, "down_proj")
 
     def _proj(self, name: str, h: torch.Tensor,
-              adapters: Optional[dict]) -> torch.Tensor:
+              adapters: Optional[dict],
+              y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The projection ``name`` of h (B, T, in), plus the rows' LoRA
         delta when ``adapters`` holds this target: (a (B, in, r), b (B, r,
         out)) of this layer, the scale folded into b. A rowwise
         tensor-parallel projection sums the ranks' partial products (the
-        delta's too) and then adds its bias once."""
+        delta's too) and then adds its bias once. ``y``: the base product,
+        already computed (``_projs``)."""
         layer = getattr(self, name)
         partial = self.tp is not None and self.tp.is_rowwise(name)
-        y = layer(h, add_bias=not partial)
+        if y is None:
+            y = layer(h, add_bias=not partial)
         if adapters is not None and name in adapters:
             a, b = adapters[name]
             y = y + torch.bmm(torch.bmm(h, a), b)
@@ -231,6 +235,19 @@ class Qwen3Block(nn.Module):
             if layer.bias is not None:
                 y = y + layer.bias.to(y.dtype)
         return y
+
+    def _projs(self, names: Tuple[str, ...], h: torch.Tensor,
+               adapters: Optional[dict]) -> list:
+        """``_proj`` of each of ``names`` over the same h (q/k/v, gate/up:
+        column-wise on a tensor-parallel mesh, so whole outputs). int8
+        weights share one ``w8a16_products`` call: one kernel launch on
+        the card."""
+        layers = [getattr(self, n) for n in names]
+        if not isinstance(layers[0], QLinear):
+            return [self._proj(n, h, adapters) for n in names]
+        ys = w8a16_products(h, [(m.weight_q, m.weight_s, m.bias)
+                                for m in layers])
+        return [self._proj(n, h, adapters, y) for n, y in zip(names, ys)]
 
     def forward(self, x, cos, sin, layer_idx: int, cache: Optional[dict],
                 cache_pos: Union[int, torch.Tensor], key_valid: torch.Tensor,
@@ -241,9 +258,10 @@ class Qwen3Block(nn.Module):
         H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
         B, T, _ = x.shape
         h = self.input_ln(x)
-        q = self._proj("q_proj", h, adapters).reshape(B, T, H, D)
-        k = self._proj("k_proj", h, adapters).reshape(B, T, Hkv, D)
-        v = self._proj("v_proj", h, adapters).reshape(B, T, Hkv, D)
+        q, k, v = self._projs(("q_proj", "k_proj", "v_proj"), h, adapters)
+        q = q.reshape(B, T, H, D)
+        k = k.reshape(B, T, Hkv, D)
+        v = v.reshape(B, T, Hkv, D)
         q, k = self.q_norm(q), self.k_norm(k)
         if not self.cfg.ablate_rope:          # the bench-only rope stub
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -317,9 +335,8 @@ class Qwen3Block(nn.Module):
             attn = gqa_attention(q, k, v, mask, scale)
         x = x + self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
         h = self.post_ln(x)
-        act = (F.silu(self._proj("gate_proj", h, adapters))
-               * self._proj("up_proj", h, adapters))
-        return x + self._proj("down_proj", act, adapters)
+        gate, up = self._projs(("gate_proj", "up_proj"), h, adapters)
+        return x + self._proj("down_proj", F.silu(gate) * up, adapters)
 
     def _dense(self, q, cache, layer_idx, mask, scale):
         """The dense attention of ``attn_impl="xla"`` (JAX ``xla_attend``)
@@ -725,11 +742,13 @@ class AsteroidLM(nn.Module):
         """hidden (..., hidden) -> (text_logits (..., vocab), speech_logits
         (..., C-1, speech_vocab)), both fp32.
 
-        The products run on the tables' own dtype (int8 tables cast to the
-        compute dtype) with fp32 accumulation and fp32 output
-        (``matmul_f32_out``): no fp32 copy of the 152704 x 2048 table is
-        ever made. int8 per-row scales multiply the fp32 product, output
-        side. ``restricted``: text logits over the ``cfg.text_head_window()``
+        The products run on the tables' own dtype with fp32 accumulation
+        and fp32 output (``matmul_f32_out``): no fp32 copy of the 152704 x
+        2048 table is ever made. int8 tables go through
+        ``ops/w8a16.w8a16_product`` (on the card a kernel, no copy; on
+        the CPU the table cast to the compute dtype), their per-row scales
+        multiplying the fp32 product, output side.
+        ``restricted``: text logits over the ``cfg.text_head_window()``
         rows only (index i means vocab id lo + i)."""
         c = self.cfg
         lo, hi = c.text_head_window() if restricted else (0, c.vocab_size)
@@ -738,9 +757,9 @@ class AsteroidLM(nn.Module):
         h = self._head_input(hidden)
         Cm1, Vs, Hd = c.channels - 1, c.speech_vocab_size, c.hidden_size
         if c.quantized:
-            w = self.embed_speech_q.reshape(Cm1 * Vs, Hd).to(h.dtype)
-            s = (matmul_f32_out(h, w.t())
-                 * self.embed_speech_s.reshape(Cm1 * Vs).float())
+            s = w8a16_product(h, self.embed_speech_q.reshape(Cm1 * Vs, Hd),
+                              self.embed_speech_s.reshape(Cm1 * Vs),
+                              head=True)
         else:
             table = (self.embed_speech if c.tie_word_embeddings
                      else self.head_speech)
@@ -776,8 +795,8 @@ class AsteroidLM(nn.Module):
             hi = max(lo, hi)
         a, b = lo - v0, hi - v0
         if self.cfg.quantized:
-            w = self.embed_text_q[a:b].to(h.dtype)
-            return matmul_f32_out(h, w.t()) * self.embed_text_s[a:b, 0].float()
+            return w8a16_product(h, self.embed_text_q[a:b],
+                                 self.embed_text_s[a:b, 0], head=True)
         return matmul_f32_out(h, self._text_table()[a:b].t())
 
     def text_logits_outside_max(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -806,19 +825,6 @@ class AsteroidLM(nn.Module):
         hidden, _ = self.backbone(input_ids, positions,
                                   attention_mask.to(torch.bool), None, 0)
         return self.logits_all(hidden)
-
-
-def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) with fp32 accumulation AND fp32 output.
-
-    On the card a bf16 product goes through ``torch.mm(..., out_dtype=
-    torch.float32)`` (cuBLAS writes the fp32 accumulator, no bf16 rounding
-    of the logits); fp32 operands and the CPU take a plain fp32 product."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

@@ -21,7 +21,8 @@ block's sliding layers; the TPU kernels have none): a query at position i
 sees the keys j with i - W < j <= i, and a decode row the slots [extent -
 W, extent). 0 keeps every earlier key, the kernels' instantiations of
 before. The same build holds ``csrc/moe_experts.cu``, the AFMoE block's
-grouped expert product (``ops/moe.py``).
+grouped expert product (``ops/moe.py``), and ``csrc/w8a16.cu``, the int8
+weights' products (``ops/w8a16.py``).
 
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain PyTorch version beside it, which is also the
@@ -67,7 +68,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"flash_prefill": "flash_prefill.cu",
            "flash_decode": "flash_decode.cu",
            "flash_decode_int8": "flash_decode_int8.cu",
-           "moe_experts": "moe_experts.cu"}
+           "moe_experts": "moe_experts.cu",
+           "w8a16": "w8a16.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
 PREFILL_BF16_HEAD_DIMS = (64, 128)   # the wgmma kernel's 128-byte panels
 DECODE_TILE = 64                     # flash_decode.cu key slots per tile
@@ -198,6 +200,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         grouped = lib.moss_moe_experts_grouped
         grouped.argtypes = [I] + [P] * 12 + [I] * 5 + [LL] * 3 + [P]
         grouped.restype = I
+    elif name == "w8a16":
+        fn = lib.moss_w8a16
+        fn.argtypes = [I, I, I, P, LL] + [P] * 7 + [I, I, P]
     else:
         fn = lib.moss_flash_decode_int8
         fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I,

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flash_attention as fa
+from .w8a16 import matmul_f32_out as mm32
 
 KERNEL_ROWS = 256       # the decode kernel's most tokens (csrc MAX_ROWS)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,7 +65,6 @@ def moe_experts_plain(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     the pairs sorted by held expert, each expert's tokens
     through its SwiGLU in turn. x (N, H); idx, w (N, k); gate, up (E, I, H);
     down (E, H, I). Returns (N, H) in x's type."""
-    from ..models.lm import matmul_f32_out as mm32    # (lm imports this)
     N, H = x.shape
     k, E = idx.shape[1], gate.shape[0]
     local = idx - offset
