@@ -5099,10 +5099,9 @@ def xla_phase(pipe, main_line=None):
         e, s, bs, g = engine_state(eng, ids, mask, 64)
         e.run(s, bs, C, g)
         prof[impl] = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
-        owner, name = ((lm.Qwen3Block, "_dense") if impl == "xla"
-                       else (lm, "flash_decode_hs"))
+        name = "attend_dense" if impl == "xla" else "flash_decode_hs"
         e, s, bs, g = engine_state(eng, ids, mask, 64)
-        inpath[impl] = _bracketed_ms(owner, name,
+        inpath[impl] = _bracketed_ms(lm, name,
                                      lambda: e.run(s, bs, C - 1, g))[1]
     line["profile_8_steps"] = prof
     line["host_syncs_per_step"] = count_syncs_per_step(

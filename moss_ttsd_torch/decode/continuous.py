@@ -45,7 +45,7 @@ from ..models.lm import init_cache, select_adapters
 from ..ops.sampling import scatter_presence
 from ..utils.profiling import span
 from .engine import (DecodeState, GenerateResult, GenerationEngine,
-                     sample_channels)
+                     delay_flags, sample_channels)
 from .lora_registry import LoraRegistry
 
 logger = logging.getLogger(__name__)
@@ -379,12 +379,15 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _step(self) -> None:
         """One pool step, in place on ``self.state`` (the JAX segment
-        body). Each component named in ``self.ablate`` runs its
-        shape-preserving stub instead (JAX ``_build_segment_fn``)."""
+        body): the draw, the flags of the rows that advance
+        (``delay_flags``, the static engine's), their token write and
+        presence sets, the per-row budget, then the forward. Each component
+        named in ``self.ablate`` runs its shape-preserving stub instead
+        (JAX ``_build_segment_fn``)."""
         st, cfg, eng, ablate = self.state, self.cfg, self.engine, self.ablate
         C, S = cfg.channels, self.S
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
-        speech_lo, speech_hi = cfg.speech_token_range
+        speech_lo = cfg.speech_token_range[0]
         lo, hi = eng.text_window
         dev = self.device
         srow = st.step_r
@@ -392,7 +395,6 @@ class ContinuousBatcher:
         slot = self.base + st.gstep              # the shared cache slot
         adv = st.active & st.unfinished          # rows that advance
         rows = torch.arange(self.slots, device=dev)
-        chan = torch.arange(C, device=dev)
         B = self.slots
 
         if "logits" in ablate:
@@ -419,27 +421,14 @@ class ContinuousBatcher:
         at = cur_r.clamp(max=S - 1)
         tf_row = st.tokens[rows, at]                               # (B, C)
         if "tf_flush" in ablate:
-            needs = st.needs
+            # no teacher forcing or flush countdown: budget-only stopping
+            needs, unfinished = st.needs, st.unfinished
         else:
-            # adv-gated: a row that does not advance samples garbage
-            # (dropped below) and must not arm the flush countdown
-            tok0 = next_tokens[:, 0]
-            is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
-            needs = torch.where(adv & ~is_speech & (st.needs < 0),
-                                torch.full_like(st.needs, C - 1), st.needs)
-
-            # teacher forcing: each row reads its own shifted-prompt tail
-            tf_mask = (srow[:, None] < C - 1) & (chan[None, :]
-                                                 > srow[:, None])
-            next_tokens = torch.where(tf_mask, tf_row, next_tokens)
-
-            fill = torch.where(chan == 0, eos, pad_speech)[None, :]
-            flushing = (needs > 0) & (needs < C - 1)
-            flush_chan = ((chan[None, :] == 0)
-                          | (needs[:, None] < C - chan[None, :]))
-            next_tokens = torch.where(flushing[:, None] & flush_chan, fill,
-                                      next_tokens)
-            next_tokens = torch.where(adv[:, None], next_tokens, fill)
+            # adv-gated: a row that does not advance samples garbage, which
+            # neither arms its countdown nor leaves the fill
+            next_tokens, needs, unfinished = delay_flags(
+                next_tokens, st.needs, st.unfinished, srow, tf_row, cfg,
+                live=adv)
 
         if "tokenwrite" not in ablate:
             # per-row token write; rows that do not advance keep their row
@@ -453,13 +442,6 @@ class ContinuousBatcher:
                              torch.where(adv[:, None], next_tokens[:, 1:],
                                          -1))
 
-        if "tf_flush" in ablate:
-            # budget-only stopping (the flush countdown is stubbed out)
-            unfinished = st.unfinished
-        else:
-            needs = torch.where(adv & (needs > 0), needs - 1, needs)
-            stopping = (next_tokens[:, 0] == eos) | (needs == 0)
-            unfinished = (st.unfinished & ~stopping) | (needs > 0)
         # per-row budget: a row that just wrote its max_r-th token stops
         unfinished = unfinished & (srow + 1 < st.max_r)
 

@@ -15,7 +15,9 @@ reference's delay-pattern control flow stays on the device as tensor ops:
   * per-channel hard masks — pad forbidden on channel i once its delay has
     elapsed, end-of-speech forbidden on channel 0 inside the TF window;
   * EOS flush — a non-speech channel-0 token starts a (C-1)-step staggered
-    pad flush tracked by an integer countdown; finished rows emit eos/pad.
+    pad flush tracked by an integer countdown; finished rows emit eos/pad
+    (the masks ``channel_logits``, the flags ``delay_flags``: one copy
+    each, shared with the continuous pool).
 
 Shapes stay static: the prompt bucket, ``buf_steps`` (the token buffer and
 the full-capacity KV cache) and a per-step decode extent ``cur_len + 1``
@@ -145,6 +147,44 @@ def channel_logits(text_logits, speech_logits, presence_text,
         out.append(apply_repetition_penalty(sl, presence_speech[:, i - 1],
                                             ch_params[i].repetition_penalty))
     return out
+
+
+def delay_flags(tokens, needs, unfinished, srow, tf_row, cfg: LMConfig,
+                live=None):
+    """The delay pattern's flags after a draw (the one copy shared by the
+    static engine and the pool) -> (tokens (B, C), needs, unfinished): a
+    non-speech channel-0 token arms the (C-1)-step flush countdown
+    ``needs`` (-1 inactive); inside the TF window (``srow``, a host int or
+    a (B,) tensor, < C-1) channels > srow take ``tf_row``; flushing rows
+    emit eos/pad on their flushed channels, rows outside the fill gate on
+    all; the countdown steps down, and a row stops on eos or at 0. ``live``
+    (B,) bool (the pool's advancing rows) gates arming and countdown and is
+    the fill gate; None fills by ``unfinished`` (a finished row's countdown
+    holds 0, so the gates would change nothing)."""
+    C = tokens.shape[1]
+    eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
+    speech_lo, speech_hi = cfg.speech_token_range
+    tok0 = tokens[:, 0]
+    is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
+    arm = ~is_speech & (needs < 0)
+    arm = arm if live is None else live & arm
+    needs = torch.where(arm, torch.full_like(needs, C - 1), needs)
+    chan = torch.arange(C, device=tokens.device)
+    if isinstance(srow, torch.Tensor):
+        tf = (srow[:, None] < C - 1) & (chan[None, :] > srow[:, None])
+        tokens = torch.where(tf, tf_row, tokens)
+    elif srow < C - 1:
+        tokens = torch.where(chan[None, :] > srow, tf_row, tokens)
+    fill = torch.where(chan == 0, eos, pad_speech)[None, :]
+    flushing = (needs > 0) & (needs < C - 1)
+    flush_chan = (chan[None, :] == 0) | (needs[:, None] < C - chan[None, :])
+    tokens = torch.where(flushing[:, None] & flush_chan, fill, tokens)
+    tokens = torch.where((unfinished if live is None else live)[:, None],
+                         tokens, fill)
+    dec = needs > 0 if live is None else live & (needs > 0)
+    needs = torch.where(dec, needs - 1, needs)
+    stopping = (tokens[:, 0] == eos) | (needs == 0)
+    return tokens, needs, (unfinished & ~stopping) | (needs > 0)
 
 
 ATTN_IMPLS = ("mixed", "pallas", "xla")
@@ -526,14 +566,14 @@ class GenerationEngine:
     def _sample(self, st: DecodeState, s: int,
                 gen: Optional[torch.Generator],
                 audit: bool = False) -> torch.Tensor:
-        """Step ``s``'s logits, draw, audit (when ``audit``) and flags:
-        writes its tokens (B, C) to ``st.tokens`` at the write slot
-        ``st.pos`` and returns them, and updates the presence sets, the
-        flush countdown and the finish flags."""
+        """Step ``s``'s logits, draw, audit (when ``audit``) and flags
+        (``delay_flags``, the teacher-forcing row read only inside the
+        window): writes its tokens (B, C) to ``st.tokens`` at the write
+        slot ``st.pos`` and returns them, and updates the presence sets,
+        the flush countdown and the finish flags."""
         cfg = self.cfg
         C = cfg.channels
         eos, pad_speech = cfg.eos_token_id, cfg.speech_pad_token
-        speech_lo, speech_hi = cfg.speech_token_range
         lo = self.text_window[0]
         restricted = cfg.restricted_text_head
         text_logits, speech_logits = self.model.logits_all(st.hidden_last,
@@ -557,33 +597,14 @@ class GenerationEngine:
             st.audit_flagged += (live & (outside
                                          > text_logits.amax(dim=-1))).sum()
 
-        # EOS detection on the sampled channel 0
-        tok0 = next_tokens[:, 0]
-        is_speech = (tok0 >= speech_lo) & (tok0 < speech_hi)
-        needs = torch.where((~is_speech) & (st.needs < 0),
-                            torch.full_like(st.needs, C - 1), st.needs)
-
-        # teacher forcing: while s < C-1, channels > s come from the prompt
-        chan = torch.arange(C, device=self.device)
-        if s < C - 1:
+        tf_row = None
+        if s < C - 1:       # teacher forcing reads the shifted prompt tail
             tf_row = st.tokens.index_select(1, st.pos.reshape(1))[:, 0]
-            next_tokens = torch.where(chan[None, :] > s, tf_row, next_tokens)
-
-        # staggered EOS flush, then finished rows emit eos/pad
-        fill = torch.where(chan == 0, eos, pad_speech)[None, :]
-        flushing = (needs > 0) & (needs < C - 1)
-        flush_chan = (chan[None, :] == 0) | (needs[:, None] < C - chan[None, :])
-        next_tokens = torch.where(flushing[:, None] & flush_chan, fill,
-                                  next_tokens)
-        next_tokens = torch.where(st.unfinished[:, None], next_tokens, fill)
-
+        next_tokens, st.needs, st.unfinished = delay_flags(
+            next_tokens, st.needs, st.unfinished, s, tf_row, cfg)
         st.tokens.index_copy_(1, st.pos.reshape(1), next_tokens[:, None])
         scatter_presence(st.presence_text, next_tokens[:, 0] - lo)
         scatter_presence(st.presence_speech, next_tokens[:, 1:])
-        needs = torch.where(needs > 0, needs - 1, needs)
-        stopping = (next_tokens[:, 0] == eos) | (needs == 0)
-        st.unfinished = (st.unfinished & ~stopping) | (needs > 0)
-        st.needs = needs
         return next_tokens
 
     def run(self, st: DecodeState, base: int, upto: int,

@@ -32,15 +32,15 @@ it is used, as flax casts (``Dense``, ``RMSNorm``, the embedding sum), so no
 ``cfg.lora_targets`` projections trainable ``lora_a`` (in, r) / ``lora_b``
 (r, out) factors (JAX ``LoRADense``).
 
-Attention: prefill (T > 1 with a cache) goes through ``flash_prefill`` on
-the exact k/v; single-token decode through the extent-clamped
-``flash_decode_hs``, or ``flash_decode_int8_hs`` over an int8 cache — the
-port's decode attentions; the cache-free forward uses the plain
-``gqa_attention``. ``cfg.attn_impl == "xla"`` (the JAX package's dense
-backend) attends with the dense einsums of ``ops/attention.py`` instead,
-over the cache slots just written (the prefill's own keys, the sequential
-decode's prefix; an int8 cache dequantized first); the pool's per-row
-extents keep the decode kernels under every backend, as in JAX.
+Attention: both blocks attend over the cache through ``attend_cached``
+(the write, then ``flash_prefill`` for a prefill, the extent-clamped
+``flash_decode_hs`` for a single-token decode, or ``flash_decode_int8_hs``
+over an int8 cache — the port's decode attentions — with the layer's
+window); the cache-free forward uses the plain ``gqa_attention``.
+``cfg.attn_impl == "xla"`` (the JAX package's dense backend) attends with
+the dense einsums of ``ops/attention.py`` instead (``attend_dense``), over
+the cache slots just written (an int8 cache dequantized first); the pool's
+per-row extents keep the decode kernels under every backend, as in JAX.
 
 Bench-only stubs (``bench_full.py`` reads them in JAX; ``chip_smoke.py``
 on the card): ``cfg.ablate_norms`` makes every RMSNorm ``x * w``,
@@ -173,7 +173,9 @@ class Qwen3Block(nn.Module):
     (``tp``, ``parallel/mesh.TensorParallel``) it holds the rank's query
     heads, the KV heads they read and its slice of the MLP: q/k/v/gate/up
     give the rank's outputs, o/down a partial product that one all-reduce
-    sums before their bias is added."""
+    sums before their bias is added. With a cache it attends through
+    ``attend_cached`` (no window); without one through ``gqa_attention``
+    under the backbone's mask."""
 
     def __init__(self, cfg: LMConfig, tp=None):
         super().__init__()
@@ -265,91 +267,22 @@ class Qwen3Block(nn.Module):
         q, k = self.q_norm(q), self.k_norm(k)
         if not self.cfg.ablate_rope:          # the bench-only rope stub
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        scale = D ** -0.5
-
         if cache is not None:
-            # head-major cache (L, B, Hkv, S, D): only the new (B, T, Hkv, D)
-            # slice is transposed. The write at the scalar cache_pos is an
-            # in-place copy_ into the slot — the counterpart of XLA's in-place
-            # dynamic_update_slice on the loop carry; no cache copy is made.
-            # An int8 cache ("k_s" present) stores the quantized slice and
-            # its per-head-per-token scales. write_gate (B,) bool: rows
-            # gated off keep their old sliver (a (B, Hkv, T[, D]) read).
-            # A tensor cache_pos (a () int64 on the device: the captured
-            # decode step's) is a one-token write through index_copy_ on
-            # the slot axis, with no host read of the slot.
-            kv8 = "k_s" in cache
-            dev_pos = isinstance(cache_pos, torch.Tensor)
-            if dev_pos and (T != 1 or write_gate is not None):
-                raise ValueError("a tensor cache_pos is one ungated token")
-            if T > 1 and cache_pos != 0:
-                raise NotImplementedError(
-                    "multi-token segments are prefill-only (cache_pos 0)")
-            for name, new in (("k", k), ("v", v)):
-                new = new.transpose(1, 2)
-                parts = [(name, new)]
-                if kv8:
-                    new, sc = quantize_kv(new)
-                    parts = [(name + "_s", sc), (name, new)]
-                for key, val in parts:
-                    dst = cache[key][layer_idx]
-                    if dev_pos:
-                        dst.index_copy_(2, cache_pos.reshape(1),
-                                        val.to(dst.dtype))
-                    else:
-                        _write(dst[:, :, cache_pos:cache_pos + T], val,
-                               write_gate)
-            if self.cfg.ablate_attention:
-                # the bench-only stub: the projections and the cache writes
-                # stay, no attention reads the cache
-                attn = q
-            elif mask is not None:
-                # attn_impl "xla": the dense path (the backbone's mask)
-                attn = self._dense(q, cache, layer_idx, mask, scale)
-            elif T > 1:
-                # prefill: queries see only keys < T, i.e. the current k/v
-                # (exact even over an int8 cache: only later steps read it)
-                attn = flash_prefill(q, k, v, key_valid[:, :T], scale)
-            else:
-                # decode: read only the slots up to the one just written,
-                # or each row up to its own (B,) int32 extent
-                ext = read_extent
-                if ext is None:
-                    ext = (slot_extent(cache_pos, B) if dev_pos
-                           else cache_pos + 1)
-                if kv8:
-                    attn = flash_decode_int8_hs(
-                        q, cache["k"], cache["k_s"], cache["v"],
-                        cache["v_s"], key_valid, scale, extent=ext,
-                        layer=layer_idx)
-                else:
-                    attn = flash_decode_hs(q, cache["k"], cache["v"],
-                                           key_valid, scale, extent=ext,
-                                           layer=layer_idx)
+            attn = attend_cached(q, k, v, cache, layer_idx, cache_pos,
+                                 key_valid, mask=mask, write_gate=write_gate,
+                                 read_extent=read_extent,
+                                 ablate=self.cfg.ablate_attention)
         else:
             if seq is not None:
                 # sequence parallelism: this rank's queries against every
                 # rank's keys (gathered after RoPE; the backward sums the
                 # ranks' cotangents and keeps this rank's window)
                 k, v = seq.gather(k), seq.gather(v)
-            attn = gqa_attention(q, k, v, mask, scale)
+            attn = gqa_attention(q, k, v, mask, D ** -0.5)
         x = x + self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
         h = self.post_ln(x)
         gate, up = self._projs(("gate_proj", "up_proj"), h, adapters)
         return x + self._proj("down_proj", F.silu(gate) * up, adapters)
-
-    def _dense(self, q, cache, layer_idx, mask, scale):
-        """The dense attention of ``attn_impl="xla"`` (JAX ``xla_attend``)
-        over this layer's first ``mask.shape[-1]`` cache slots, just
-        written: a prefill's own keys, a decode's written prefix. An int8
-        cache is dequantized in the compute dtype first, so a prefill over
-        it reads the quantized k/v, as JAX's dense prefill does."""
-        Sp, dt = mask.shape[-1], q.dtype
-        kv = [cache[n][layer_idx][:, :, :Sp].to(dt) for n in ("k", "v")]
-        if "k_s" in cache:
-            kv = [t * cache[n][layer_idx][:, :, :Sp, None].to(dt)
-                  for t, n in zip(kv, ("k_s", "v_s"))]
-        return gqa_attention_hs(q, kv[0], kv[1], mask, scale)
 
 
 class MoE(nn.Module):
@@ -416,11 +349,11 @@ class AFMoEBlock(nn.Module):
 
     with the attention over keys in (p - window, p] in a sliding layer
     (``cfg.layer_window``), and ``mlp`` a ``SwiGLU`` of intermediate_size
-    in the first ``num_dense_layers`` layers, a ``MoE`` after them. It runs
+    in the first ``num_dense_layers`` layers, a ``MoE`` after them. It
+    attends through ``attend_cached`` with the layer's window, and runs
     only over the static engine's contiguous cache (slot order is time
-    order, so a window over slots is exact): prefill through
-    ``flash_prefill`` and decode through ``flash_decode_hs``, each with the
-    layer's window; the cache-free (training) forward refuses it."""
+    order, so a window over slots is exact); the cache-free (training)
+    forward refuses it."""
 
     def __init__(self, cfg: LMConfig, layer: int):
         super().__init__()
@@ -465,28 +398,86 @@ class AFMoEBlock(nn.Module):
         v = self.v_proj(h).reshape(B, T, Hkv, D)
         if W and not self.cfg.ablate_rope:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        scale = D ** -0.5
-        dev_pos = isinstance(cache_pos, torch.Tensor)
-        for name, new in (("k", k), ("v", v)):
-            dst = cache[name][layer_idx]
-            new = new.transpose(1, 2).to(dst.dtype)
-            if dev_pos:
-                dst.index_copy_(2, cache_pos.reshape(1), new)
-            else:
-                dst[:, :, cache_pos:cache_pos + T].copy_(new)
-        if T > 1:
-            attn = flash_prefill(q, k, v, key_valid[:, :T], scale, window=W)
-        else:
-            ext = read_extent
-            if ext is None:
-                ext = (slot_extent(cache_pos, B) if dev_pos
-                       else cache_pos + 1)
-            attn = flash_decode_hs(q, cache["k"], cache["v"], key_valid,
-                                   scale, extent=ext, layer=layer_idx,
-                                   window=W)
+        attn = attend_cached(q, k, v, cache, layer_idx, cache_pos, key_valid,
+                             window=W, mask=mask,
+                             write_gate=write_gate, read_extent=read_extent,
+                             ablate=self.cfg.ablate_attention)
         gated = attn.reshape(B, T, H * D) * torch.sigmoid(self.g_proj(h))
         x = x + self.post_attn_ln(self.o_proj(gated))
         return x + self.post_mlp_ln(self.mlp(self.pre_mlp_ln(x)))
+
+
+def attend_cached(q, k, v, cache: dict, layer_idx: int,
+                  cache_pos: Union[int, torch.Tensor],
+                  key_valid: torch.Tensor, *, window: int = 0,
+                  mask: Optional[torch.Tensor] = None,
+                  write_gate: Optional[torch.Tensor] = None,
+                  read_extent: Optional[torch.Tensor] = None,
+                  ablate: bool = False) -> torch.Tensor:
+    """The cached attention of both decoder blocks: k/v (B, T, Hkv, D)
+    written into layer ``layer_idx`` of the cache in place (only the new
+    slice transposed; into an int8 cache quantized, with its scales) at a
+    host ``cache_pos``, rows with a False ``write_gate`` keeping their old
+    sliver, or at a () int64 device slot (one ungated token) through
+    ``index_copy_``; then q (B, T, H, D) attends: the ``ablate`` stub
+    (``cfg.ablate_attention``) returns q; a dense ``mask`` (the backbone's,
+    ``attn_impl="xla"``) selects ``attend_dense``; a prefill (T > 1) runs
+    ``flash_prefill`` on the exact k/v (only later steps read the cache);
+    a decode reads up to ``read_extent`` (B,) int32, else the slot just
+    written, through ``flash_decode_int8_hs`` (int8 cache) or
+    ``flash_decode_hs``. ``window`` > 0 (an AFMoE sliding layer): each
+    query sees its last ``window`` keys only."""
+    B, T = q.shape[:2]
+    scale = q.shape[-1] ** -0.5
+    kv8 = "k_s" in cache
+    dev_pos = isinstance(cache_pos, torch.Tensor)
+    if dev_pos and (T != 1 or write_gate is not None):
+        raise ValueError("a tensor cache_pos is one ungated token")
+    if T > 1 and cache_pos != 0:
+        raise NotImplementedError(
+            "multi-token segments are prefill-only (cache_pos 0)")
+    for name, new in (("k", k), ("v", v)):
+        new = new.transpose(1, 2)
+        parts = [(name, new)]
+        if kv8:
+            new, sc = quantize_kv(new)
+            parts = [(name + "_s", sc), (name, new)]
+        for key, val in parts:
+            dst = cache[key][layer_idx]
+            if dev_pos:
+                dst.index_copy_(2, cache_pos.reshape(1), val.to(dst.dtype))
+            else:
+                _write(dst[:, :, cache_pos:cache_pos + T], val, write_gate)
+    if ablate:
+        return q
+    if mask is not None:
+        return attend_dense(q, cache, layer_idx, mask, scale)
+    if T > 1:
+        return flash_prefill(q, k, v, key_valid[:, :T], scale, window=window)
+    ext = read_extent
+    if ext is None:
+        ext = slot_extent(cache_pos, B) if dev_pos else cache_pos + 1
+    if kv8:
+        return flash_decode_int8_hs(q, cache["k"], cache["k_s"], cache["v"],
+                                    cache["v_s"], key_valid, scale,
+                                    extent=ext, layer=layer_idx)
+    return flash_decode_hs(q, cache["k"], cache["v"], key_valid, scale,
+                           extent=ext, layer=layer_idx, window=window)
+
+
+def attend_dense(q, cache: dict, layer_idx: int, mask: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """The dense attention of ``attn_impl="xla"`` (JAX ``xla_attend``)
+    over this layer's first ``mask.shape[-1]`` cache slots, just written:
+    a prefill's own keys, a decode's written prefix. An int8 cache is
+    dequantized in the compute dtype first, so a prefill over it reads the
+    quantized k/v, as JAX's dense prefill does."""
+    Sp, dt = mask.shape[-1], q.dtype
+    kv = [cache[n][layer_idx][:, :, :Sp].to(dt) for n in ("k", "v")]
+    if "k_s" in cache:
+        kv = [t * cache[n][layer_idx][:, :, :Sp, None].to(dt)
+              for t, n in zip(kv, ("k_s", "v_s"))]
+    return gqa_attention_hs(q, kv[0], kv[1], mask, scale)
 
 
 def _write(dst: torch.Tensor, new: torch.Tensor,

@@ -16,8 +16,9 @@ from moss_ttsd_tpu.decode import engine as jeng  # noqa: E402
 from moss_ttsd_tpu.ops import sampling as jsam  # noqa: E402
 from moss_ttsd_tpu.pipeline.prompt import left_pad_batch  # noqa: E402
 from moss_ttsd_torch.core.config import (ChannelSamplingConfig,  # noqa: E402
-                                         SamplingConfig)
-from moss_ttsd_torch.decode.engine import GenerationEngine, channel_logits  # noqa: E402
+                                         LMConfig, SamplingConfig)
+from moss_ttsd_torch.decode.engine import (GenerationEngine,  # noqa: E402
+                                           channel_logits, delay_flags)
 from moss_ttsd_torch.ops import sampling as psam  # noqa: E402
 from tests.test_decode import make_prompt  # noqa: E402
 from tests.test_torch_lm import jax_tiny, port_model  # noqa: E402
@@ -225,6 +226,39 @@ def test_tf_pad_eos_masks_match_jax_per_row(models):
                          jcfg.speech_pad_token)
     for i in range(C):
         np.testing.assert_allclose(got[i].numpy(), seen[i], rtol=1e-6)
+
+
+def test_delay_flags_host_step_matches_per_row_step():
+    """``delay_flags`` in the engine's form (a host-int step, no row gate)
+    and in the pool's (the step as a (B,) tensor, every row active, so the
+    live rows are the unfinished ones) give the same tokens, countdowns
+    and finish flags over steps 0 to C + 2, on rows that draw their
+    non-speech token inside the TF window, at its edge, past it or never:
+    two finish, two are mid-flush, one never arms."""
+    cfg = LMConfig().tiny()
+    C, eos = cfg.channels, cfg.eos_token_id
+    arm_at = [0, 2, C - 1, C + 1, None]
+    B = len(arm_at)
+    g = torch.Generator().manual_seed(3)
+    host = rows = (torch.full((B,), -1), torch.ones(B, dtype=torch.bool))
+    for s in range(C + 3):
+        drawn = torch.randint(0, cfg.speech_vocab_size, (B, C), generator=g)
+        drawn[:, 0] = torch.randint(*cfg.speech_token_range, (B,),
+                                    generator=g)
+        for b, t in enumerate(arm_at):
+            if t == s:                      # eos, or an ordinary text token
+                drawn[b, 0] = eos if b % 2 else 7
+        tf_row = torch.randint(0, cfg.speech_vocab_size, (B, C), generator=g)
+        a = delay_flags(drawn, *host, s, tf_row if s < C - 1 else None, cfg)
+        b = delay_flags(drawn, *rows, torch.full((B,), s), tf_row, cfg,
+                        live=rows[1])
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), s
+        host, rows = a[1:], b[1:]
+    needs, unfinished = host
+    assert unfinished.tolist() == [False, False, True, True, True]
+    assert needs[0] == needs[1] == 0 and needs[3] > needs[2] > 0
+    assert needs[4] == -1
 
 
 @pytest.mark.parametrize("exact", [False, True])

@@ -5,10 +5,10 @@ workspace, the prefill into it, the bind, the kept key, the lock), its
 replay the captured body played eagerly. Checked: a state bound to it
 gives the eager step's tokens, cache, presence sets, flags and audit
 counters; the workspace is shaped as a prefill's state; a one-token
-``Qwen3Block.forward`` with a tensor ``cache_pos`` writes the scalar
-write's cache; the rule that decides where a request may replay; the kept
-key under two live requests and two threads. The replays themselves run on
-the card (``tests/test_torch_cuda.py``)."""
+block forward (Qwen3 and AFMoE) with a tensor ``cache_pos`` writes the
+scalar write's cache; the rule that decides where a request may replay;
+the kept key under two live requests and two threads. The replays
+themselves run on the card (``tests/test_torch_cuda.py``)."""
 import dataclasses
 import threading
 
@@ -20,7 +20,8 @@ from moss_ttsd_torch.core.config import (ChannelSamplingConfig, LMConfig,
                                          SamplingConfig)
 from moss_ttsd_torch.decode import step_graph
 from moss_ttsd_torch.decode.engine import GenerationEngine
-from moss_ttsd_torch.models.lm import AsteroidLM, Qwen3Block, init_cache
+from moss_ttsd_torch.models.lm import (AFMoEBlock, AsteroidLM, Qwen3Block,
+                                       init_cache)
 from moss_ttsd_torch.ops.rope import rope_cos_sin
 from moss_ttsd_torch.utils.profiling import metrics
 
@@ -185,16 +186,23 @@ def test_workspace_is_shaped_as_a_prefilled_state(policy):
         assert torch.equal(a, _state_fields(into, base)[name]), name
 
 
-@pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_block_tensor_cache_pos_writes_scalar_cache(kv_quant):
-    """One token through ``Qwen3Block.forward`` at a () int64 tensor
+@pytest.mark.parametrize("block_type,kv_quant", [
+    pytest.param("qwen3", "none", id="none"),
+    pytest.param("qwen3", "int8", id="int8"),
+    pytest.param("afmoe", "none", id="afmoe-none")])
+def test_block_tensor_cache_pos_writes_scalar_cache(block_type, kv_quant):
+    """One token through a block's ``forward`` at a () int64 tensor
     ``cache_pos``: the same output and the same cache (every slot) as the
-    scalar write, bf16 and int8 KV."""
+    scalar write; a Qwen3 block over bf16 and int8 KV, and an AFMoE
+    sliding layer (window 8, past it) over bf16 KV, both through the one
+    ``attend_cached``."""
+    afmoe = dict(block_type="afmoe", sliding_window=8,
+                 layer_types=("sliding_attention",) * 2, num_dense_layers=2)
     cfg = LMConfig(dtype="bfloat16", param_dtype="bfloat16").tiny(
-        kv_quant=kv_quant)
+        kv_quant=kv_quant, **(afmoe if block_type == "afmoe" else {}))
     model = AsteroidLM.init_random(cfg, seed=0, device="cpu")
     block = model.layers[1]
-    assert isinstance(block, Qwen3Block)
+    assert isinstance(block, AFMoEBlock if cfg.afmoe else Qwen3Block)
     B, S, pos = 2, 24, 13
     g = torch.Generator().manual_seed(0)
     x = torch.randn(B, 1, cfg.hidden_size, generator=g).to(torch.bfloat16)
