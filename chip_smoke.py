@@ -20,13 +20,16 @@ Phases, each printing one JSON line:
      split arithmetic at the kernel's own plan), batch 8 and the --tiny
      shapes (fp32, head_dim 16); which prefill kernel each dtype launches
      (the library's launch counts); quantize_kv on the card vs the CPU;
+     the fused glue (csrc/fused_norm.cu) at the cells' shapes, bf16 and
+     fp32, within the card tests' bounds and bit-equal on exact sums;
      reference — small fp32 models on the card vs the same on the CPU (LM
      hidden states, greedy tokens of the bf16 and int8 engines, codec wav,
      codec encode latents and codes);
   4. main path — TTSPipeline.process_batch at the full MOSS-TTSD-v0.5 width
      (LMConfig(), CodecConfig(), random weights from a seeded generator,
      bf16 LM and codec) over examples/examples_only_text.jsonl with
-     max_new_tokens=256; launch counts must be 28 x prefills and 28 x steps;
+     max_new_tokens=256; launch counts must be 28 x prefills and 28 x steps,
+     and the fused glue's 57 / 28 / 28 a forward (the prefill, each step);
      8 steps past the teacher-forcing window, each a captured step's
      replay, must hold 28 split-K decode kernels a step in a device trace
      and in the decode wrapper's counter (the int8 long form's likewise);
@@ -103,8 +106,11 @@ Phases, each printing one JSON line:
  10e. ablate  — the bench-only stubs read as bench_full.py reads them, on
      int8 weights quantized from the main path's: (a) the backbone split
      (bench_backbone_split: B 8, prompt 64, 64 minus 16 steps, the
-     variants in turn) under full, ablate_norms, ablate_rope, ablate_attention and all
-     three, with bench_full's shares; (b) the pool breakdown
+     variants in turn) under full, the plain glue (the fused norm kernels'
+     chains unfused), ablate_norms, ablate_rope, ablate_attention and all
+     three: what the fused glue saves, the norms' and RoPE's shares on the
+     plain glue (the stubs run it), the attention's on the fused one, the
+     floor; (b) the pool breakdown
      (bench_pool_breakdown: 8 slots, base 512, max_steps 2048, int8 KV,
      every slot filled, a 32-step segment) over the seven cumulative
      ContinuousBatcher ablate variants, each component's ms a step the
@@ -208,7 +214,8 @@ Phases, each printing one JSON line:
      prefill's 8 x 640 rows: its ms against its FLOP bound, the plain
      version's (copy and cuBLAS) and cuBLAS's bf16 GEMM over an already
      dequantized weight (the bf16 model's product), the error likewise;
-then the ``kernels`` line (times, bounds, launches; flash_prefill and
+then the ``kernels`` line (times, bounds, launches; the three fused glue
+kernels alone at the main path's and the cells' shapes; flash_prefill and
 flash_decode_hs also at the clone run's shapes; with ``--phases ...,sweep``
 also both decodes at other splits, ``split_sweep_ms``, and flash_decode_hs
 so at (8, 633), longer caches at B 1, 3 and 8 and the stream's capacity,
@@ -223,6 +230,7 @@ once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -539,6 +547,122 @@ def prefill_dispatch_check(gen):
             "finite": True, "ok": ok}
 
 
+def _glue_oracle():
+    """tests/test_torch_fused_norm.py: the card tests' inputs (``FORMS``,
+    ``_row_inputs``, ``_qk_inputs``, ``_exact``) and the bounds they derive
+    (one ulp at each rounding point a reordered fp32 sum can move, plus
+    the statistic's reorder bound)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_fused_norm as oracle
+    return oracle
+
+
+def _glue_case(kernel, case, pairs, tolerance, **extra):
+    """A fused glue kernel's outputs against its plain version's:
+    ``pairs`` of (got, want, bound), |got - want| <= bound elementwise (a
+    bound of 0: bit-equal)."""
+    import torch
+    err, excess, finite = 0.0, float("-inf"), True
+    for got, want, bound in pairs:
+        d = (got.double() - want.double()).abs()
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - bound).max()))
+        finite = finite and bool(torch.isfinite(got).all())
+        finite = finite and got.dtype == want.dtype
+    return {"kernel": kernel, "case": case, "max_abs_err": err,
+            "max_excess_over_tolerance": excess, "tolerance": tolerance,
+            "finite": finite, "ok": finite and excess <= 0.0, **extra}
+
+
+def fused_norm_checks(gen):
+    """The three glue kernels (``ops/fused_norm.py``) against their plain
+    versions at the cells' shapes: rows of 2048 at 8 x 1 (a dialogue
+    decode step) and 8 x 640 (its prefill) in every form of
+    ``residual_rms_norm`` (norm; add + norm; the AFMoE sandwich; the
+    sandwich's last add), q / k at 16 / 8 and 32 / 4 heads of 128 with and
+    without RoPE, silu x up at 8 x 6144 and 5120 x 6144, bf16 and fp32,
+    each within the card tests' bound; then bit-equality where the fp32
+    sums are exact in any order (``_exact``), which pins every rounding
+    point."""
+    import torch
+    from moss_ttsd_torch.ops import fused_norm as fn
+    o = _glue_oracle()
+    eps, N, D = o.EPS, 2048, 128
+    ulps = "one ulp at each rounding point + 3 log2(N) 2^-24 of the statistic"
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).replace("torch.", "")
+        for rows in ((8, 1), (8, 640)):
+            for form in o.FORMS:
+                x, y, w, w_y = o._row_inputs(gen, (*rows, N), dt, form)
+                gx, gh = fn.residual_rms_norm(x, y, w, eps, w_y=w_y)
+                px, ph = fn.residual_rms_norm_plain(x, y, w, eps, w_y=w_y)
+                dx = o._rows_bound(x, y, w, w_y, px)
+                pairs = [(gx, px, dx)]
+                if w is not None:
+                    pairs.append((gh, ph, o._norm_bound(px, w, ph)
+                                  + w.double().abs()
+                                  * o._stat(px).double() * dx))
+                cases.append(_glue_case(
+                    "residual_rms_norm", f"{form}_{rows[0]}x{rows[1]}_{dn}",
+                    pairs, ulps, shape=[*rows, N], dtype=dn))
+                del x, y, w, w_y, gx, gh, px, ph, dx, pairs
+            for H, Hkv in ((16, 8), (32, 4)):
+                for rope in (True, False):
+                    q, k, wq, wk, cos, sin = o._qk_inputs(gen, *rows, H, Hkv,
+                                                          D, dt)
+                    got = fn.qk_norm_rope(q, k, wq, wk, eps, cos, sin, rope)
+                    want = fn.qk_norm_rope_plain(q, k, wq, wk, eps, cos, sin,
+                                                 rope)
+                    pairs = [(g, p, o._qk_bound(v, w, fn.rms_norm_fn(
+                        v, w, eps), g, cos, sin, rope))
+                        for v, w, g, p in zip((q, k), (wq, wk), got, want)]
+                    cases.append(_glue_case(
+                        "qk_norm_rope", f"{H}_{Hkv}_{'rope' if rope else 'norm'}"
+                        f"_{rows[0]}x{rows[1]}_{dn}", pairs,
+                        ulps + ", carried through the rotation",
+                        shape=[*rows, H, Hkv, D], dtype=dn))
+                    del q, k, got, want, pairs
+        for rows in (8, 5120):
+            g, u = o._rand(gen, (rows, 6144), dt, 3.0), o._rand(
+                gen, (rows, 6144), dt)
+            want = fn.silu_mul_plain(g, u)
+            bound = o._ulp(want, dt) + u.double().abs() * o._ulp(
+                torch.nn.functional.silu(g), dt)
+            cases.append(_glue_case(
+                "silu_mul", f"{rows}x6144_{dn}",
+                [(fn.silu_mul(g, u), want, bound)],
+                "one ulp, plus silu's rounding carried by up",
+                shape=[rows, 6144], dtype=dn))
+            del g, u, want, bound
+        # exact sums: bit for bit (the sandwich's h sums inexact values)
+        for form in ("norm", "add_norm", "sandwich"):
+            x = o._exact(gen, (8, 640, N), dt, 32)
+            y = o._exact(gen, x.shape, dt, 32) if form != "norm" else None
+            w = o._weight(gen, N, dt)
+            w_y = o._weight(gen, N, dt) if form == "sandwich" else None
+            got = fn.residual_rms_norm(x, y, w, eps, w_y=w_y)
+            want = fn.residual_rms_norm_plain(x, y, w, eps, w_y=w_y)
+            n = 1 if form == "sandwich" else 2
+            cases.append(_glue_case(
+                "residual_rms_norm", f"exact_{form}_8x640_{dn}",
+                [(a, b, 0.0) for a, b in list(zip(got, want))[:n]],
+                "bit-equal", shape=[8, 640, N], dtype=dn))
+            del x, y, got, want
+        for rope in (True, False):
+            q, k, wq, wk, cos, sin = o._qk_inputs(gen, 8, 640, 16, 8, D, dt)
+            q, k = o._exact(gen, q.shape, dt), o._exact(gen, k.shape, dt)
+            got = fn.qk_norm_rope(q, k, wq, wk, eps, cos, sin, rope)
+            want = fn.qk_norm_rope_plain(q, k, wq, wk, eps, cos, sin, rope)
+            cases.append(_glue_case(
+                "qk_norm_rope", f"exact_{'rope' if rope else 'norm'}"
+                f"_8x640_{dn}", [(a, b, 0.0) for a, b in zip(got, want)],
+                "bit-equal", shape=[8, 640, 16, 8, D], dtype=dn))
+            del q, k, got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
 def kernel_checks():
     import torch
     from moss_ttsd_torch.ops import flash_attention as fa
@@ -698,6 +822,7 @@ def kernel_checks():
         decode_p_rounding_case(gen, "bf16_p_rounding", "flash_decode_int8_hs",
                                1, 1557, 16, 8, 128, 808),
         quantize_kv_check(gen),
+        *fused_norm_checks(gen),
     ]
     for c in cases:
         emit({"phase": "kernel_check", **c})
@@ -1024,6 +1149,13 @@ def encode_reference(spt_cpu, spt_gpu):
             "code_agreement": 0.0 if n_diff is None else 1 - n_diff / n_all}
 
 
+def glue_launches():
+    """The fused glue wrappers' launch counters (``ops/fused_norm.py``)."""
+    from moss_ttsd_torch.ops import fused_norm as fn
+    return {f.__name__: f.launches
+            for f in (fn.residual_rms_norm, fn.qk_norm_rope, fn.silu_mul)}
+
+
 def main_path():
     import torch
     t0 = time.perf_counter()
@@ -1032,9 +1164,18 @@ def main_path():
     init_s = time.perf_counter() - t0
     items = load_items()
     texts, audio, e2e_s, counts, peak, st = timed_batch(pipe, items)
+    glue = glue_launches()          # the same run's: reset just before it
     L = cfg.num_hidden_layers
     problems, wav_lens, audio_s = audio_problems(texts, audio, st["steps"],
                                                  cfg.channels)
+    # a forward (the prefill, each step) runs input_ln and the attention
+    # residual + post_ln a layer and the final norm, q/k and silu x up a
+    # layer, each one launch
+    forwards = 1 + st["steps"]
+    want_glue = {"residual_rms_norm": (2 * L + 1) * forwards,
+                 "qk_norm_rope": L * forwards, "silu_mul": L * forwards}
+    if glue != want_glue:
+        problems.append(f"glue launches {glue} != {want_glue}")
     if counts["flash_prefill"] != L * 1:
         problems.append(f"prefill launches {counts['flash_prefill']} != {L}")
     if counts["flash_decode_hs"] != L * st["steps"]:
@@ -1063,7 +1204,7 @@ def main_path():
             "estimate_gib": memory_estimate_gib(cfg, st["batch"],
                                                 st["steps"], st["base"]),
             "host_syncs_per_step": syncs, "launches": counts,
-            "replayed_steps": replayed,
+            "glue_launches": glue, "replayed_steps": replayed,
             "prefill_in_path_ms": prefill_ms,
             "ok": not problems, "problems": problems}
     emit(line)
@@ -4777,7 +4918,117 @@ def kernel_table(main, longform, checks, clone=None, stream=None,
                 "sequential": xla["launches"][n],
                 "pool_admission": ps["admission_launches"][n],
                 "pool_segment_16_steps": ps["launches"][n]}
+    rows += glue_rows(main, checks)
     emit({"kernels": rows})
+    return rows
+
+
+def _glue_time(gen, kernel, rows, form="add_norm", H=16, Hkv=8, rope=True,
+               N=2048, dt=None):
+    """One glue kernel alone at ``rows`` rows (``cuda_ms`` over input sets
+    rotated past L2) and its plain version likewise, against the bytes a
+    call must move: each input read once, each output written once (x
+    and its addend, x' and h; q and k both ways, the weights and RoPE's
+    fp32 cos / sin; gate, up and the product)."""
+    import torch
+    from moss_ttsd_torch.ops import fused_norm as fn
+    from moss_ttsd_torch.ops.rope import rope_cos_sin
+    dt = dt or torch.bfloat16
+    esz, eps, D = torch.finfo(dt).bits // 8, 1e-6, 128
+    if kernel == "residual_rms_norm":
+        has_y, has_wy = form != "norm", form == "sandwich"
+        nbytes = esz * (rows * N * (2 + 2 * has_y) + N * (1 + has_wy))
+    elif kernel == "qk_norm_rope":
+        nbytes = (2 * esz * rows * (H + Hkv) * D + 2 * esz * D
+                  + (8 * rows * D if rope else 0))
+    else:
+        nbytes = 3 * esz * rows * N
+    S = max(2, min(28, int(200e6 // nbytes) + 1))
+
+    def mk(shape):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dt)
+                for _ in range(S)]
+    if kernel == "residual_rms_norm":
+        xs, ys = mk((rows, N)), (mk((rows, N)) if has_y else [None] * S)
+        w = torch.ones(N, device="cuda", dtype=dt)
+        wy = w if has_wy else None
+        k = lambda i: fn.residual_rms_norm(xs[i % S], ys[i % S], w, eps,
+                                           w_y=wy)
+        p = lambda i: fn.residual_rms_norm_plain(xs[i % S], ys[i % S], w,
+                                                 eps, w_y=wy)
+    elif kernel == "qk_norm_rope":
+        qs, ks = mk((rows, 1, H, D)), mk((rows, 1, Hkv, D))
+        pos = torch.randint(0, 4000, (rows, 1), generator=gen, device="cuda")
+        cos, sin = rope_cos_sin(pos, D, 1e6)
+        w = torch.ones(D, device="cuda", dtype=dt)
+        k = lambda i: fn.qk_norm_rope(qs[i % S], ks[i % S], w, w, eps, cos,
+                                      sin, rope)
+        p = lambda i: fn.qk_norm_rope_plain(qs[i % S], ks[i % S], w, w, eps,
+                                            cos, sin, rope)
+    else:
+        gs, us = mk((rows, N)), mk((rows, N))
+        k = lambda i: fn.silu_mul(gs[i % S], us[i % S])
+        p = lambda i: fn.silu_mul_plain(gs[i % S], us[i % S])
+    ms, plain_ms = cuda_ms(k, 4 * S), cuda_ms(p, 4 * S)
+    bound = _bound(nbytes, 0.0)
+    out = {"rows": rows, "kernel_ms": ms, "plain_ms": plain_ms, **bound,
+           "bytes": nbytes, "input_sets": S,
+           "roofline_percent": 100.0 * bound["bound_ms"] / ms}
+    torch.cuda.empty_cache()
+    return out
+
+
+def glue_rows(main, checks):
+    """The fused glue kernels' rows of the kernels line (``csrc/
+    fused_norm.cu``): ms alone at the main path's decode rows (B x 1,
+    ``_glue_time``), their byte bound, the plain version's ms, the
+    launches of the main path's counted run, the check at a dialogue
+    decode step's shape; ``shapes``: the same at the main path's prefill
+    rows and at the cells' (dialogue decode 8 and prefill 8 x 640 rows,
+    the AFMoE cell's 16 rows, its sandwich norms, its 32 / 4 heads with
+    and without RoPE, its shared expert of 1024)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, P = main["batch"], main["batch"] * main["base"]
+    plans = {
+        "residual_rms_norm": (
+            "add_norm_8x1_bfloat16", "a block a row of 2048, 16-byte "
+            "vectors held in registers across the 1-2 block sums",
+            {"main decode": dict(rows=B),
+             "main decode input_ln": dict(rows=B, form="norm"),
+             "main prefill": dict(rows=P),
+             "dialogue decode": dict(rows=8),
+             "dialogue prefill": dict(rows=5120),
+             "afmoe decode sandwich": dict(rows=16, form="sandwich"),
+             "afmoe prefill sandwich": dict(rows=10240, form="sandwich")}),
+        "qk_norm_rope": (
+            "16_8_rope_8x1_bfloat16", "a warp a (row, head), a lane the "
+            "rotate-half pairs (d, d + D/2)",
+            {"main decode": dict(rows=B), "main prefill": dict(rows=P),
+             "dialogue decode": dict(rows=8),
+             "dialogue prefill": dict(rows=5120),
+             "afmoe decode": dict(rows=16, H=32, Hkv=4),
+             "afmoe decode full layer": dict(rows=16, H=32, Hkv=4,
+                                             rope=False)}),
+        "silu_mul": (
+            "8x6144_bfloat16", "16-byte vectors, grid-stride",
+            {"main decode": dict(rows=B, N=6144),
+             "main prefill": dict(rows=P, N=6144),
+             "dialogue decode": dict(rows=8, N=6144),
+             "dialogue prefill": dict(rows=5120, N=6144),
+             "afmoe shared expert": dict(rows=16, N=1024)})}
+    rows = []
+    for name, (case, design, shapes) in plans.items():
+        times = {s: _glue_time(gen, name, **kw) for s, kw in shapes.items()}
+        t = times["main decode"]
+        rows.append(_row(
+            name, "moss_ttsd_torch/csrc/fused_norm.cu",
+            "no TPU kernel: XLA fuses moss_ttsd_tpu/models/lm.py's "
+            "rms_norm_fn, ops/rope.py's apply_rope and the SwiGLU product",
+            main["glue_launches"][name], checks[f"{name}:{case}"],
+            t["kernel_ms"], t["plain_ms"], None, t["bytes"], 0.0,
+            {"shape_rows": t["rows"], "roofline_percent":
+             t["roofline_percent"], "design": design, "shapes": times}))
     return rows
 
 
@@ -5157,11 +5408,34 @@ def xla_phase(pipe, main_line=None):
 
 
 BACKBONE_VARIANTS = (
-    ("full", {}), ("ablate_norms", {"ablate_norms": True}),
+    ("full", {}), ("plain_glue", {}), ("ablate_norms", {"ablate_norms": True}),
     ("ablate_rope", {"ablate_rope": True}),
     ("ablate_attention", {"ablate_attention": True}),
     ("all_three", {"ablate_norms": True, "ablate_rope": True,
                    "ablate_attention": True}))
+# (share, the variant it is taken from, the variant that lacks it): the
+# norms and RoPE are separable on the plain glue only (fused, they share
+# kernels), which the ablate_norms / ablate_rope stubs run
+BACKBONE_SPLIT = (("glue_fusion", "plain_glue", "full"),
+                  ("norms", "plain_glue", "ablate_norms"),
+                  ("rope", "plain_glue", "ablate_rope"),
+                  ("attention", "full", "ablate_attention"))
+
+
+@contextlib.contextmanager
+def _glue(variant):
+    """Under the "plain_glue" variant every block forward takes the plain
+    glue (``lm.block_glue`` as the cache-free forward has it: the chains
+    of ops the fused kernels replace); the other variants the model's
+    own."""
+    from moss_ttsd_torch.models import lm
+    own = lm.block_glue
+    if variant == "plain_glue":
+        lm.block_glue = lambda cache, cfg: own(None, cfg)
+    try:
+        yield
+    finally:
+        lm.block_glue = own
 POOL_VARIANTS = ("full", "sampling", "logits", "tf_flush", "tokenwrite",
                  "presence", "extentcalc")
 
@@ -5174,10 +5448,13 @@ def backbone_split(cfg, qstate, sampling, long=64, short=16, trials=1):
     3; cut to keep the whole smoke in its time). The variants take turns within
     each trial, so a drift of the shared host's speed spreads over all of
     them. Each variant's launches, device-busy ms and idle share a step
-    from one profiled window of 8 steps. Shares as bench_full emits them:
-    each stub's ms = full - ablated, the floor = all three ablated,
-    unattributed = the sum of the three ablated runs - 2 x full - floor;
-    the same differences of launches and device-busy ms."""
+    from one profiled window of 8 steps. The stubs take the plain glue
+    (``lm.block_glue``), so the norms and RoPE are read against the
+    "plain_glue" variant (the served model with the glue unfused), the
+    attention against "full", and ``glue_fusion`` is what the fused
+    kernels save (``BACKBONE_SPLIT``); each share over the variant it is
+    taken from; the floor = all three ablated, its share over
+    "plain_glue". The same differences of launches and device-busy ms."""
     import numpy as np
     import torch
     from moss_ttsd_torch.decode.engine import GenerationEngine
@@ -5195,7 +5472,8 @@ def backbone_split(cfg, qstate, sampling, long=64, short=16, trials=1):
     def timed(name, n, seed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = engs[name].generate(ids, mask, max_new_tokens=n, seed=seed)
+        with _glue(name):
+            res = engs[name].generate(ids, mask, max_new_tokens=n, seed=seed)
         torch.cuda.synchronize()
         assert res.steps == n, (name, res.steps, n)
         return time.perf_counter() - t0
@@ -5210,9 +5488,10 @@ def backbone_split(cfg, qstate, sampling, long=64, short=16, trials=1):
             runs[name]["short"].append(timed(name, short, 1 + t))
     out = {}
     for name, eng in engs.items():
-        e, s, bs, g = engine_state(eng, ids, mask, 16)
-        e.run(s, bs, C, g)
-        win = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
+        with _glue(name):
+            e, s, bs, g = engine_state(eng, ids, mask, 16)
+            e.run(s, bs, C, g)
+            win = _device_window(lambda: e.run(s, bs, C + 8, g), 8)
         r = runs[name]
         out[name] = {"ms_per_step": (min(r["long"]) - min(r["short"]))
                      / (long - short) * 1e3,
@@ -5228,17 +5507,11 @@ def backbone_split(cfg, qstate, sampling, long=64, short=16, trials=1):
     for key in ("ms_per_step", "launches_per_step",
                 "device_busy_ms_per_step"):
         v = {k: x[key] for k, x in out.items()}
-        full = v["full"]
-        split[key] = {
-            "norms": full - v["ablate_norms"],
-            "rope": full - v["ablate_rope"],
-            "attention": full - v["ablate_attention"],
-            "floor": v["all_three"],
-            "unattributed": (v["ablate_norms"] + v["ablate_rope"]
-                             + v["ablate_attention"] - 2 * full
-                             - v["all_three"])}
-        split[key].update({f"{k}_share": x / full
-                           for k, x in list(split[key].items())})
+        split[key] = {"floor": v["all_three"],
+                      "floor_share": v["all_three"] / v["plain_glue"]}
+        for share, base, lacking in BACKBONE_SPLIT:
+            split[key][share] = v[base] - v[lacking]
+            split[key][f"{share}_share"] = split[key][share] / v[base]
     return {"batch": B, "prompt": P, "long": long, "short": short,
             "trials": trials, "variants": out, "split": split}
 

@@ -42,10 +42,18 @@ the dense einsums of ``ops/attention.py`` instead (``attend_dense``), over
 the cache slots just written (an int8 cache dequantized first); the pool's
 per-row extents keep the decode kernels under every backend, as in JAX.
 
+The elementwise glue between the projections (RMSNorm with the residual
+adds around it, the per-head q/k RMSNorm with RoPE, silu(gate) * up) goes
+through ``ops/fused_norm`` (``block_glue``): in a cached forward one kernel
+launch each on the card; the cache-free forward runs its plain versions,
+the chains of ops they fuse, which autograd differentiates. The norm
+modules (``RMSNorm``) only hold their weights.
+
 Bench-only stubs (``bench_full.py`` reads them in JAX; ``chip_smoke.py``
 on the card): ``cfg.ablate_norms`` makes every RMSNorm ``x * w``,
 ``cfg.ablate_rope`` skips the q/k rotations, ``cfg.ablate_attention`` sets
-the cached forward's attention output to q (the cache writes stay).
+the cached forward's attention output to q (the cache writes stay). Under
+``ablate_norms`` or ``ablate_rope`` the glue runs its plain ops.
 
 ``cfg.block_type == "afmoe"`` (the port only; arcee-ai's Trinity) builds
 every layer as an ``AFMoEBlock``: gated attention with sandwich norms,
@@ -62,6 +70,7 @@ that do not run it refuse it (``LMConfig.refuse_afmoe``).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -74,36 +83,39 @@ from ..core.device import DeviceLike, resolve_device, torch_dtype
 from ..ops.attention import causal_mask, gqa_attention, gqa_attention_hs
 from ..ops.flash_attention import (flash_decode_hs, flash_decode_int8_hs,
                                    flash_prefill)
+from ..ops.fused_norm import (qk_norm_rope, qk_norm_rope_plain,
+                              residual_rms_norm, residual_rms_norm_plain,
+                              silu_mul, silu_mul_plain)
 from ..ops.moe import moe_experts, route
 from ..ops.quantize import quantize_kv
-from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.rope import rope_cos_sin
 from ..ops.w8a16 import matmul_f32_out, w8a16_product, w8a16_products
 from ..utils.convert_lora import lora_scale
 from ..utils.profiling import label
 
 
-def rms_norm_fn(x: torch.Tensor, w: torch.Tensor, eps: float,
-                ablate: bool = False) -> torch.Tensor:
-    """RMSNorm with fp32 statistics, cast back to the input dtype before the
-    weight multiply (as the JAX ``rms_norm_fn``). ``ablate`` (the bench-only
-    ``cfg.ablate_norms`` stub) is ``x * w`` in x's dtype."""
-    if ablate:
-        return x * w.to(x.dtype)
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
-    return normed * w.to(x.dtype)
+def block_glue(cache: Optional[dict], cfg: LMConfig):
+    """The elementwise glue of a block forward (``ops/fused_norm``):
+    (residual_rms_norm, qk_norm_rope, silu_mul). A cached forward takes the
+    fused wrappers (a kernel each on the card, the plain version on the
+    CPU). The cache-free forward, which autograd runs through, and the
+    bench-only ``ablate_norms`` / ``ablate_rope`` stubs take the plain
+    versions, with ``ablate_norms`` bound."""
+    if cache is not None and not (cfg.ablate_norms or cfg.ablate_rope):
+        return residual_rms_norm, qk_norm_rope, silu_mul
+    if not cfg.ablate_norms:
+        return residual_rms_norm_plain, qk_norm_rope_plain, silu_mul_plain
+    return (partial(residual_rms_norm_plain, ablate=True),
+            partial(qk_norm_rope_plain, ablate=True), silu_mul_plain)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-6, ablate: bool = False):
-        super().__init__()
-        self.eps = eps
-        self.ablate = ablate
-        self.weight = nn.Parameter(torch.ones(dim))
+    """The weight of one RMSNorm; the blocks apply it through their glue
+    (``block_glue``) with ``cfg.rms_norm_eps``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm_fn(x, self.weight, self.eps, self.ablate)
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
 
 
 def _int8(*shape) -> nn.Parameter:
@@ -201,17 +213,14 @@ class Qwen3Block(nn.Module):
                 return Dense(fan_in, fan_out, bias, c.lora_rank, scale)
             return Dense(fan_in, fan_out, bias)
 
-        def norm(dim):
-            return RMSNorm(dim, c.rms_norm_eps, ablate=c.ablate_norms)
-
-        self.input_ln = norm(hid)
+        self.input_ln = RMSNorm(hid)
         self.q_proj = dense(hid, H * D, bias, "q_proj")
         self.k_proj = dense(hid, Hkv * D, bias, "k_proj")
         self.v_proj = dense(hid, Hkv * D, bias, "v_proj")
         self.o_proj = dense(H * D, hid, bias, "o_proj")  # HF Qwen3: o_proj too
-        self.q_norm = norm(D)
-        self.k_norm = norm(D)
-        self.post_ln = norm(hid)
+        self.q_norm = RMSNorm(D)
+        self.k_norm = RMSNorm(D)
+        self.post_ln = RMSNorm(hid)
         self.gate_proj = dense(hid, ffn, False, "gate_proj")
         self.up_proj = dense(hid, ffn, False, "up_proj")
         self.down_proj = dense(ffn, hid, False, "down_proj")
@@ -257,21 +266,22 @@ class Qwen3Block(nn.Module):
                 write_gate: Optional[torch.Tensor] = None,
                 read_extent: Optional[torch.Tensor] = None,
                 adapters: Optional[dict] = None, seq=None):
-        H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
+        c = self.cfg
+        H, Hkv, D = self.heads, self.kv_heads, c.head_dim
         B, T, _ = x.shape
-        h = self.input_ln(x)
+        eps = c.rms_norm_eps
+        res_norm, qk_norm, glu = block_glue(cache, c)
+        _, h = res_norm(x, None, self.input_ln.weight, eps)
         q, k, v = self._projs(("q_proj", "k_proj", "v_proj"), h, adapters)
-        q = q.reshape(B, T, H, D)
-        k = k.reshape(B, T, Hkv, D)
+        q, k = qk_norm(q.reshape(B, T, H, D), k.reshape(B, T, Hkv, D),
+                       self.q_norm.weight, self.k_norm.weight, eps, cos, sin,
+                       rope=not c.ablate_rope)     # the bench-only rope stub
         v = v.reshape(B, T, Hkv, D)
-        q, k = self.q_norm(q), self.k_norm(k)
-        if not self.cfg.ablate_rope:          # the bench-only rope stub
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         if cache is not None:
             attn = attend_cached(q, k, v, cache, layer_idx, cache_pos,
                                  key_valid, mask=mask, write_gate=write_gate,
                                  read_extent=read_extent,
-                                 ablate=self.cfg.ablate_attention)
+                                 ablate=c.ablate_attention)
         else:
             if seq is not None:
                 # sequence parallelism: this rank's queries against every
@@ -279,10 +289,10 @@ class Qwen3Block(nn.Module):
                 # ranks' cotangents and keeps this rank's window)
                 k, v = seq.gather(k), seq.gather(v)
             attn = gqa_attention(q, k, v, mask, D ** -0.5)
-        x = x + self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
-        h = self.post_ln(x)
+        o = self._proj("o_proj", attn.reshape(B, T, H * D), adapters)
+        x, h = res_norm(x, o, self.post_ln.weight, eps)
         gate, up = self._projs(("gate_proj", "up_proj"), h, adapters)
-        return x + self._proj("down_proj", F.silu(gate) * up, adapters)
+        return x + self._proj("down_proj", glu(gate, up), adapters)
 
 
 class MoE(nn.Module):
@@ -311,7 +321,7 @@ class MoE(nn.Module):
         self.shared = (SwiGLU(hid, width) if width else None)
         self.counts: Optional[torch.Tensor] = None
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, glu=silu_mul) -> torch.Tensor:
         c = self.cfg
         B, T, H = h.shape
         x = h.reshape(B * T, H)
@@ -323,7 +333,7 @@ class MoE(nn.Module):
                             self.down_proj, c.expert_offset,
                             self.counts if T == 1 else None)
         y = y.reshape(B, T, H)
-        return y if self.shared is None else self.shared(h) + y
+        return y if self.shared is None else self.shared(h, glu) + y
 
 
 class SwiGLU(nn.Module):
@@ -335,8 +345,9 @@ class SwiGLU(nn.Module):
         self.up_proj = Dense(hid, width)
         self.down_proj = Dense(width, hid)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+    def forward(self, h: torch.Tensor, glu=silu_mul) -> torch.Tensor:
+        """``glu``: the block's silu(gate) * up (``block_glue``)."""
+        return self.down_proj(glu(self.gate_proj(h), self.up_proj(h)))
 
 
 class AFMoEBlock(nn.Module):
@@ -364,20 +375,17 @@ class AFMoEBlock(nn.Module):
         self.window = c.layer_window(layer)
         hid = c.hidden_size
 
-        def norm(dim):
-            return RMSNorm(dim, c.rms_norm_eps, ablate=c.ablate_norms)
-
-        self.input_ln = norm(hid)
+        self.input_ln = RMSNorm(hid)
         self.q_proj = Dense(hid, H * D, c.attention_bias)
         self.k_proj = Dense(hid, Hkv * D, c.attention_bias)
         self.v_proj = Dense(hid, Hkv * D, c.attention_bias)
         self.g_proj = Dense(hid, H * D)
         self.o_proj = Dense(H * D, hid, c.attention_bias)
-        self.q_norm = norm(D)
-        self.k_norm = norm(D)
-        self.post_attn_ln = norm(hid)
-        self.pre_mlp_ln = norm(hid)
-        self.post_mlp_ln = norm(hid)
+        self.q_norm = RMSNorm(D)
+        self.k_norm = RMSNorm(D)
+        self.post_attn_ln = RMSNorm(hid)
+        self.pre_mlp_ln = RMSNorm(hid)
+        self.post_mlp_ln = RMSNorm(hid)
         self.mlp = (MoE(c) if c.is_moe_layer(layer)
                     else SwiGLU(hid, c.intermediate_size))
 
@@ -389,22 +397,28 @@ class AFMoEBlock(nn.Module):
                 adapters: Optional[dict] = None, seq=None):
         if cache is None:
             self.cfg.refuse_afmoe("the cache-free forward")
-        H, Hkv, D = self.heads, self.kv_heads, self.cfg.head_dim
+        c = self.cfg
+        H, Hkv, D = self.heads, self.kv_heads, c.head_dim
         B, T, _ = x.shape
         W = self.window
-        h = self.input_ln(x)
-        q = self.q_norm(self.q_proj(h).reshape(B, T, H, D))
-        k = self.k_norm(self.k_proj(h).reshape(B, T, Hkv, D))
+        eps = c.rms_norm_eps
+        res_norm, qk_norm, glu = block_glue(cache, c)
+        _, h = res_norm(x, None, self.input_ln.weight, eps)
+        q, k = qk_norm(self.q_proj(h).reshape(B, T, H, D),
+                       self.k_proj(h).reshape(B, T, Hkv, D),
+                       self.q_norm.weight, self.k_norm.weight, eps, cos, sin,
+                       rope=bool(W) and not c.ablate_rope)
         v = self.v_proj(h).reshape(B, T, Hkv, D)
-        if W and not self.cfg.ablate_rope:
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         attn = attend_cached(q, k, v, cache, layer_idx, cache_pos, key_valid,
                              window=W, mask=mask,
                              write_gate=write_gate, read_extent=read_extent,
-                             ablate=self.cfg.ablate_attention)
+                             ablate=c.ablate_attention)
         gated = attn.reshape(B, T, H * D) * torch.sigmoid(self.g_proj(h))
-        x = x + self.post_attn_ln(self.o_proj(gated))
-        return x + self.post_mlp_ln(self.mlp(self.pre_mlp_ln(x)))
+        x, h = res_norm(x, self.o_proj(gated), self.pre_mlp_ln.weight, eps,
+                        w_y=self.post_attn_ln.weight)
+        x, _ = res_norm(x, self.mlp(h, glu), None, eps,
+                        w_y=self.post_mlp_ln.weight)
+        return x
 
 
 def attend_cached(q, k, v, cache: dict, layer_idx: int,
@@ -550,8 +564,7 @@ class AsteroidLM(nn.Module):
                                         for _ in range(c.num_hidden_layers))
         self.kv_heads = self.layers[0].kv_heads if self.layers else 0
         self.moe_counts: Optional[torch.Tensor] = None
-        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps,
-                                  ablate=c.ablate_norms)
+        self.final_norm = RMSNorm(c.hidden_size)
 
     @classmethod
     def init_random(cls, cfg: LMConfig, seed: int = 0,
@@ -712,7 +725,9 @@ class AsteroidLM(nn.Module):
             with label("lm.layer"):
                 x = (checkpoint(layer, *args, use_reentrant=False) if remat
                      else layer(*args))
-        return self.final_norm(x), cache
+        _, h = block_glue(cache, c)[0](x, None, self.final_norm.weight,
+                                       c.rms_norm_eps)
+        return h, cache
 
     def _attach_counts(self, device: torch.device) -> None:
         """The expert layers' device counters ``moe_counts`` (held pairs,

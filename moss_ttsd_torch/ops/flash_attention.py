@@ -21,8 +21,9 @@ block's sliding layers; the TPU kernels have none): a query at position i
 sees the keys j with i - W < j <= i, and a decode row the slots [extent -
 W, extent). 0 keeps every earlier key, the kernels' instantiations of
 before. The same build holds ``csrc/moe_experts.cu``, the AFMoE block's
-grouped expert product (``ops/moe.py``), and ``csrc/w8a16.cu``, the int8
-weights' products (``ops/w8a16.py``).
+grouped expert product (``ops/moe.py``), ``csrc/w8a16.cu``, the int8
+weights' products (``ops/w8a16.py``), and ``csrc/fused_norm.cu``, the
+decoder blocks' fused norms (``ops/fused_norm.py``).
 
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain PyTorch version beside it, which is also the
@@ -69,7 +70,8 @@ SOURCES = {"flash_prefill": "flash_prefill.cu",
            "flash_decode": "flash_decode.cu",
            "flash_decode_int8": "flash_decode_int8.cu",
            "moe_experts": "moe_experts.cu",
-           "w8a16": "w8a16.cu"}
+           "w8a16": "w8a16.cu",
+           "fused_norm": "fused_norm.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
 PREFILL_BF16_HEAD_DIMS = (64, 128)   # the wgmma kernel's 128-byte panels
 DECODE_TILE = 64                     # flash_decode.cu key slots per tile
@@ -203,6 +205,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "w8a16":
         fn = lib.moss_w8a16
         fn.argtypes = [I, I, I, P, LL] + [P] * 7 + [I, I, P]
+    elif name == "fused_norm":
+        lib.moss_residual_rms_norm.argtypes = ([I, I, I, F] + [P, LL] * 2
+                                               + [P, P] + [P, LL] * 2 + [P])
+        lib.moss_qk_norm_rope.argtypes = [I] * 6 + [F, I] + [P] * 12
+        lib.moss_residual_rms_norm.restype = I
+        lib.moss_qk_norm_rope.restype = I
+        fn = lib.moss_silu_mul
+        fn.argtypes = [I, LL, P, P, P, P]
     else:
         fn = lib.moss_flash_decode_int8
         fn.argtypes = ([I, P, P, P, P, P, P, P, I, P, I, I, I, I, I, F, I, I,

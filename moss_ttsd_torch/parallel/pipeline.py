@@ -46,6 +46,7 @@ from ..core.config import LMConfig
 from ..core.device import torch_dtype
 from ..ops.attention import causal_mask
 from ..ops.chunked_ce import asteroid_loss
+from ..ops.fused_norm import residual_rms_norm_plain
 from ..ops.rope import rope_cos_sin
 from ..train.step import (DEFAULT_LOSS_WEIGHTS, all_reduce_grads,
                           global_label_counts, to_device)
@@ -271,7 +272,10 @@ def make_pp_train_step(cfg: LMConfig, optimizer, mesh: Mesh,
             return cos, sin, kv, causal_mask(0, T, T, kv)
 
         def head(m, y):
-            return asteroid_loss(model.final_norm(y), labels[m],
+            h = residual_rms_norm_plain(y, None, model.final_norm.weight,
+                                        cfg.rms_norm_eps,
+                                        ablate=cfg.ablate_norms)[1]
+            return asteroid_loss(h, labels[m],
                                  model.embed_text, model.embed_speech,
                                  loss_weights, num_chunks=ce_chunks,
                                  counts=counts)
